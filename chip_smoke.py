@@ -7,16 +7,33 @@ Run from the repository root, on a machine with a CUDA card, nvcc and the
 checkpoint runs_r5/mnist_repin/netG_final.pth. Phases, each logged with the
 elapsed time:
 
-  1. device  - the card's name and power limit, torch and CUDA versions;
-  2. build   - nvcc builds csrc/stn_place.cu for sm_90a (ptxas report);
-  3. kernel  - the STN place kernel (K1) against its plain PyTorch version
-               on the card, at the generator's shape and at edge cases,
-               timed by CUDA events beside the plain version and the bound;
-  4. model   - the full-width trained Stage1G on the card against the port
-               on the CPU, batch 64, and its forward time on the card;
-  5. serve   - the port's HTTP server on the card: concurrent /generate
-               requests, a 64-item request, /stats, and the proof that the
-               served batches went through K1 (its launch count).
+  1. device   - the card's name and power limit, torch and CUDA versions;
+  2. build    - nvcc builds csrc/stn_place.cu for sm_90a (ptxas report);
+  3. kernel   - the STN place kernel (K1) against its plain PyTorch version
+                on the card, at the served generator's shape, at the G and
+                D shapes of the train step and at edge cases, timed by CUDA
+                events beside the plain version and the bound;
+  4. model    - the full-width trained Stage1G on the card against the port
+                on the CPU, batch 64, and its forward time on the card;
+  5. serve    - the port's HTTP server on the card: concurrent /generate
+                requests, a 64-item request, /stats, and the proof that the
+                served batches went through K1 (its launch count);
+  6. grad     - the place backward (K2) against its plain version on the
+                card, at the G and D shapes of the train step and at edge
+                cases, timed beside the plain version and the bound;
+  7. autograd - gradients through StnPlaceMulti (K3) on the card against
+                the CPU, and a train-mode Stage1G's object-pathway gradient
+                on the card against the CPU;
+  8. step     - one full-width train step (batch 128) on the card against
+                the same step on the CPU, from the reference init and from
+                the weights tests/test_step_parity.py draws: losses,
+                BatchNorm statistics and per-tensor gradient cosines held,
+                the Adam deltas read;
+  9. steptime - the train step's time on the card at batch 128, and its K1
+                and K2 launches per step;
+ 10. train    - the port's train entry (cli/main.py) for one synthetic
+                epoch on the card, and the proof that it went through K1
+                and K2 (their launch counts).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -41,14 +58,18 @@ import zlib
 import numpy as np
 import torch
 
+from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, _item_layout, _png_b64, serve)
+from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_multimnist
 from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
+from multiple_objects_gan_tpu_torch.train.state import create_state
+from multiple_objects_gan_tpu_torch.train.step import make_train_step
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +79,12 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-5
 MODEL_ATOL = 5e-4
 MIN_SEPARATION = 0.5
+GRAD_RTOL = 1e-3            # Stage1G object-pathway gradient, card vs CPU
+LOSS_ATOL = 1e-3            # train step, card vs CPU: tests/test_step_parity.py
+STATS_ATOL = 5e-4
+MIN_GRAD_COSINE = 0.995     # per tensor, card vs CPU (PERF.md: >= 0.9984 read)
+STEP_BATCH = 128            # cfg/mnist_train.yml TRAIN.BATCH_SIZE
+LR = 2e-4
 DEVICE = "cuda"
 
 
@@ -91,7 +118,7 @@ def cuda_ms(fn, warmup: int = 5, runs: int = 50) -> float:
 
 
 def phase_device():
-    log("phase 1/5 device")
+    log("phase 1/10 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -109,7 +136,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/5 build")
+    log("phase 2/10 build")
     built = _build.build("stn_place")
     for line in built.log.splitlines():
         if line.strip():
@@ -145,7 +172,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/5 kernel against its plain version, on the card")
+    log("phase 3/10 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -160,11 +187,15 @@ def phase_kernel():
             bbox = np.stack([rs.uniform(-0.4, 0.9, (b, o)),
                              rs.uniform(-0.4, 0.9, (b, o)), w, h],
                             -1).astype(np.float32)
+        elif kind == "train":         # the train step's boxes
+            bbox = _train_boxes(b, int(rs.randint(1 << 30)))
         return (torch.from_numpy(feats).to(dev),
                 torch.from_numpy(bbox).to(dev))
 
     cases = [
         ("generator path", (64, 3, 256, (16, 16), "service")),
+        ("train step, G", (STEP_BATCH, 3, 256, (16, 16), "train")),
+        ("train step, D, 15x15", (STEP_BATCH, 3, 128, (15, 15), "train")),
         ("padded objects", (64, 3, 256, (16, 16), "padded")),
         ("boxes partly off the canvas", (64, 3, 256, (16, 16), "off-canvas")),
         ("odd channel count", (64, 3, 37, (16, 16), "service")),
@@ -172,7 +203,7 @@ def phase_kernel():
         ("15x15 maps onto the 16x16 canvas", (64, 3, 128, (15, 15), "service")),
     ]
     worst = 0.0
-    timed = None
+    timed = {}
     for label, (b, o, c, hw, kind) in cases:
         feats, bbox = case(b, o, c, hw, kind)
         got = k1.stn_place_multi_nchw(feats, bbox, (16, 16))
@@ -187,24 +218,29 @@ def phase_kernel():
         if kind == "padded":
             check(int(torch.count_nonzero(got[::2])) == 0,
                   "padded items must place exact zeros")
-        if timed is None:
-            timed = (feats, bbox)
+        if kind in ("service", "train") and c != 37 and b > 1:
+            timed.setdefault(f"{kind} {hw[0]}", (feats, bbox))
 
-    feats, bbox = timed
-    ms = cuda_ms(lambda: k1.stn_place_multi_nchw(feats, bbox, (16, 16)))
-    plain_ms = cuda_ms(lambda: k1.stn_place_multi_plain(feats, bbox, (16, 16)))
-    bound_ms, bound_by, dense_ms = _bound(feats, bbox, (16, 16))
-    log(f"K1 at {tuple(feats.shape)} -> (16, 16), CUDA events, median of "
-        f"50: {ms:.4f} ms; plain version {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms ({bound_by}, this run's boxes; {dense_ms:.4f} ms "
-        f"if every input value were read); {bound_ms / ms:.1%} of the bound")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "dense_bound_ms": dense_ms}
+    out = {"max_abs_err": worst}
+    for path, key in (("serve", "service 16"), ("train G", "train 16"),
+                      ("train D", "train 15")):
+        feats, bbox = timed[key]
+        ms = cuda_ms(lambda: k1.stn_place_multi_nchw(feats, bbox, (16, 16)))
+        plain_ms = cuda_ms(
+            lambda: k1.stn_place_multi_plain(feats, bbox, (16, 16)))
+        bound_ms, bound_by, dense_ms = _bound(feats, bbox, (16, 16))
+        log(f"K1 at the {path} shape {tuple(feats.shape)} -> (16, 16), CUDA "
+            f"events, median of 50: {ms:.4f} ms; plain version "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, this "
+            f"run's boxes; {dense_ms:.4f} ms if every input value were "
+            f"read); {bound_ms / ms:.1%} of the bound")
+        out[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "dense_bound_ms": dense_ms}
+    return out
 
 
 def phase_model():
-    log("phase 4/5 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/10 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -275,7 +311,7 @@ def _separation(u8, boxes) -> float:
 
 
 def phase_serve():
-    log("phase 5/5 serve: the port's main path over HTTP, on the card")
+    log("phase 5/10 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -369,6 +405,366 @@ def phase_serve():
     return launches, latency_ms
 
 
+def _train_boxes(b, seed):
+    """Boxes as the training data draws them (the synthetic Multi-MNIST
+    set: three objects, 0.2-0.33 wide, inside the canvas)."""
+    return synthetic_multimnist(b, seed=seed)["bbox"]
+
+
+def _grad_boxes(rs, b, o, kind):
+    if kind == "wide":                # wider than the canvas, any place
+        w = rs.uniform(1.0, 1.6, (b, o))
+        h = rs.uniform(1.0, 1.6, (b, o))
+        return np.stack([rs.uniform(-0.8, 0.5, (b, o)),
+                         rs.uniform(-0.8, 0.5, (b, o)), w, h],
+                        -1).astype(np.float32)
+    if kind == "off-canvas":          # sticking out on every side
+        w = rs.uniform(0.3, 0.6, (b, o))
+        h = rs.uniform(0.3, 0.6, (b, o))
+        return np.stack([rs.uniform(-0.4, 0.9, (b, o)),
+                         rs.uniform(-0.4, 0.9, (b, o)), w, h],
+                        -1).astype(np.float32)
+    bbox = _train_boxes(b, int(rs.randint(1 << 30)))
+    if kind == "padded":              # every other item: all objects padded
+        bbox[::2] = -1.0
+    return bbox
+
+
+def _grad_bound(g, bbox, in_hw):
+    """Least time of K2 for this run's data: the gradient values some
+    object's weights touch, the boxes, and the whole output over the
+    memory rate; two flops a tap over the float32 rate. Returns
+    (bound_ms, bound_by, dense_ms), dense_ms reading every gradient
+    value."""
+    b, c, ho, wo = g.shape
+    o = bbox.shape[1]
+    wy, wx = place_weights(bbox.reshape(b * o, 4), (ho, wo), in_hw)
+    ry = (wy != 0).any(dim=2).reshape(b, o, ho)
+    rx = (wx != 0).any(dim=2).reshape(b, o, wo)
+    need = (ry[:, :, :, None] & rx[:, :, None, :]).any(dim=1)
+    out_bytes = b * o * c * in_hw[0] * in_hw[1] * 4
+    read = int(need.sum()) * c * 4 + bbox.numel() * 4
+    taps = int(((wy != 0).sum(dim=(1, 2)) * (wx != 0).sum(dim=(1, 2))).sum()) * c
+    bytes_ms = (read + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * taps / F32_OPS_PER_S * 1e3
+    dense_ms = (g.numel() * 4 + bbox.numel() * 4 + out_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), dense_ms
+
+
+def phase_grad_kernel():
+    log("phase 6/10 grad: K2 (place backward) against its plain version, "
+        "on the card")
+    rs = np.random.RandomState(3)
+    dev = torch.device(DEVICE)
+    cases = [
+        ("generator path", (STEP_BATCH, 3, 256, (16, 16), "train")),
+        ("discriminator path, 15x15", (STEP_BATCH, 3, 128, (15, 15), "train")),
+        ("padded objects", (STEP_BATCH, 3, 256, (16, 16), "padded")),
+        ("boxes partly off the canvas",
+         (STEP_BATCH, 3, 256, (16, 16), "off-canvas")),
+        ("boxes wider than the canvas", (STEP_BATCH, 3, 256, (16, 16), "wide")),
+        ("boxes wider than the canvas, 15x15",
+         (STEP_BATCH, 3, 128, (15, 15), "wide")),
+        ("odd channel count", (STEP_BATCH, 3, 37, (16, 16), "train")),
+        ("batch of one", (1, 3, 256, (16, 16), "train")),
+    ]
+    worst = 0.0
+    timed = {}
+    for label, (b, o, c, hw, kind) in cases:
+        g = torch.from_numpy(rs.uniform(-1.0, 1.0, (b, c, 16, 16)).astype(
+            np.float32)).to(dev)
+        bbox = torch.from_numpy(_grad_boxes(rs, b, o, kind)).to(dev)
+        got = k1.stn_place_multi_grad_nchw(g, bbox, hw)
+        want = k1.stn_place_multi_grad_plain(g, bbox, hw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"  {label}: {tuple(g.shape)} -> {(b, o, c) + hw}: max |kernel "
+            f"- plain| = {err:.3e} (atol {KERNEL_ATOL:g}); max |df| "
+            f"{float(want.abs().max()):.3f}")
+        check(err <= KERNEL_ATOL, f"K2 disagrees with its plain version "
+              f"({label}): {err:.3e} > {KERNEL_ATOL:g}")
+        check(bool(torch.isfinite(got).all()), f"K2 non-finite ({label})")
+        if kind == "padded":
+            check(int(torch.count_nonzero(got[::2])) == 0,
+                  "padded objects must get exact zeros")
+        if kind == "train" and b == STEP_BATCH and c != 37:
+            timed["G" if hw == (16, 16) else "D"] = (g, bbox, hw)
+
+    out = {"max_abs_err": worst}
+    for path in ("G", "D"):
+        g, bbox, hw = timed[path]
+        ms = cuda_ms(lambda: k1.stn_place_multi_grad_nchw(g, bbox, hw))
+        plain_ms = cuda_ms(lambda: k1.stn_place_multi_grad_plain(g, bbox, hw))
+        bound_ms, bound_by, dense_ms = _grad_bound(g, bbox, hw)
+        log(f"K2 at the {path} shape {tuple(g.shape)} -> "
+            f"{(g.shape[0], 3, g.shape[1]) + hw}, CUDA events, median of 50: "
+            f"{ms:.4f} ms; plain version {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}, this run's boxes; "
+            f"{dense_ms:.4f} ms if every gradient value were read); "
+            f"{bound_ms / ms:.1%} of the bound")
+        out[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "dense_bound_ms": dense_ms}
+    return out
+
+
+def _f1_gradient(device, z, bbox, labels, weight):
+    """Gradient of sum(image * weight) for local1.1.weight of a train-mode
+    full-width Stage1G (reference init, seed 0) on ``device``."""
+    g = build_stage1_g(MNIST, seed=0, device=device).train()
+    img = g(*(t.to(device) for t in (z, bbox, labels)))
+    (grad,) = torch.autograd.grad((img * weight.to(device)).sum(),
+                                  g.local1[1].weight)
+    return grad.cpu()
+
+
+def phase_autograd():
+    log("phase 7/10 autograd: K3 gradients on the card against the CPU")
+    rs = np.random.RandomState(4)
+    for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
+        feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
+            np.float32))
+        bbox = torch.from_numpy(_train_boxes(STEP_BATCH, 11))
+        cot = torch.from_numpy(rs.uniform(-1, 1, (STEP_BATCH, c, 16, 16))
+                               .astype(np.float32))
+        outs, grads = {}, {}
+        for dev in ("cpu", DEVICE):
+            f = feats.to(dev).requires_grad_(True)
+            out = k1.stn_place_multi_nchw(f, bbox.to(dev), (16, 16))
+            check(out.grad_fn is not None,
+                  f"the place output on {dev} has no grad_fn")
+            (grads[dev],) = torch.autograd.grad(out, f, cot.to(dev))
+            outs[dev] = out.detach().cpu()
+        out_err = float((outs[DEVICE] - outs["cpu"]).abs().max())
+        err = float((grads[DEVICE].cpu() - grads["cpu"]).abs().max())
+        log(f"  {label} shape {tuple(feats.shape)}: grad_fn "
+            f"{type(out.grad_fn).__name__}; max |card - CPU| of the placed "
+            f"output = {out_err:.3e}, of the feature gradient = {err:.3e} "
+            f"(atol {KERNEL_ATOL:g})")
+        check(out_err <= KERNEL_ATOL, f"K3 forward card vs CPU ({label}): "
+              f"{out_err:.3e}")
+        check(err <= KERNEL_ATOL, f"K3 gradient card vs CPU ({label}): "
+              f"{err:.3e}")
+
+    b = 16
+    z = torch.from_numpy(rs.randn(b, MNIST.z_dim).astype(np.float32))
+    data = synthetic_multimnist(b, seed=12)
+    bbox = torch.from_numpy(data["bbox"])
+    labels = torch.from_numpy(data["label_onehot"])
+    weight = torch.from_numpy(rs.uniform(-1, 1, (b, 1, 64, 64)).astype(
+        np.float32))
+    on_cpu = _f1_gradient("cpu", z, bbox, labels, weight)
+    on_card = _f1_gradient(DEVICE, z, bbox, labels, weight)
+    scale = float(on_cpu.abs().max())
+    rel = float((on_card - on_cpu).abs().max()) / scale
+    cos = float(torch.nn.functional.cosine_similarity(
+        on_card.flatten(), on_cpu.flatten(), dim=0))
+    log(f"train-mode Stage1G (full width, batch {b}) local1.1.weight "
+        f"gradient: max |CPU| {scale:.3e}, max |card - CPU| / max |CPU| = "
+        f"{rel:.3e} (limit {GRAD_RTOL:g}), cosine {cos:.6f}")
+    check(scale > 0 and float(on_card.abs().max()) > 0,
+          "the object pathway got no gradient (F1)")
+    check(rel <= GRAD_RTOL, f"object-pathway gradient card vs CPU: {rel:.3e}")
+
+
+def randomize(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Overwrite ``module``'s weights as tests/test_torch_parity.py's
+    ``_randomize`` does (the weights of tests/test_step_parity.py): every
+    parameter N(0, 0.05), and BatchNorm statistics and affine terms away
+    from their init. Drawn on the CPU, so any device gets the same."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+        for m in module.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.copy_(
+                    torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(
+                    1.0 + 0.2 * torch.rand(m.running_var.shape, generator=g))
+                m.weight.copy_(
+                    1.0 + 0.05 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    return module
+
+
+def step_once(device, data, z, cfg=MNIST, randomized=False):
+    """One train step on ``device`` from the reference init (seed 0), or
+    from the weights of tests/test_step_parity.py when ``randomized``.
+    Returns its losses, the state dicts before and after, the gradients,
+    and the step's host time."""
+    state = create_state(cfg, seed=0, device=device)
+    nets = (("G", state.g), ("D", state.d))
+    if randomized:
+        randomize(state.g, 3)
+        randomize(state.d, 11)
+    pre = {n: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+           for n, m in nets}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    t = time.perf_counter()
+    metrics = make_train_step(cfg)(state, batch, None, LR, LR,
+                                   z=torch.from_numpy(z).to(device))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t
+    post = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+            for n, m in nets}
+    grads = {n: {k: (torch.zeros(p.shape) if p.grad is None
+                     else p.grad.detach().cpu())
+                 for k, p in m.named_parameters()} for n, m in nets}
+    return metrics, pre, post, grads, seconds
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    norm = float(a.norm() * b.norm())
+    if norm == 0.0:
+        return 1.0 if not (a.any() or b.any()) else 0.0
+    return float(a @ b) / norm
+
+
+def step_disagreements(got, want):
+    """Where two results of :func:`step_once` from the same weights
+    disagree beyond the limits: losses (atol LOSS_ATOL), BatchNorm running
+    statistics (atol STATS_ATOL) and the per-tensor gradient cosine (above
+    MIN_GRAD_COSINE). Returns (failures, worst): a message per failed
+    check, and the worst reading of each kind."""
+    bad = []
+    worst = {"loss": 0.0, "stats": 0.0, "grad_cosine": 1.0}
+    for k in sorted(want[0]):
+        err = abs(got[0][k] - want[0][k])
+        worst["loss"] = max(worst["loss"], err)
+        if err > LOSS_ATOL:
+            bad.append(f"loss {k}: {got[0][k]:.6f} vs {want[0][k]:.6f}")
+    for net in ("G", "D"):
+        for k in want[2][net]:
+            if k.endswith(("running_mean", "running_var")):
+                err = float((got[2][net][k] - want[2][net][k]).abs().max())
+                worst["stats"] = max(worst["stats"], err)
+                if err > STATS_ATOL:
+                    bad.append(f"{net}:{k} running statistic off by {err:.3e}")
+        for k in want[3][net]:
+            gcos = _cosine(got[3][net][k], want[3][net][k])
+            worst["grad_cosine"] = min(worst["grad_cosine"], gcos)
+            if gcos <= MIN_GRAD_COSINE:
+                bad.append(f"{net}:{k} gradient cosine {gcos:.6f}")
+    return bad, worst
+
+
+def delta_readings(got, want):
+    """The Adam-delta measures of tests/test_step_parity.py for two results
+    of :func:`step_once`, worst tensor of each: delta cosine, mean
+    |difference| in lr, share of elements apart by more than 0.5 lr."""
+    cos, mean_lr, flip = 1.0, 0.0, 0.0
+    for net in ("G", "D"):
+        pre = want[1][net]
+        for k in want[3][net]:
+            dg = got[2][net][k] - pre[k]
+            dw = want[2][net][k] - pre[k]
+            diff = (dg - dw).abs() / LR
+            cos = min(cos, _cosine(dg, dw))
+            mean_lr = max(mean_lr, float(diff.mean()))
+            flip = max(flip, float((diff > 0.5).float().mean()))
+    return cos, mean_lr, flip
+
+
+def phase_step():
+    log(f"phase 8/10 step: one full-width train step, batch {STEP_BATCH}, "
+        "card against CPU")
+    data = synthetic_multimnist(STEP_BATCH, seed=5)
+    z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
+        np.float32)
+    # A first Adam step is about lr * sign(grad): an element whose gradient
+    # is within float32 noise of zero moves a full lr either way, and the
+    # G update runs through the D just updated so. At full width the deltas
+    # miss tests/test_step_parity.py's limits from either set of weights
+    # (see PERF.md); they are printed, and the gradients are held.
+    for label, randomized in (("reference init", False),
+                              ("tests/test_step_parity.py weights", True)):
+        cpu = step_once("cpu", data, z, randomized=randomized)
+        card = step_once(DEVICE, data, z, randomized=randomized)
+        bad, worst = step_disagreements(card, cpu)
+        log(f"  from the {label}: step on the CPU {cpu[4]:.1f} s "
+            f"({torch.get_num_threads()} threads), on the card "
+            f"{card[4]:.2f} s (host clock, first call)")
+        for k in sorted(cpu[0]):
+            log(f"    {k}: card {card[0][k]:.6f}, CPU {cpu[0][k]:.6f}")
+        log(f"    worst card vs CPU: loss {worst['loss']:.3e} (atol "
+            f"{LOSS_ATOL:g}); BatchNorm running stats {worst['stats']:.3e} "
+            f"(atol {STATS_ATOL:g}); per-tensor gradient cosine "
+            f"{worst['grad_cosine']:.8f} (limit {MIN_GRAD_COSINE:g})")
+        cos, mean_lr, flip = delta_readings(card, cpu)
+        log(f"    Adam deltas, worst tensor (read, not held): cosine "
+            f"{cos:.8f}, mean |difference| {mean_lr:.5f} lr, {flip:.4%} of "
+            "the elements apart by more than 0.5 lr")
+        for msg in bad:
+            log(f"    FAILED {msg}")
+        check(not bad, f"train step card vs CPU from the {label}: "
+              f"{len(bad)} checks failed")
+
+
+def phase_step_time(runs: int = 20):
+    log(f"phase 9/10 steptime: the train step at batch {STEP_BATCH} on the "
+        "card")
+    dev = torch.device(DEVICE)
+    state = create_state(MNIST, seed=0, device=dev)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in synthetic_multimnist(STEP_BATCH, seed=8).items()}
+    step = make_train_step(MNIST)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(3):
+        step(state, data, gen, LR, LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launch_count()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, data, gen, LR, LR)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    per_step = (k1.launch_count() / runs, k1.grad_launch_count() / runs)
+    ms = statistics.median(times)
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          "non-finite losses while timing")
+    log(f"train step at batch {STEP_BATCH}, full width, float32 with TF32 off "
+        f"(matmul and cuDNN): {ms:.2f} ms (CUDA events, median of {runs}; "
+        f"min {min(times):.2f}, max {max(times):.2f}) = "
+        f"{STEP_BATCH * 1e3 / ms:.0f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
+        f"step: K1 {per_step[0]:g}, K2 {per_step[1]:g}")
+    check(per_step == (4, 4), f"K1/K2 launches per step {per_step} != (4, 4)")
+    return ms, per_step
+
+
+def phase_train_entry():
+    log("phase 10/10 train: cli/main.py, one synthetic epoch on the card")
+    cfg = os.path.join(ROOT, "cfg", "mnist_train.yml")
+    k1.reset_launch_count()
+    hist = train_main.main(["--variant", "multi-mnist", "--cfg", cfg,
+                            "--synthetic", "--max_epochs", "1",
+                            "--manualSeed", "7", "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = (k1.launch_count(), k1.grad_launch_count())
+    check(len(hist) == 1 and hist[0]["steps"] == 4,
+          f"one epoch of 4 steps expected, got {hist}")
+    losses = {k: v for k, v in hist[0].items()
+              if k not in ("steps", "seconds")}
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"non-finite losses {losses}")
+    log(f"train entry: {hist[0]['steps']} steps in {hist[0]['seconds']:.2f} s "
+        f"(host clock, first epoch, cuDNN set-up included); K1 launches "
+        f"{launches[0]}, K2 launches {launches[1]}")
+    check(launches[1] > 0 and launches == (16, 16),
+          f"K1/K2 launches {launches} != (16, 16) for 4 steps")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -376,23 +772,36 @@ def main() -> int:
         return 1
     name = phase_device()
     phase_build()
-    k1 = phase_kernel()
+    place = phase_kernel()
     phase_model()
-    launches, _ = phase_serve()
+    serve_launches, _ = phase_serve()
+    grad = phase_grad_kernel()
+    phase_autograd()
+    phase_step()
+    phase_step_time()
+    train_launches = phase_train_entry()
     log("all phases passed")
+    cuda = {"route": "cuda",
+            "source": "multiple_objects_gan_tpu_torch/csrc/stn_place.cu",
+            "library_ms": None}
     print(json.dumps({"kernels": [{
-        "name": "stn_place_multi_f32",
-        "route": "cuda",
-        "source": "multiple_objects_gan_tpu_torch/csrc/stn_place.cu",
+        "name": "stn_place_multi_f32", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:79",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "dense_bound_ms": k1["dense_bound_ms"],
-        "library_ms": None,
+        "launches": serve_launches + train_launches[0],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches[0]},
+        "max_abs_err": place["max_abs_err"],
+        **place["serve"],
+        "train_g_shape": place["train G"],
+        "train_d_shape": place["train D"],
+    }, {
+        "name": "stn_place_multi_grad_f32", **cuda,
+        "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
+        "launches": train_launches[1],
+        "launches_by_path": {"serve": 0, "train": train_launches[1]},
+        "max_abs_err": grad["max_abs_err"],
+        **grad["G"],
+        "d_shape": grad["D"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -187,13 +187,24 @@ def _item_layout(item: dict, max_objects: int, label_dim: int,
     for o, (lab, bb) in enumerate(zip(ids, boxes)):
         row = np.asarray(lab, np.float32).reshape(-1)
         if row.size == 1:  # class id -> one-hot
+            if not (np.isfinite(row[0]) and 0 <= row[0] < label_dim):
+                raise ValueError(f"label id {lab!r} is outside "
+                                 f"[0, {label_dim})")
             labels[o, int(row[0])] = 1.0
         elif row.size == label_dim:
             labels[o] = row
         else:
             raise ValueError(f"label must be an id or a {label_dim}-d "
                              "one-hot")
-        bbox[o] = np.asarray(bb, np.float32)
+        box = np.asarray(bb, np.float32).reshape(-1)
+        if box.size != 4:
+            raise ValueError(f"bbox must be [x, y, w, h], got {bb!r}")
+        # a padded object (all -1) places nothing; any other box needs
+        # finite values and a positive size, or the place divides by zero
+        if not (box == -1.0).all() and not (
+                np.isfinite(box).all() and box[2] > 0 and box[3] > 0):
+            raise ValueError(f"bbox {bb!r} needs finite values and w, h > 0")
+        bbox[o] = box
     return labels, bbox
 
 

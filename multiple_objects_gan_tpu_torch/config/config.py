@@ -2,15 +2,17 @@
 
 The port's copy of the JAX package's ``config/config.py``: the default
 tree of code/multi-mnist/miscc/config.py:9-47, the strict recursive merge
-of ``_merge_a_into_b`` and ``cfg_from_file``. ``yaml`` is imported only
-inside :func:`cfg_from_file`, so the serving path runs where PyYAML is not
-installed (it builds its config from the ``MNIST`` preset).
+of ``_merge_a_into_b`` and ``cfg_from_file``. The cfg files are nested
+mappings of plain scalars, which :func:`parse_yaml` reads with the
+standard library, so the port needs no PyYAML (the card's machine has
+none).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import re
 
 from multiple_objects_gan_tpu_torch.models import common
 
@@ -92,13 +94,74 @@ def default_config(variant: str) -> Config:
     return Config.wrap(copy.deepcopy(DEFAULTS[variant]))
 
 
+_INT = re.compile(r"[-+]?[0-9]+$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9]*\.[0-9]*|\.[0-9]+)([eE][-+]?[0-9]+)?$")
+_SCALARS = {"true": True, "false": False, "null": None, "~": None, "": None}
+
+
+def _scalar(text: str):
+    """A plain YAML scalar as PyYAML's safe loader types it."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if text.lower() in _SCALARS:
+        return _SCALARS[text.lower()]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> dict:
+    """Read the YAML the cfg files use: ``key: scalar`` lines nested by
+    indentation, with comments, quoted strings, booleans, null, ints and
+    floats. Anything else (lists, flow style, anchors) raises."""
+    root: dict = {}
+    stack = [(-1, root)]          # (indent, mapping) of the open blocks
+    last_key = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        if not sep or not key or key.startswith(("-", "[", "{")) \
+                or value[:1] not in ("", " "):
+            raise ValueError(f"line {n}: not a 'key: value' line: {raw!r}")
+        if indent > stack[-1][0] and last_key is not None \
+                and stack[-1][1][last_key] is None:
+            child: dict = {}
+            stack[-1][1][last_key] = child
+            stack.append((indent, child))
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != max(stack[-1][0], 0):
+            raise ValueError(f"line {n}: bad indentation: {raw!r}")
+        value = value.strip()
+        if value[:1] in ("[", "{", "&", "*", "|", ">"):
+            raise ValueError(f"line {n}: unsupported YAML value {value!r}")
+        stack[-1][1][key.strip()] = _scalar(value)
+        last_key = key.strip()
+    return root
+
+
 def cfg_from_file(path: str, variant: str) -> Config:
     """Load a YAML file and merge it over the variant defaults."""
-    import yaml
-
     cfg = default_config(variant)
     with open(path) as f:
-        overrides = yaml.safe_load(f) or {}
+        overrides = parse_yaml(f.read())
     _merge(overrides, cfg)
     return cfg
 

@@ -1,11 +1,13 @@
-"""Weights for the port's Stage1G: carried across from the JAX package's Flax
-trees, loaded from reference ``.pth`` files, or drawn at random.
+"""Weights for the port's Stage1G and Stage1D: carried across from the JAX
+package's Flax trees, loaded from reference ``.pth`` files, or drawn at
+random.
 
-:func:`stage1_g_state_dict_from_jax` takes the JAX ``Stage1G`` params and
-batch_stats as numpy arrays and returns a state dict with the reference's
-key names (code/multi-mnist/model.py:113-157). Its mapping mirrors the JAX
-package's ``io/torch_export.py:export_stage1_g`` and
-``io/torch_import.py:import_stage1_g``, written out again here:
+:func:`stage1_g_state_dict_from_jax` and :func:`stage1_d_state_dict_from_jax`
+take the JAX ``Stage1G``/``Stage1D`` params and batch_stats as numpy arrays
+and return state dicts with the reference's key names
+(code/multi-mnist/model.py:113-257). Their mapping mirrors the JAX
+package's ``io/torch_export.py:export_stage1_g/export_stage1_d`` and
+``io/torch_import.py``, written out again here:
 
   * conv kernel HWIO -> OIHW, dense kernel (in, out) -> (out, in);
   * BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
@@ -86,6 +88,33 @@ def stage1_g_state_dict_from_jax(params: Mapping[str, Any],
     sd["label.0.weight"] = torch.zeros((e, e))
     _bn(sd, "label.1", {"scale": np.ones(e), "bias": np.zeros(e)},
         {"mean": np.zeros(e), "var": np.ones(e)})
+    return sd
+
+
+def stage1_d_state_dict_from_jax(params: Mapping[str, Any],
+                                 stats: Mapping[str, Any]
+                                 ) -> dict[str, torch.Tensor]:
+    """JAX ``Stage1D`` (params, batch_stats) -> the port's state dict, with
+    the reference's key names (STAGE1_D + D_GET_LOGITS)."""
+    sd: dict[str, torch.Tensor] = {}
+    sd["local.0.weight"] = _conv(params["local"]["Conv_0"]["kernel"])
+    _bn(sd, "local.1", params["local"]["TorchBatchNorm_0"],
+        stats["local"]["TorchBatchNorm_0"])
+    for i in range(1, 5):
+        sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
+    for i in (2, 3, 4):
+        _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    h = params["get_cond_logits"]
+    sd["get_cond_logits.outlogits.0.weight"] = _conv(
+        h["Conv3x3_0"]["Conv_0"]["kernel"])
+    _bn(sd, "get_cond_logits.outlogits.1", h["TorchBatchNorm_0"],
+        stats["get_cond_logits"]["TorchBatchNorm_0"])
+    sd["get_cond_logits.outlogits.3.weight"] = _conv(h["Conv_0"]["kernel"])
+    sd["get_cond_logits.outlogits.3.bias"] = _t(h["Conv_0"]["bias"])
+    if "get_uncond_logits" in params:
+        u = params["get_uncond_logits"]["Conv_0"]
+        sd["get_uncond_logits.outlogits.0.weight"] = _conv(u["kernel"])
+        sd["get_uncond_logits.outlogits.0.bias"] = _t(u["bias"])
     return sd
 
 

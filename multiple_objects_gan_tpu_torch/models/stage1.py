@@ -1,11 +1,16 @@
-"""Stage-1 (64px) generator, eval only (port of the JAX ``models/stage1.py``).
+"""Stage-1 (64px) generator and discriminator (port of the JAX
+``models/stage1.py``).
 
-Reference STAGE1_G: code/multi-mnist/model.py:113-190. Modules and
-state-dict keys are the reference's, so a reference ``.pth`` and the JAX
-package's export load with ``strict=True``.
+Reference STAGE1_G: code/multi-mnist/model.py:113-190; STAGE1_D:
+model.py:193-257. Modules and state-dict keys are the reference's, so a
+reference ``.pth`` and the JAX package's export load with ``strict=True``.
+Both run in train and eval mode; in train mode the object pathways keep
+the reference's per-object BatchNorm statistics (``ObjectBatchNorm2d``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -13,9 +18,10 @@ from torch import nn
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.io.weights import reference_init_
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
-from multiple_objects_gan_tpu_torch.nn.blocks import Conv3x3, UpBlock
+from multiple_objects_gan_tpu_torch.nn.blocks import (
+    Conv3x3, ObjectBatchNorm2d, UpBlock)
 from multiple_objects_gan_tpu_torch.nn.pathways import (
-    LayoutEncoder, object_pathway_g)
+    DGetLogits, LayoutEncoder, ObjectPathwayD, object_pathway_g)
 
 
 class Stage1G(nn.Module):
@@ -36,8 +42,10 @@ class Stage1G(nn.Module):
         self.fc = nn.Sequential(nn.Linear(nz, ngf * 4 * 4, bias=False),
                                 nn.BatchNorm1d(ngf * 4 * 4),
                                 nn.ReLU(True))
-        self.local1 = UpBlock(cfg.label_dim, ngf // 2)
-        self.local2 = UpBlock(ngf // 2, ngf // 4)
+        object_bn = functools.partial(ObjectBatchNorm2d,
+                                      n_objects=cfg.num_objects)
+        self.local1 = UpBlock(cfg.label_dim, ngf // 2, object_bn)
+        self.local2 = UpBlock(ngf // 2, ngf // 4, object_bn)
         if cfg.use_bbox_layout:
             self.bbox_net = LayoutEncoder(cfg.label_dim, cfg.condition_dim)
         self.upsample1 = UpBlock(ngf, ngf // 2)
@@ -68,15 +76,74 @@ class Stage1G(nn.Module):
         return self.img(h)
 
 
+class Stage1D(nn.Module):
+    """64px discriminator: object pathway + conv stack + logit heads.
+
+    ``forward(image (B, C, 64, 64), labels (B, O, L), bbox (B, O, 4))``
+    returns the (B, 8 * ndf, 4, 4) feature map; :meth:`cond_logits` and
+    :meth:`uncond_logits` are the heads, as the reference splits netD and
+    netD.get_cond_logits so that the matching-aware loss reuses features
+    across the real, wrong and fake pairs.
+    """
+
+    def __init__(self, cfg: Stage1Config):
+        super().__init__()
+        self.cfg = cfg
+        ndf = cfg.df_dim
+
+        def down(cin, cout):
+            return nn.Conv2d(cin, cout, kernel_size=4, stride=2, padding=1,
+                             bias=False)
+
+        self.local = ObjectPathwayD(ndf, cfg.img_channels, cfg.label_dim,
+                                    cfg.num_objects)
+        self.conv1 = down(cfg.img_channels, ndf)                # 32x32
+        self.conv2 = down(ndf, ndf * 2)                         # 16x16
+        self.bn2 = nn.BatchNorm2d(ndf * 2)
+        self.conv3 = down(ndf * 4, ndf * 4)                     # 8x8
+        self.bn3 = nn.BatchNorm2d(ndf * 4)
+        self.conv4 = down(ndf * 4, ndf * 8)                     # 4x4
+        self.bn4 = nn.BatchNorm2d(ndf * 8)
+        self.act = nn.LeakyReLU(0.2, inplace=True)
+        self.get_cond_logits = DGetLogits(ndf, cfg.d_cond_dim)
+        if cfg.use_uncond_head:
+            self.get_uncond_logits = DGetLogits(ndf)
+
+    def forward(self, image: torch.Tensor, labels: torch.Tensor,
+                bbox: torch.Tensor) -> torch.Tensor:
+        h_local = self.local(image, labels, bbox)
+        h = self.act(self.conv1(image))
+        h = self.act(self.bn2(self.conv2(h)))
+        h = torch.cat([h, h_local], dim=1)
+        h = self.act(self.bn3(self.conv3(h)))
+        return self.act(self.bn4(self.conv4(h)))
+
+    def cond_logits(self, h_code: torch.Tensor,
+                    c_code: torch.Tensor) -> torch.Tensor:
+        return self.get_cond_logits(h_code, c_code)
+
+    def uncond_logits(self, h_code: torch.Tensor) -> torch.Tensor:
+        return self.get_uncond_logits(h_code)
+
+
+def _build(model: nn.Module, state_dict, seed: int, device) -> nn.Module:
+    dev = resolve_device(device)
+    if state_dict is None:
+        reference_init_(model, seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(dev).eval()
+
+
 def build_stage1_g(cfg: Stage1Config, state_dict=None, *, seed: int = 0,
                    device="cuda") -> Stage1G:
     """An eval-mode Stage1G on ``device``: ``state_dict`` (reference keys)
     loaded with strict=True, or the reference's random init from ``seed``
     when there is none."""
-    dev = resolve_device(device)
-    g = Stage1G(cfg)
-    if state_dict is None:
-        reference_init_(g, seed)
-    else:
-        g.load_state_dict(state_dict, strict=True)
-    return g.to(dev).eval()
+    return _build(Stage1G(cfg), state_dict, seed, device)
+
+
+def build_stage1_d(cfg: Stage1Config, state_dict=None, *, seed: int = 0,
+                   device="cuda") -> Stage1D:
+    """An eval-mode Stage1D on ``device``, as :func:`build_stage1_g`."""
+    return _build(Stage1D(cfg), state_dict, seed, device)

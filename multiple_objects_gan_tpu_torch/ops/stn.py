@@ -11,8 +11,9 @@ outside the input give all-zero rows, which is how a padded object
 (bbox = -1) places nothing.
 
 Public functions keep the JAX package's layout, (B, H, W, C) and
-(B, O, h, w, C), so the tests compare like with like. The model runs NCHW
-and calls the kernel wrapper in ``ops/stn_place_cuda.py`` directly.
+(B, O, h, w, C), so the tests compare like with like. The model runs NCHW:
+it calls :func:`stn_extract_multi_nchw` and the kernel wrapper in
+``ops/stn_place_cuda.py`` directly.
 """
 
 from __future__ import annotations
@@ -65,14 +66,21 @@ def _axis_weights(scale: torch.Tensor, trans: torch.Tensor, out_size: int,
                        min=0.0)
 
 
+def _theta_weights(theta: torch.Tensor, out_hw: tuple[int, int],
+                   in_hw: tuple[int, int]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wy (N, Ho, h) and Wx (N, Wo, w) of axis-aligned matrices (N, 2, 3)."""
+    wy = _axis_weights(theta[:, 1, 1], theta[:, 1, 2], out_hw[0], in_hw[0])
+    wx = _axis_weights(theta[:, 0, 0], theta[:, 0, 2], out_hw[1], in_hw[1])
+    return wy, wx
+
+
 def place_weights(bbox: torch.Tensor, out_hw: tuple[int, int],
                   in_hw: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
     """Hat weights of the place (inverse) affine of bbox (N, 4):
     Wy (N, Ho, h) and Wx (N, Wo, w)."""
-    theta = transformation_matrix_inverse(bbox.float())
-    wy = _axis_weights(theta[:, 1, 1], theta[:, 1, 2], out_hw[0], in_hw[0])
-    wx = _axis_weights(theta[:, 0, 0], theta[:, 0, 2], out_hw[1], in_hw[1])
-    return wy, wx
+    return _theta_weights(transformation_matrix_inverse(bbox.float()),
+                          out_hw, in_hw)
 
 
 def stn_separable(image: torch.Tensor, theta: torch.Tensor,
@@ -82,13 +90,49 @@ def stn_separable(image: torch.Tensor, theta: torch.Tensor,
     Requires theta[:, 0, 1] == theta[:, 1, 0] == 0. Computed in f32 as two
     matrix products: rows first, then columns.
     """
-    ho, wo = out_hw
-    _, hi, wi, _ = image.shape
-    wy = _axis_weights(theta[:, 1, 1], theta[:, 1, 2], ho, hi)
-    wx = _axis_weights(theta[:, 0, 0], theta[:, 0, 2], wo, wi)
+    wy, wx = _theta_weights(theta, out_hw, image.shape[1:3])
     tmp = torch.einsum("bip,bpqc->biqc", wy, image.float())
     out = torch.einsum("biqc,bjq->bijc", tmp, wx)
     return out.to(image.dtype)
+
+
+def stn_place(features: torch.Tensor, bbox: torch.Tensor,
+              out_hw: tuple[int, int]) -> torch.Tensor:
+    """Paste (B, h, w, C) features into bbox (B, 4) on an out_hw canvas."""
+    return stn_separable(features, transformation_matrix_inverse(bbox),
+                         out_hw)
+
+
+def stn_extract(image: torch.Tensor, bbox: torch.Tensor,
+                out_hw: tuple[int, int]) -> torch.Tensor:
+    """Crop the bbox (B, 4) region of (B, H, W, C) to an out_hw grid."""
+    return stn_separable(image, transformation_matrix(bbox), out_hw)
+
+
+def stn_extract_multi_nchw(image: torch.Tensor, bbox: torch.Tensor,
+                           out_hw: tuple[int, int]) -> torch.Tensor:
+    """Crop every box: image (B, C, H, W), bbox (B, O, 4) ->
+    (B, O, C, Ho, Wo), the layout the D object pathway folds.
+
+    Plain torch with autograd to the image (the JAX package runs it in XLA;
+    no Pallas kernel stood behind it). The boxes are data: detached, as
+    the JAX package's ``ops/stn.py:179`` stops their gradient.
+    """
+    b, o = bbox.shape[:2]
+    theta = transformation_matrix(bbox.detach().reshape(b * o, 4).float())
+    wy, wx = _theta_weights(theta, out_hw, image.shape[-2:])
+    wy = wy.reshape(b, o, out_hw[0], -1).to(image.dtype)
+    wx = wx.reshape(b, o, out_hw[1], -1).to(image.dtype)
+    tmp = torch.einsum("boip,bcpq->bociq", wy, image)
+    return torch.einsum("bociq,bojq->bocij", tmp, wx)
+
+
+def stn_extract_multi(image: torch.Tensor, bbox: torch.Tensor,
+                      out_hw: tuple[int, int]) -> torch.Tensor:
+    """:func:`stn_extract_multi_nchw` in the JAX layout: image (B, H, W, C),
+    bbox (B, O, 4) -> (B, O, Ho, Wo, C)."""
+    out = stn_extract_multi_nchw(image.permute(0, 3, 1, 2), bbox, out_hw)
+    return out.permute(0, 1, 3, 4, 2)
 
 
 def stn_place_multi(features: torch.Tensor, bbox: torch.Tensor,

@@ -1,18 +1,31 @@
-"""K1, the STN place-and-accumulate: CUDA kernel wrapper and plain version.
+"""K1-K3, the STN place-and-accumulate and its gradient: CUDA kernel
+wrappers, plain versions, and the autograd Function that pairs them.
 
-Replaces the Pallas TPU kernel
-``multiple_objects_gan_tpu/ops/stn_pallas.py:stn_place_multi_pallas``. The
-kernel is ``csrc/stn_place.cu`` (CUDA C++ for ``sm_90a``, bound with
-ctypes). Its bound on the card is bytes: each input value it needs is read
-once and each output written once, and it does a few operations per byte.
-Design: one block per (batch, channel) output plane of the NCHW layout the
-model holds; each output value is a sum over objects of a 2x2-tap bilinear
-gather, since a row of a hat-weight matrix has at most two non-zeros.
+* K1 replaces the Pallas TPU kernel
+  ``multiple_objects_gan_tpu/ops/stn_pallas.py:stn_place_multi_pallas``:
+  per object ``Wy @ F @ Wx^T`` with the hat weights of its place affine,
+  summed over objects.
+* K2 replaces ``stn_pallas.py:stn_place_multi_grad_pallas``, the backward
+  of K1: per object ``Wy^T @ g @ Wx`` with the forward's own weights.
+* K3 replaces the ``jax.custom_vjp`` of ``stn_pallas.py:_fused``:
+  :class:`StnPlaceMulti`, whose forward is K1 and backward K2, with no
+  gradient for the boxes.
 
-:func:`stn_place_multi_nchw` launches the kernel for a CUDA tensor and runs
-:func:`stn_place_multi_plain` for a CPU tensor; nothing else is accepted
-and nothing falls back. Each launch adds one to a plain launch count, so a
-run can show that its path went through the kernel.
+Both kernels are ``csrc/stn_place.cu`` (CUDA C++ for ``sm_90a``, bound with
+ctypes). Their bound on the card is bytes: each input value they need is
+read once and each output written once, with a few operations per byte.
+K1 is one block per (batch, channel) output plane, each output value a sum
+over objects of a 2x2-tap bilinear gather. K2 is a gather too, one block
+per (batch, 4 channels), over the tap ranges the block derives from the
+weights.
+
+:func:`stn_place_multi_nchw` is the entry the model calls. It always goes
+through :class:`StnPlaceMulti`, so on either device its output has a
+``grad_fn`` whenever the features require grad. The Function launches the
+kernels for a CUDA tensor and runs the plain versions for a CPU tensor;
+nothing else is accepted and nothing falls back. Each kernel launch adds
+one to that kernel's launch count, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -21,100 +34,211 @@ import ctypes
 import threading
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 
-MAX_OBJECTS = 16  # csrc/stn_place.cu:kMaxObjects
+MAX_OBJECTS = 16    # csrc/stn_place.cu:kMaxObjects
+MAX_GRAD_SIDE = 64  # csrc/stn_place.cu:kMaxSide, K2's largest map side
 
 _count_lock = threading.Lock()
-_launches = 0
+_launches = {"place": 0, "grad": 0}
 
 
 def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    """K1 launches since the last :func:`reset_launch_count`."""
+    return _launches["place"]
+
+
+def grad_launch_count() -> int:
+    """K2 launches since the last :func:`reset_launch_count`."""
+    return _launches["grad"]
 
 
 def reset_launch_count() -> None:
-    global _launches
+    """Set the K1 and K2 launch counts to 0."""
     with _count_lock:
-        _launches = 0
+        _launches["place"] = 0
+        _launches["grad"] = 0
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _weights(bbox: torch.Tensor, out_hw, in_hw, dtype):
+    b, o = bbox.shape[:2]
+    wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, in_hw)
+    return (wy.reshape(b, o, out_hw[0], in_hw[0]).to(dtype),
+            wx.reshape(b, o, out_hw[1], in_hw[1]).to(dtype))
 
 
 def stn_place_multi_plain(features: torch.Tensor, bbox: torch.Tensor,
                           out_hw: tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, in f32.
+    """Plain PyTorch version of K1, in the features' dtype.
 
     features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo): per object
-    Wy @ F @ Wx^T with the hat weights of its place affine, summed over
-    objects, as the Pallas kernel computes it.
+    Wy @ F @ Wx^T with the hat weights of its place affine (computed in
+    float32), summed over objects, as the Pallas kernel computes it.
     """
-    b, o, c, hi, wi = features.shape
-    wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, (hi, wi))
-    f = features.float().reshape(b * o, c, hi, wi)
-    tmp = torch.einsum("nip,ncpq->nciq", wy, f)
-    out = torch.einsum("nciq,njq->ncij", tmp, wx)
-    return out.reshape(b, o, c, out_hw[0], out_hw[1]).sum(dim=1)
+    hi, wi = features.shape[-2:]
+    wy, wx = _weights(bbox, out_hw, (hi, wi), features.dtype)
+    tmp = torch.einsum("boip,bocpq->bociq", wy, features)
+    return torch.einsum("bociq,bojq->bcij", tmp, wx)
 
 
-def _check(features: torch.Tensor, bbox: torch.Tensor,
-           out_hw: tuple[int, int]) -> None:
-    if features.dim() != 5:
-        raise ValueError(f"features must be (B, O, C, h, w), got "
-                         f"{tuple(features.shape)}")
-    b, o, c, hi, wi = features.shape
-    if tuple(bbox.shape) != (b, o, 4):
-        raise ValueError(f"bbox must be {(b, o, 4)}, got {tuple(bbox.shape)}")
-    if features.dtype != torch.float32 or bbox.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32, got {features.dtype} "
-                         f"and {bbox.dtype}")
-    if bbox.device != features.device:
-        raise ValueError(f"bbox on {bbox.device}, features on "
-                         f"{features.device}")
-    if not (features.is_contiguous() and bbox.is_contiguous()):
-        raise ValueError("features and bbox must be contiguous")
-    if not 1 <= o <= MAX_OBJECTS:
-        raise ValueError(f"1..{MAX_OBJECTS} objects supported, got {o}")
-    if min(b, c, hi, wi, *out_hw) < 1 or b * c >= 2 ** 31:
-        raise ValueError(f"unsupported shape {tuple(features.shape)} -> "
-                         f"{tuple(out_hw)}")
+def stn_place_multi_grad_plain(grad: torch.Tensor, bbox: torch.Tensor,
+                               in_hw: tuple[int, int]) -> torch.Tensor:
+    """Plain PyTorch version of K2, in the gradient's dtype.
+
+    grad (B, C, Ho, Wo), bbox (B, O, 4) -> (B, O, C, h, w): per object
+    Wy^T @ g @ Wx with the forward's own hat weights, the exact adjoint of
+    :func:`stn_place_multi_plain`.
+    """
+    wy, wx = _weights(bbox, grad.shape[-2:], in_hw, grad.dtype)
+    tmp = torch.einsum("boip,bcij->bocpj", wy, grad)
+    return torch.einsum("bocpj,bojq->bocpq", tmp, wx)
 
 
-def _kernel():
-    fn = _build.build("stn_place").lib.stn_place_multi_f32
+# ------------------------------------------------------------------ kernels
+
+
+def _check(x: torch.Tensor, bbox: torch.Tensor, n_objects: int,
+           sides: tuple[int, ...]) -> None:
+    """What both kernels take: float32, contiguous, on one device, boxes
+    (B, O, 4) with 1..MAX_OBJECTS objects, every map side at least 1."""
+    b, c = x.shape[0], x.shape[-3]
+    if tuple(bbox.shape) != (b, n_objects, 4):
+        raise ValueError(f"bbox must be {(b, n_objects, 4)}, got "
+                         f"{tuple(bbox.shape)}")
+    if x.dtype != torch.float32 or bbox.dtype != torch.float32:
+        raise ValueError(f"the kernels take float32, got {x.dtype} and "
+                         f"{bbox.dtype}")
+    if bbox.device != x.device:
+        raise ValueError(f"bbox on {bbox.device}, features on {x.device}")
+    if not (x.is_contiguous() and bbox.is_contiguous()):
+        raise ValueError("the tensors must be contiguous")
+    if not 1 <= n_objects <= MAX_OBJECTS:
+        raise ValueError(f"1..{MAX_OBJECTS} objects supported, got "
+                         f"{n_objects}")
+    if min(b, c, *sides) < 1 or b * c >= 2 ** 31:
+        raise ValueError(f"unsupported shape {tuple(x.shape)} with sides "
+                         f"{sides}")
+
+
+def _check_device(t: torch.Tensor, name: str) -> None:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+
+
+def _kernel(symbol: str):
+    fn = getattr(_build.build("stn_place").lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def stn_place_multi_nchw(features: torch.Tensor, bbox: torch.Tensor,
-                         out_hw: tuple[int, int]) -> torch.Tensor:
-    """features (B, O, C, h, w) f32, bbox (B, O, 4) f32 -> (B, C, Ho, Wo).
+def _launch(symbol: str, kernel: str, args, device) -> None:
+    fn = _kernel(symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {err}")
+    _count(kernel)
 
-    A CUDA tensor launches the kernel on the current stream (or raises); a
-    CPU tensor runs :func:`stn_place_multi_plain`.
-    """
-    global _launches
-    if features.device.type == "cpu":
-        return stn_place_multi_plain(features, bbox, out_hw)
-    if features.device.type != "cuda":
-        raise ValueError(f"stn_place_multi_nchw runs on cuda or cpu, not "
-                         f"{features.device}")
-    _check(features, bbox, out_hw)
+
+def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
+                out_hw: tuple[int, int]) -> torch.Tensor:
+    """Launch K1. Called only from :meth:`StnPlaceMulti.forward`."""
+    if features.dim() != 5:
+        raise ValueError(f"features must be (B, O, C, h, w), got "
+                         f"{tuple(features.shape)}")
     b, o, c, hi, wi = features.shape
     ho, wo = (int(v) for v in out_hw)
+    _check(features, bbox, o, (hi, wi, ho, wo))
     out = torch.empty((b, c, ho, wo), dtype=torch.float32,
                       device=features.device)
-    fn = _kernel()
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(features.data_ptr(), bbox.data_ptr(), out.data_ptr(),
-                 b, o, c, hi, wi, ho, wo, stream)
-    if err != 0:
-        raise RuntimeError(f"stn_place_multi_f32 launch failed with CUDA "
-                           f"error {err}")
-    with _count_lock:
-        _launches += 1
+    _launch("stn_place_multi_f32", "place",
+            (features.data_ptr(), bbox.data_ptr(), out.data_ptr(),
+             b, o, c, hi, wi, ho, wo), features.device)
     return out
+
+
+def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
+                              in_hw: tuple[int, int]) -> torch.Tensor:
+    """K2: grad (B, C, Ho, Wo) f32, bbox (B, O, 4) f32 -> (B, O, C, h, w).
+
+    A CUDA tensor launches the kernel on the current stream (or raises); a
+    CPU tensor runs :func:`stn_place_multi_grad_plain`. K2 has no backward
+    of its own: on the card it refuses a ``grad`` that requires grad while
+    grad mode is on, rather than return a result cut from the graph.
+    """
+    _check_device(grad, "stn_place_multi_grad_nchw")
+    if grad.device.type == "cpu":
+        return stn_place_multi_grad_plain(grad, bbox, in_hw)
+    if torch.is_grad_enabled() and grad.requires_grad:
+        raise RuntimeError("stn_place_multi_grad_nchw is not differentiable "
+                           "on the card; it runs inside StnPlaceMulti's "
+                           "backward")
+    if grad.dim() != 4 or bbox.dim() != 3:
+        raise ValueError(f"grad must be (B, C, Ho, Wo) and bbox (B, O, 4), "
+                         f"got {tuple(grad.shape)} and {tuple(bbox.shape)}")
+    b, c, ho, wo = grad.shape
+    o = bbox.shape[1]
+    hi, wi = (int(v) for v in in_hw)
+    _check(grad, bbox, o, (hi, wi, ho, wo))
+    if max(hi, wi, ho, wo) > MAX_GRAD_SIDE:
+        raise ValueError(f"K2 takes maps of at most {MAX_GRAD_SIDE} a side, "
+                         f"got {(hi, wi)} <- {(ho, wo)}")
+    out = torch.empty((b, o, c, hi, wi), dtype=torch.float32,
+                      device=grad.device)
+    _launch("stn_place_multi_grad_f32", "grad",
+            (grad.data_ptr(), bbox.data_ptr(), out.data_ptr(),
+             b, o, c, hi, wi, ho, wo), grad.device)
+    return out
+
+
+class StnPlaceMulti(torch.autograd.Function):
+    """K3: the differentiable place-and-accumulate.
+
+    Forward is K1 (or its plain version on the CPU), backward K2 (or its
+    plain version). Gradients flow to the features only; the boxes are
+    data, as in the reference and the JAX package's ``custom_vjp``. Saves
+    only the boxes and the input size.
+    """
+
+    @staticmethod
+    def forward(ctx, features, bbox, out_hw):
+        ctx.save_for_backward(bbox)
+        ctx.in_hw = tuple(features.shape[-2:])
+        if features.device.type == "cpu":
+            return stn_place_multi_plain(features, bbox, out_hw)
+        return _place_cuda(features, bbox, out_hw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (bbox,) = ctx.saved_tensors
+        return (stn_place_multi_grad_nchw(grad.contiguous(), bbox,
+                                          ctx.in_hw), None, None)
+
+
+def stn_place_multi_nchw(features: torch.Tensor, bbox: torch.Tensor,
+                         out_hw: tuple[int, int]) -> torch.Tensor:
+    """features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo).
+
+    Runs :class:`StnPlaceMulti`: K1 on the current stream for a CUDA tensor
+    (float32, or it raises), the plain version for a CPU tensor. The boxes
+    are detached; the output has a ``grad_fn`` whenever the features
+    require grad.
+    """
+    _check_device(features, "stn_place_multi_nchw")
+    return StnPlaceMulti.apply(features, bbox.detach(),
+                               tuple(int(v) for v in out_hw))

@@ -1,4 +1,5 @@
-"""Images out of the generator: uint8 conversion and a stdlib PNG writer.
+"""Images into and out of the models: the device-side normalize of a
+training batch, uint8 conversion and a stdlib PNG writer.
 
 The serving path needs no imaging library: a PNG of 8-bit grayscale or RGB
 rows is a signature, an IHDR chunk, one zlib-compressed IDAT chunk and an
@@ -13,8 +14,23 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def as_model_image(img: torch.Tensor) -> torch.Tensor:
+    """A batch of images (B, H, W, C) -> the model's float (B, C, H, W).
+
+    uint8 [0, 255] maps to [-1, 1] as ``x / 127.5 - 1`` (the reference's
+    ToTensor + Normalize(0.5, 0.5), code/multi-mnist/main.py:80-82); float
+    values pass through unchanged, as the JAX package's ``as_model_image``
+    does. Batches travel as uint8, so this runs where the tensor lies: on
+    the device, as the JAX step does (train/step.py:270).
+    """
+    if img.dtype == torch.uint8:
+        img = img.float() / 127.5 - 1.0
+    return img.permute(0, 3, 1, 2).contiguous()
 
 
 def to_uint8(img) -> np.ndarray:

@@ -272,3 +272,33 @@ def test_resolve_device_refuses_cuda_without_a_card(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Stage1Service(SMALL)
+
+
+# ------------------------------------------- layout validation (F2, F3)
+
+
+@pytest.mark.parametrize("item, message", [
+    ({"labels": [1], "bboxes": [[0.1, 0.1, 0.0, 0.3]]}, "w, h > 0"),
+    ({"labels": [1], "bboxes": [[0.1, 0.1, 0.3, -0.2]]}, "w, h > 0"),
+    ({"labels": [1], "bboxes": [[float("nan"), 0.1, 0.3, 0.3]]}, "finite"),
+    ({"labels": [10], "bboxes": [[0.1, 0.1, 0.3, 0.3]]}, "outside"),
+    ({"labels": [-1], "bboxes": [[0.1, 0.1, 0.3, 0.3]]}, "outside"),
+], ids=["zero-width", "negative-height", "nan", "id-10", "id-minus-1"])
+def test_server_rejects_bad_boxes_and_label_ids(server, item, message):
+    """A box the place cannot take (non-finite, w or h <= 0) and a label id
+    outside [0, label_dim) are the client's fault: 400, not 500, and no
+    wrap-around of -1 to class 9."""
+    port, _ = server
+    status, body = _request(port, "POST", "/generate", {"items": [item]})
+    assert status == 400 and message in body["error"], body
+
+
+def test_server_accepts_padded_objects(server):
+    port, _ = server
+    item = {"labels": [2, 5], "bboxes": [[0.1, 0.1, 0.3, 0.3],
+                                         [-1.0, -1.0, -1.0, -1.0]]}
+    status, body = _request(port, "POST", "/generate", {"items": [item]})
+    assert status == 200 and len(body["images"]) == 1
+    lab, bb = _item_layout(item, 3, 10, np.random.RandomState(0))
+    np.testing.assert_array_equal(bb[1:], -1.0)
+    assert lab[0, 2] == 1.0 and lab[1, 5] == 1.0
