@@ -8,7 +8,8 @@ checkpoint runs_r5/mnist_repin/netG_final.pth. Phases, each logged with the
 elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
-  2. build    - nvcc builds csrc/stn_place.cu for sm_90a (ptxas report);
+  2. build    - nvcc builds csrc/stn_place.cu and csrc/normconv.cu for
+                sm_90a, one nvcc for each, started together (ptxas report);
   3. kernel   - the STN place kernel (K1) against its plain PyTorch version
                 on the card, at the served generator's shape, at the G and
                 D shapes of the train step and at edge cases, timed by CUDA
@@ -33,7 +34,23 @@ elapsed time:
                 and K2 launches per step;
  10. train    - the port's train entry (cli/main.py) for one synthetic
                 epoch on the card, and the proof that it went through K1
-                and K2 (their launch counts).
+                and K2 (their launch counts) and not K4;
+ 11. normconv - K4's path, the port's spike tool (tools/spike_normconv.py:
+                its check, then its bench at the three hot shapes, timed
+                beside the plain chain, cuDNN's bf16 F.conv2d and the
+                bound), with its launches; then K4 against its plain
+                version at the three hot shapes and two check shapes;
+ 12. bf16     - K1 and K2 in bf16 against their plain versions at the G
+                and D train shapes and the serve shape, with padded boxes,
+                boxes off the canvas and boxes wider than it, timed;
+ 13. step16   - one bf16 train step, full width, on the card against the
+                same step on the CPU: losses, BatchNorm statistics and
+                per-tensor gradient cosines held;
+ 14. time16   - the bf16 train step's time at batch 128 beside phase 9's
+                float32 time, and its K1 and K2 launches per step;
+ 15. entry16  - the train entry for one epoch with --bf16 and one with
+                --bn_groups 2, and one 64-item request served with --bf16
+                against the card's float32 image of it.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -44,6 +61,8 @@ from __future__ import annotations
 
 import argparse
 import base64
+import concurrent.futures
+import dataclasses
 import http.client
 import json
 import os
@@ -60,14 +79,16 @@ import torch
 
 from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.serve import (
-    Stage1Service, _item_layout, _png_b64, serve)
+    Stage1Service, _item_layout, _png_b64, build_service, serve)
 from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_multimnist
 from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.ops import _build
+from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
+from multiple_objects_gan_tpu_torch.tools import spike_normconv
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import make_train_step
 
@@ -86,6 +107,26 @@ MIN_GRAD_COSINE = 0.995     # per tensor, card vs CPU (PERF.md: >= 0.9984 read)
 STEP_BATCH = 128            # cfg/mnist_train.yml TRAIN.BATCH_SIZE
 LR = 2e-4
 DEVICE = "cuda"
+BF16 = dataclasses.replace(MNIST, compute_dtype=torch.bfloat16)
+BF16_ULPS = 1               # a bf16 kernel against its plain version: ulps
+                            # of the largest |value| (the same f32 sums in
+                            # another order, rounded to bf16 once)
+K4_SUM_RTOL = 1e-3          # K4's sums against the plain ones, of max |sum|
+STEP16_BATCH = STEP_BATCH   # the bf16 step card vs CPU (phase 13): the CPU's
+                            # bf16 step at full width and batch 128 takes
+                            # about 15 s, so nothing is cut
+# the bf16 step card vs CPU (phase 13), from tests/test_bf16.py's rtol 0.05
+# tightened to what an H100 showed at batch 128 (PERF.md): losses 2.98e-3
+# relative (limit 3.4 times that), statistics 1.79e-3 (2.8 times), lowest
+# gradient cosine 0.939, a layout-encoder BatchNorm bias (the limit leaves
+# 1 - 0.9 = 1.6 times its 0.061 gap to 1). A cut place backward reads 0 on
+# the object pathways, a mirrored one down to 0.55 (on the CPU at gf/df 8:
+# tests/test_torch_port_bf16.py holds both below the limit)
+BF16_LOSS_RTOL = 0.01
+BF16_STATS_ATOL = 5e-3
+BF16_MIN_GRAD_COSINE = 0.9
+MIN_BF16_SEPARATION = MIN_SEPARATION
+MAX_BF16_SERVE_MEAN_DIFF = 0.05  # bf16 served image vs float32, [-1, 1]
 
 
 def log(msg: str) -> None:
@@ -118,7 +159,7 @@ def cuda_ms(fn, warmup: int = 5, runs: int = 50) -> float:
 
 
 def phase_device():
-    log("phase 1/10 device")
+    log("phase 1/15 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -136,13 +177,16 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/10 build")
-    built = _build.build("stn_place")
-    for line in built.log.splitlines():
-        if line.strip():
-            print(f"  {line}", flush=True)
-    log(f"build: {os.path.relpath(built.path, ROOT)} ready in "
-        f"{built.seconds:.2f}s")
+    log("phase 2/15 build")
+    names = ("stn_place", "normconv")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    for b in built:
+        for line in b.log.splitlines():
+            if line.strip():
+                print(f"  {line}", flush=True)
+        log(f"build: {os.path.relpath(b.path, ROOT)} ready in "
+            f"{b.seconds:.2f}s")
 
 
 def _service_boxes(rs, b, o):
@@ -153,26 +197,28 @@ def _service_boxes(rs, b, o):
 
 def _bound(features, bbox, out_hw):
     """Least time for this run's data: the input values with a non-zero
-    weight, the boxes and the output, over the memory rate; two flops a
-    tap over the float32 rate. Returns (bound_ms, bound_by, dense_ms)."""
+    weight, the boxes and the output, in the features' element size, over
+    the memory rate; two flops a tap over the float32 rate (the kernel's
+    arithmetic in either type). Returns (bound_ms, bound_by, dense_ms)."""
     b, o, c, hi, wi = features.shape
+    es = features.element_size()
     wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, (hi, wi))
     rows = (wy != 0).any(dim=1).sum(dim=1)
     cols = (wx != 0).any(dim=1).sum(dim=1)
-    read = int((rows * cols).sum()) * c * 4 + bbox.numel() * 4
-    out_bytes = b * c * out_hw[0] * out_hw[1] * 4
+    read = int((rows * cols).sum()) * c * es + bbox.numel() * 4
+    out_bytes = b * c * out_hw[0] * out_hw[1] * es
     taps = int(((wy != 0).sum(2)[:, :, None]
                 * (wx != 0).sum(2)[:, None, :]).sum()) * c
     bytes_ms = (read + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * taps / F32_OPS_PER_S * 1e3
-    dense_ms = (features.numel() * 4 + bbox.numel() * 4 + out_bytes) \
+    dense_ms = (features.numel() * es + bbox.numel() * 4 + out_bytes) \
         / HBM_BYTES_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations"), dense_ms
 
 
 def phase_kernel():
-    log("phase 3/10 kernel against its plain version, on the card")
+    log("phase 3/15 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -240,7 +286,7 @@ def phase_kernel():
 
 
 def phase_model():
-    log("phase 4/10 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/15 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -311,7 +357,7 @@ def _separation(u8, boxes) -> float:
 
 
 def phase_serve():
-    log("phase 5/10 serve: the port's main path over HTTP, on the card")
+    log("phase 5/15 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -394,14 +440,16 @@ def phase_serve():
         httpd.server_close()
         httpd.batcher.close()
         thread.join(timeout=30)
-    launches = k1.launch_count()
+    launches = (k1.launch_count(), k1.grad_launch_count())
     check(stats["device"].startswith(DEVICE), "served on the card")
-    check(launches == svc.device_batches == stats["batches"] + 1,
-          f"K1 launches {launches} != device batches {svc.device_batches} "
-          f"(= {stats['batches']} served + 1 warm-up)")
-    log(f"K1 launches during serving: {launches} for {svc.device_batches} "
-        f"device batches ({stats['batches']} served + 1 warm-up): every "
-        "generator forward went through the kernel")
+    check(launches[0] == svc.device_batches == stats["batches"] + 1,
+          f"K1 launches {launches[0]} != device batches "
+          f"{svc.device_batches} (= {stats['batches']} served + 1 warm-up)")
+    check(launches[1] == 0, f"serving launched K2 {launches[1]} times")
+    log(f"K1 launches during serving: {launches[0]} for "
+        f"{svc.device_batches} device batches ({stats['batches']} served + 1 "
+        f"warm-up): every generator forward went through the kernel; K2 "
+        f"launches {launches[1]}")
     return launches, latency_ms
 
 
@@ -433,28 +481,29 @@ def _grad_boxes(rs, b, o, kind):
 def _grad_bound(g, bbox, in_hw):
     """Least time of K2 for this run's data: the gradient values some
     object's weights touch, the boxes, and the whole output over the
-    memory rate; two flops a tap over the float32 rate. Returns
-    (bound_ms, bound_by, dense_ms), dense_ms reading every gradient
-    value."""
+    memory rate, in the gradient's element size; two flops a tap over the
+    float32 rate. Returns (bound_ms, bound_by, dense_ms), dense_ms reading
+    every gradient value."""
     b, c, ho, wo = g.shape
     o = bbox.shape[1]
+    es = g.element_size()
     wy, wx = place_weights(bbox.reshape(b * o, 4), (ho, wo), in_hw)
     ry = (wy != 0).any(dim=2).reshape(b, o, ho)
     rx = (wx != 0).any(dim=2).reshape(b, o, wo)
     need = (ry[:, :, :, None] & rx[:, :, None, :]).any(dim=1)
-    out_bytes = b * o * c * in_hw[0] * in_hw[1] * 4
-    read = int(need.sum()) * c * 4 + bbox.numel() * 4
+    out_bytes = b * o * c * in_hw[0] * in_hw[1] * es
+    read = int(need.sum()) * c * es + bbox.numel() * 4
     taps = int(((wy != 0).sum(dim=(1, 2)) * (wx != 0).sum(dim=(1, 2))).sum()) * c
     bytes_ms = (read + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * taps / F32_OPS_PER_S * 1e3
-    dense_ms = (g.numel() * 4 + bbox.numel() * 4 + out_bytes) \
+    dense_ms = (g.numel() * es + bbox.numel() * 4 + out_bytes) \
         / HBM_BYTES_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations"), dense_ms
 
 
 def phase_grad_kernel():
-    log("phase 6/10 grad: K2 (place backward) against its plain version, "
+    log("phase 6/15 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -521,7 +570,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/10 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/15 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -624,30 +673,35 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(a @ b) / norm
 
 
-def step_disagreements(got, want):
+def step_disagreements(got, want, loss_atol=LOSS_ATOL, loss_rtol=0.0,
+                       stats_atol=STATS_ATOL, min_cosine=MIN_GRAD_COSINE):
     """Where two results of :func:`step_once` from the same weights
-    disagree beyond the limits: losses (atol LOSS_ATOL), BatchNorm running
-    statistics (atol STATS_ATOL) and the per-tensor gradient cosine (above
-    MIN_GRAD_COSINE). Returns (failures, worst): a message per failed
-    check, and the worst reading of each kind."""
+    disagree beyond the limits: losses (atol ``loss_atol`` plus
+    ``loss_rtol`` of the loss), BatchNorm running statistics (atol
+    ``stats_atol``) and the per-tensor gradient cosine (above
+    ``min_cosine``); the float32 limits by default. Returns (failures,
+    worst): a message per failed check, and the worst reading of each kind,
+    the loss as |difference| and as |difference| / |loss|."""
     bad = []
-    worst = {"loss": 0.0, "stats": 0.0, "grad_cosine": 1.0}
+    worst = {"loss": 0.0, "loss_rel": 0.0, "stats": 0.0, "grad_cosine": 1.0}
     for k in sorted(want[0]):
         err = abs(got[0][k] - want[0][k])
         worst["loss"] = max(worst["loss"], err)
-        if err > LOSS_ATOL:
+        worst["loss_rel"] = max(worst["loss_rel"],
+                                err / max(abs(want[0][k]), 1e-12))
+        if err > loss_atol + loss_rtol * abs(want[0][k]):
             bad.append(f"loss {k}: {got[0][k]:.6f} vs {want[0][k]:.6f}")
     for net in ("G", "D"):
         for k in want[2][net]:
             if k.endswith(("running_mean", "running_var")):
                 err = float((got[2][net][k] - want[2][net][k]).abs().max())
                 worst["stats"] = max(worst["stats"], err)
-                if err > STATS_ATOL:
+                if err > stats_atol:
                     bad.append(f"{net}:{k} running statistic off by {err:.3e}")
         for k in want[3][net]:
             gcos = _cosine(got[3][net][k], want[3][net][k])
             worst["grad_cosine"] = min(worst["grad_cosine"], gcos)
-            if gcos <= MIN_GRAD_COSINE:
+            if gcos <= min_cosine:
                 bad.append(f"{net}:{k} gradient cosine {gcos:.6f}")
     return bad, worst
 
@@ -670,7 +724,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/10 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/15 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -704,14 +758,16 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(runs: int = 20):
-    log(f"phase 9/10 steptime: the train step at batch {STEP_BATCH} on the "
-        "card")
+def phase_step_time(cfg=MNIST, phase="9/15 steptime", runs: int = 20):
+    kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
+        "float32 with TF32 off (matmul and cuDNN)")
+    log(f"phase {phase}: the train step at batch {STEP_BATCH} on the card, "
+        f"{kind}")
     dev = torch.device(DEVICE)
-    state = create_state(MNIST, seed=0, device=dev)
+    state = create_state(cfg, seed=0, device=dev)
     data = {k: torch.from_numpy(v).to(dev)
             for k, v in synthetic_multimnist(STEP_BATCH, seed=8).items()}
-    step = make_train_step(MNIST)
+    step = make_train_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(3):
         step(state, data, gen, LR, LR)
@@ -731,38 +787,267 @@ def phase_step_time(runs: int = 20):
     ms = statistics.median(times)
     check(all(bool(torch.isfinite(v)) for v in metrics.values()),
           "non-finite losses while timing")
-    log(f"train step at batch {STEP_BATCH}, full width, float32 with TF32 off "
-        f"(matmul and cuDNN): {ms:.2f} ms (CUDA events, median of {runs}; "
-        f"min {min(times):.2f}, max {max(times):.2f}) = "
-        f"{STEP_BATCH * 1e3 / ms:.0f} images/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
-        f"step: K1 {per_step[0]:g}, K2 {per_step[1]:g}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train step at batch {STEP_BATCH}, full width, {kind}: {ms:.2f} ms "
+        f"(CUDA events, median of {runs}; min {min(times):.2f}, max "
+        f"{max(times):.2f}) = {STEP_BATCH * 1e3 / ms:.0f} images/s; peak "
+        f"memory {peak:.2f} GiB; launches per step: K1 {per_step[0]:g}, K2 "
+        f"{per_step[1]:g}")
     check(per_step == (4, 4), f"K1/K2 launches per step {per_step} != (4, 4)")
-    return ms, per_step
+    return {"ms": ms, "images_per_s": STEP_BATCH * 1e3 / ms,
+            "peak_gib": peak, "launches_per_step": per_step}
 
 
-def phase_train_entry():
-    log("phase 10/10 train: cli/main.py, one synthetic epoch on the card")
+def train_entry(flags=()):
+    """cli/main.py for one synthetic epoch on the card with ``flags``;
+    returns its K1, K2 and K4 launches, held at 16, 16 (4 steps) and 0."""
     cfg = os.path.join(ROOT, "cfg", "mnist_train.yml")
     k1.reset_launch_count()
+    k4.reset_launch_count()
     hist = train_main.main(["--variant", "multi-mnist", "--cfg", cfg,
                             "--synthetic", "--max_epochs", "1",
-                            "--manualSeed", "7", "--device", DEVICE])
+                            "--manualSeed", "7", "--device", DEVICE,
+                            *flags])
     torch.cuda.synchronize()
-    launches = (k1.launch_count(), k1.grad_launch_count())
+    launches = (k1.launch_count(), k1.grad_launch_count(), k4.launch_count())
     check(len(hist) == 1 and hist[0]["steps"] == 4,
           f"one epoch of 4 steps expected, got {hist}")
     losses = {k: v for k, v in hist[0].items()
               if k not in ("steps", "seconds")}
     check(all(np.isfinite(v) for v in losses.values()),
           f"non-finite losses {losses}")
-    log(f"train entry: {hist[0]['steps']} steps in {hist[0]['seconds']:.2f} s "
-        f"(host clock, first epoch, cuDNN set-up included); K1 launches "
-        f"{launches[0]}, K2 launches {launches[1]}")
-    check(launches[1] > 0 and launches == (16, 16),
-          f"K1/K2 launches {launches} != (16, 16) for 4 steps")
+    log(f"train entry {' '.join(flags) or '(float32)'}: {hist[0]['steps']} "
+        f"steps in {hist[0]['seconds']:.2f} s (host clock, first epoch, cuDNN "
+        f"set-up included); K1 launches {launches[0]}, K2 launches "
+        f"{launches[1]}, K4 launches {launches[2]}; mean losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
+    check(launches == (16, 16, 0),
+          f"K1/K2/K4 launches {launches} != (16, 16, 0) for 4 steps")
     return launches
 
+
+def phase_train_entry():
+    log("phase 10/15 train: cli/main.py, one synthetic epoch on the card")
+    return train_entry()
+
+
+def _ulp_bf16(t: torch.Tensor) -> float:
+    """One bf16 ulp at the largest |value| of ``t``."""
+    m = float(t.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def phase_normconv():
+    log("phase 11/15 normconv: K4's path (the port's spike tool), and K4 "
+        "against its plain version, on the card")
+    dev = torch.device(DEVICE)
+    k4.reset_launch_count()
+    rows = spike_normconv.run(dev)
+    torch.cuda.synchronize()
+    tool_launches = k4.launch_count()
+    want = len(spike_normconv.CHECK_SHAPES) + len(spike_normconv.HOT_SHAPES) \
+        * (spike_normconv.WARMUP + spike_normconv.RUNS)
+    check(tool_launches == want, f"the spike tool launched K4 "
+          f"{tool_launches} times, {want} expected")
+    log(f"tools/spike_normconv.py (check, then bench): K4 launches "
+        f"{tool_launches} = {len(spike_normconv.CHECK_SHAPES)} checks + "
+        f"{len(spike_normconv.HOT_SHAPES)} hot shapes x "
+        f"({spike_normconv.WARMUP} warm-up + {spike_normconv.RUNS} timed)")
+    worst = 0.0
+    shapes = spike_normconv.CHECK_SHAPES + spike_normconv.HOT_SHAPES
+    for i, (name, *shape) in enumerate(shapes):
+        args = spike_normconv.make_inputs(shape, 100 + i, dev)
+        got = k4.normconv(*args)
+        want = k4.normconv_plain(*args)
+        torch.cuda.synchronize()
+        dy, scale, rs, rq = spike_normconv.disagreement(got, want)
+        ulp = _ulp_bf16(want[0])
+        worst = max(worst, dy)
+        log(f"  {name} {tuple(shape)}: max |y - plain| = {dy:.4g} ({dy / ulp:g}"
+            f" bf16 ulp of max |y| {scale:.4g}; limit {BF16_ULPS}); sums "
+            f"{rs:.2e}, squares {rq:.2e} of their max (limit "
+            f"{K4_SUM_RTOL:g})")
+        check(bool(torch.isfinite(got[0].float()).all()), f"K4 non-finite "
+              f"({name})")
+        check(dy <= BF16_ULPS * ulp, f"K4 y disagrees at {name}")
+        check(rs <= K4_SUM_RTOL and rq <= K4_SUM_RTOL,
+              f"K4 sums disagree at {name}")
+    return {"max_abs_err": worst, "launches": tool_launches, "rows": rows}
+
+
+def _boxes(rs, b, o, kind):
+    return _service_boxes(rs, b, o) if kind == "service" else _grad_boxes(
+        rs, b, o, kind)
+
+
+def phase_bf16_kernels():
+    log("phase 12/15 bf16: K1 and K2 in bf16 against their plain versions, "
+        "on the card")
+    rs = np.random.RandomState(13)
+    dev = torch.device(DEVICE)
+    cases = [  # (label, timed as, B, C, input side, boxes)
+        ("serve", "serve", 64, 256, 16, "service"),
+        ("train G", "train G", STEP_BATCH, 256, 16, "train"),
+        ("train D, 15x15", "train D", STEP_BATCH, 128, 15, "train"),
+        ("padded objects", None, STEP_BATCH, 256, 16, "padded"),
+        ("boxes partly off the canvas", None, STEP_BATCH, 256, 16,
+         "off-canvas"),
+        ("boxes wider than the canvas", None, STEP_BATCH, 256, 16, "wide"),
+        ("boxes wider than the canvas, 15x15", None, STEP_BATCH, 128, 15,
+         "wide"),
+    ]
+    out = {"place": {"max_abs_err": 0.0}, "grad": {"max_abs_err": 0.0}}
+    for label, timed, b, c, side, kind in cases:
+        hw = (side, side)
+        bbox = torch.from_numpy(_boxes(rs, b, 3, kind)).to(dev)
+        feats = torch.from_numpy(rs.randn(b, 3, c, side, side).astype(
+            np.float32)).to(dev).bfloat16()
+        g = torch.from_numpy(rs.uniform(-1, 1, (b, c, 16, 16)).astype(
+            np.float32)).to(dev).bfloat16()
+        for kernel, run, plain, arg, hw_arg in (
+                ("place", k1.stn_place_multi_nchw, k1.stn_place_multi_plain,
+                 feats, (16, 16)),
+                ("grad", k1.stn_place_multi_grad_nchw,
+                 k1.stn_place_multi_grad_plain, g, hw)):
+            got = run(arg, bbox, hw_arg)
+            want = plain(arg, bbox, hw_arg)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16, f"{kernel} returned {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            ulp = _ulp_bf16(want)
+            out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+            name = "K1" if kernel == "place" else "K2"
+            log(f"  {name} {label}: {tuple(arg.shape)}: max |kernel - plain| "
+                f"= {err:.3e} ({err / ulp:g} bf16 ulp of the largest |value|;"
+                f" limit {BF16_ULPS})")
+            check(err <= BF16_ULPS * ulp,
+                  f"{name} bf16 disagrees with its plain version ({label})")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"{name} bf16 non-finite ({label})")
+            if kind == "padded":
+                check(int(torch.count_nonzero(got[::2])) == 0,
+                      f"{name} bf16: padded items must give exact zeros")
+            if timed is None or (kernel == "grad" and timed == "serve"):
+                continue
+            ms = cuda_ms(lambda: run(arg, bbox, hw_arg))
+            plain_ms = cuda_ms(lambda: plain(arg, bbox, hw_arg))
+            if kernel == "place":
+                bound_ms, bound_by, dense_ms = _bound(arg, bbox, (16, 16))
+            else:
+                bound_ms, bound_by, dense_ms = _grad_bound(arg, bbox, hw)
+            log(f"{name} bf16 at the {timed} shape {tuple(arg.shape)}, CUDA "
+                f"events, median of 50: {ms:.4f} ms; plain version "
+                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                f"this run's boxes; {dense_ms:.4f} ms dense); "
+                f"{bound_ms / ms:.1%} of the bound")
+            out[kernel][timed] = {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "dense_bound_ms": dense_ms}
+    return out
+
+
+def phase_step_bf16():
+    log(f"phase 13/15 step16: one full-width bf16 train step, batch "
+        f"{STEP16_BATCH}, card against CPU")
+    data = synthetic_multimnist(STEP16_BATCH, seed=5)
+    z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
+        np.float32)
+    cpu = step_once("cpu", data, z, BF16, randomized=True)
+    card = step_once(DEVICE, data, z, BF16, randomized=True)
+    bad, worst = step_disagreements(
+        card, cpu, loss_atol=0.0, loss_rtol=BF16_LOSS_RTOL,
+        stats_atol=BF16_STATS_ATOL, min_cosine=BF16_MIN_GRAD_COSINE)
+    log(f"  from the tests/test_step_parity.py weights: bf16 step on the CPU "
+        f"{cpu[4]:.1f} s ({torch.get_num_threads()} threads), on the card "
+        f"{card[4]:.2f} s (host clock, first call)")
+    for k in sorted(cpu[0]):
+        log(f"    {k}: card {card[0][k]:.6f}, CPU {cpu[0][k]:.6f}")
+    log(f"    worst card vs CPU: loss {worst['loss_rel']:.3e} relative "
+        f"(limit {BF16_LOSS_RTOL:g}); BatchNorm running stats "
+        f"{worst['stats']:.3e} (atol {BF16_STATS_ATOL:g}); per-tensor "
+        f"gradient cosine {worst['grad_cosine']:.8f} (limit "
+        f"{BF16_MIN_GRAD_COSINE:g})")
+    cosines = sorted((_cosine(card[3][n][k], cpu[3][n][k]), f"{n}:{k}")
+                     for n in ("G", "D") for k in cpu[3][n])
+    log("    lowest per-tensor gradient cosines: " + ", ".join(
+        f"{k} {c:.6f}" for c, k in cosines[:4]))
+    for msg in bad:
+        log(f"    FAILED {msg}")
+    check(not bad, f"bf16 train step card vs CPU: {len(bad)} checks failed")
+    return worst
+
+
+def _served_images(port, items):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/generate", body=json.dumps({"items": items}))
+        resp = conn.getresponse()
+        status, body = resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+    check(status == 200 and len(body["images"]) == len(items),
+          f"bf16 request: {status}")
+    return [_png_gray64(b) for b in body["images"]]
+
+
+def phase_entry_bf16():
+    log("phase 15/15 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+        "64-item request served with --bf16")
+    launches = {"train_bf16": train_entry(["--bf16"]),
+                "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
+    rs = np.random.RandomState(2)
+    items, boxes = [], []
+    for _ in range(64):
+        n = int(rs.randint(1, 4))
+        w, h = rs.uniform(0.25, 0.4, n), rs.uniform(0.25, 0.4, n)
+        bb = np.stack([rs.uniform(0, 1 - w), rs.uniform(0, 1 - h), w, h],
+                      -1).round(4).tolist()
+        items.append({"labels": rs.randint(0, 10, n).tolist(), "bboxes": bb})
+        boxes.append(bb)
+    k1.reset_launch_count()
+    args = argparse.Namespace(variant="multi-mnist", cfg="", net_g=CKPT,
+                              seed=0, device=DEVICE, bf16=True,
+                              host="127.0.0.1", port=0, max_wait_ms=5.0)
+    httpd = serve(args, build_service(args))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t = time.perf_counter()
+        imgs16 = _served_images(httpd.server_address[1], items)
+        latency_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.close()
+        thread.join(timeout=30)
+    svc16 = httpd.service
+    serve_launches = (k1.launch_count(), k1.grad_launch_count())
+    check(svc16.mcfg.compute_dtype == torch.bfloat16, "served in bf16")
+    check(serve_launches[0] == svc16.device_batches == 2,
+          f"the bf16 request took {svc16.device_batches - 1} device batches "
+          f"and {serve_launches[0]} K1 launches, warm-up included; one each "
+          "expected")
+    check(serve_launches[1] == 0,
+          f"bf16 serving launched K2 {serve_launches[1]} times")
+    # the float32 service draws the same z: one warm-up batch, then this one
+    svc32 = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
+    imgs32 = [_png_gray64(b) for b in svc32.run(items)]
+    diff = np.abs(np.stack(imgs16).astype(np.float32)
+                  - np.stack(imgs32).astype(np.float32)) / 127.5
+    sep = [_separation(u8, bb) for u8, bb in zip(imgs16, boxes)]
+    log(f"64-item request with --bf16: {latency_ms:.1f} ms over HTTP (host "
+        f"clock); against the float32 image of the card: mean |diff| "
+        f"{diff.mean():.4f}, max {diff.max():.4f} in [-1, 1] units (limit "
+        f"mean {MAX_BF16_SERVE_MEAN_DIFF:g}); separation mean "
+        f"{np.mean(sep):.3f} (need > {MIN_BF16_SEPARATION}); K1 launches "
+        f"{serve_launches[0]} for {svc16.device_batches} device batches, K2 "
+        f"launches {serve_launches[1]}")
+    check(float(diff.mean()) <= MAX_BF16_SERVE_MEAN_DIFF,
+          "bf16 served images stray from the float32 ones")
+    check(float(np.mean(sep)) > MIN_BF16_SEPARATION,
+          "bf16 served images do not place content in the requested boxes")
+    launches["serve_bf16"] = serve_launches
+    return launches, float(diff.mean())
 
 
 def main() -> int:
@@ -778,30 +1063,62 @@ def main() -> int:
     grad = phase_grad_kernel()
     phase_autograd()
     phase_step()
-    phase_step_time()
+    step32 = phase_step_time()
     train_launches = phase_train_entry()
+    normconv = phase_normconv()
+    bf16 = phase_bf16_kernels()
+    phase_step_bf16()
+    step16 = phase_step_time(BF16, "14/15 time16")
+    log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
+        f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
+        f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
+        f"{step32['peak_gib']:.2f} GiB): {step32['ms'] / step16['ms']:.2f}x")
+    entry16, _ = phase_entry_bf16()
     log("all phases passed")
+    by_path = {"serve": serve_launches, "train": train_launches, **entry16}
+    f32_paths, bf16_paths = ("serve", "train", "train_bn_groups_2"), (
+        "serve_bf16", "train_bf16")
+
+    def launches(i):
+        return {"launches": sum(v[i] for v in by_path.values()),
+                "launches_f32": sum(by_path[p][i] for p in f32_paths),
+                "launches_bf16": sum(by_path[p][i] for p in bf16_paths),
+                "launches_by_path": {p: v[i] for p, v in by_path.items()}}
+
     cuda = {"route": "cuda",
             "source": "multiple_objects_gan_tpu_torch/csrc/stn_place.cu",
             "library_ms": None}
+    hot = normconv["rows"][0]
+    k4_paths = {"spike_tool": normconv["launches"],
+                **{p: v[2] for p, v in by_path.items() if len(v) > 2}}
     print(json.dumps({"kernels": [{
-        "name": "stn_place_multi_f32", **cuda,
+        "name": "stn_place_multi", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:79",
-        "launches": serve_launches + train_launches[0],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches[0]},
+        **launches(0),
         "max_abs_err": place["max_abs_err"],
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
+        "bf16": bf16["place"],
     }, {
-        "name": "stn_place_multi_grad_f32", **cuda,
+        "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
-        "launches": train_launches[1],
-        "launches_by_path": {"serve": 0, "train": train_launches[1]},
+        **launches(1),
         "max_abs_err": grad["max_abs_err"],
         **grad["G"],
         "d_shape": grad["D"],
+        "bf16": bf16["grad"],
+    }, {
+        "name": "normconv_bf16", "route": "cuda",
+        "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",
+        "replaces": "tools/spike_normconv.py:90",
+        "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths,
+        "max_abs_err": normconv["max_abs_err"],
+        "shape": hot["dims"], "ms": hot["ms"], "plain_ms": hot["plain_ms"],
+        "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
+        "library_ms": hot["library_ms"],
+        "shapes": normconv["rows"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

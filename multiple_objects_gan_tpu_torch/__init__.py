@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the multiple-objects GAN, beside the JAX package.
 
-The port runs on an NVIDIA H100. Its one hand-written kernel (the STN
-place-and-accumulate, ``ops/stn_place_cuda.py``) is CUDA C++ for
-``sm_90a``. It imports nothing of JAX and nothing of
-``multiple_objects_gan_tpu``: the JAX package is the reference the port's
-tests hold it against.
+The port runs on an NVIDIA H100. Its hand-written kernels are CUDA C++ for
+``sm_90a``: the STN place-and-accumulate and its backward
+(``ops/stn_place_cuda.py``, float32 and bf16) and the BatchNorm-fused conv
+link of the JAX package's spike (``ops/normconv.py``). It imports nothing of
+JAX and nothing of ``multiple_objects_gan_tpu``: the JAX package is the
+reference the port's tests hold it against.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``.
 Without a card it raises; it runs on the CPU only when asked to.

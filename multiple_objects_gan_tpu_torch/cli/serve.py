@@ -15,13 +15,14 @@ HTTP API (stdlib http.server, threaded):
 Usage:
   python -m multiple_objects_gan_tpu_torch.cli.serve --variant multi-mnist \
       --net_g runs_r5/mnist_repin/netG_final.pth --device cuda \
-      [--cfg cfg/mnist_eval.yml] [--port 8000] [--max_wait_ms 5]
+      [--cfg cfg/mnist_eval.yml] [--port 8000] [--max_wait_ms 5] [--bf16]
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import queue
 import threading
@@ -37,6 +38,7 @@ from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST, Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
+from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
 
 MAX_BATCH = 64
@@ -212,8 +214,10 @@ class Stage1Service:
     """Multi-MNIST generation at ``MAX_BATCH`` on one device.
 
     ``net_g`` is a reference-format ``.pth``; without one the generator
-    gets the reference's random init from ``seed``. z comes from a
-    ``torch.Generator`` seeded with ``seed``. The constructor runs one
+    gets the reference's random init from ``seed``. The generator computes
+    in ``mcfg.compute_dtype`` (bf16 with ``--bf16``); the images come back
+    float32 either way. z comes from a ``torch.Generator`` seeded with
+    ``seed``. The constructor runs one
     warm-up batch, so the first request pays neither the kernel build nor
     cuDNN's first-call set-up.
     """
@@ -227,6 +231,7 @@ class Stage1Service:
         self.weights = net_g or f"random init, seed {seed}"
         self.g = build_stage1_g(mcfg, state_dict, seed=seed,
                                 device=self.device)
+        self._sample = make_sample_fn(mcfg)
         self._rs = np.random.RandomState(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.device_batches = 0
@@ -249,10 +254,9 @@ class Stage1Service:
                                               mc.label_dim, self._rs)
         z = torch.randn((b, mc.z_dim), generator=self._gen,
                         device=self.device)
-        with torch.inference_mode():
-            img = self.g(z, torch.from_numpy(bbox).to(self.device),
-                         torch.from_numpy(labels).to(self.device))
-            imgs = img[:len(items)].permute(0, 2, 3, 1).cpu().numpy()
+        img = self._sample(self.g, z, torch.from_numpy(bbox).to(self.device),
+                           torch.from_numpy(labels).to(self.device))
+        imgs = img[:len(items)].permute(0, 2, 3, 1).cpu().numpy()
         self.device_batches += 1
         return [_png_b64(im) for im in imgs]
 
@@ -316,14 +320,16 @@ def make_handler(batcher: MicroBatcher, info: dict, validate=None,
 
 def build_service(args) -> Stage1Service:
     """The service the CLI arguments name: the MNIST preset, or the model
-    config and NET_G of ``--cfg``; ``--net_g`` wins over the YAML."""
-    mcfg, net_g = MNIST, args.net_g
+    config and NET_G of ``--cfg``; ``--net_g`` wins over the YAML, and
+    ``--bf16`` makes the generator compute in bf16."""
+    dt = torch.bfloat16 if getattr(args, "bf16", False) else None
+    mcfg, net_g = dataclasses.replace(MNIST, compute_dtype=dt), args.net_g
     if args.cfg:
         from multiple_objects_gan_tpu_torch.config.config import (
             cfg_from_file, stage1_model_config)
 
         cfg = cfg_from_file(args.cfg, args.variant)
-        mcfg = stage1_model_config(cfg, args.variant)
+        mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dt)
         net_g = net_g or cfg.NET_G
     return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
 
@@ -337,7 +343,8 @@ def serve(args, service: Optional[Stage1Service] = None
     batcher = MicroBatcher(svc.run, max_batch=svc.max_batch,
                            max_wait_ms=args.max_wait_ms)
     info = {"variant": args.variant, "max_batch": svc.max_batch,
-            "device": str(svc.device), "weights": svc.weights}
+            "device": str(svc.device), "weights": svc.weights,
+            "bf16": svc.mcfg.compute_dtype == torch.bfloat16}
     httpd = ThreadingHTTPServer(
         (args.host, args.port),
         make_handler(batcher, info, validate=svc.validate,
@@ -361,6 +368,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="run the generator in bf16 (float32 weights and "
+                        "running statistics, float32 images out)")
     return p.parse_args(argv)
 
 

@@ -13,6 +13,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import re
+from typing import Optional
+
+import torch
 
 from multiple_objects_gan_tpu_torch.models import common
 
@@ -166,12 +169,22 @@ def cfg_from_file(path: str, variant: str) -> Config:
     return cfg
 
 
-def stage1_model_config(cfg: Config, variant: str) -> common.Stage1Config:
-    """Bridge a YAML Config to the model-family Stage1Config."""
+def stage1_model_config(cfg: Config, variant: str, *,
+                        compute_dtype: Optional[torch.dtype] = None,
+                        bn_groups: int = 1) -> common.Stage1Config:
+    """Bridge a YAML Config to the model-family Stage1Config, with the
+    compute dtype (None: float32; or torch.bfloat16) and BatchNorm groups
+    the caller's flags give."""
     if variant != "multi-mnist":
         raise ValueError(f"variant {variant!r} is not ported yet; the port "
                          "serves 'multi-mnist'")
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype None (float32) or bfloat16, got "
+                         f"{compute_dtype}")
+    if int(bn_groups) < 1:
+        raise ValueError(f"bn_groups must be at least 1, got {bn_groups}")
     # the mnist reference fixes condition_dim at 128 whatever the YAML says
     return dataclasses.replace(
         common.MNIST, z_dim=cfg.Z_DIM, gf_dim=cfg.GAN.GF_DIM,
-        df_dim=cfg.GAN.DF_DIM, use_bbox_layout=bool(cfg.USE_BBOX_LAYOUT))
+        df_dim=cfg.GAN.DF_DIM, use_bbox_layout=bool(cfg.USE_BBOX_LAYOUT),
+        compute_dtype=compute_dtype, bn_groups=int(bn_groups))

@@ -34,7 +34,7 @@
 // memory and each output written once; a few operations per byte moved, far
 // below the card's balance point. At the generator's shape (64,3,256,16,16)
 // -> (64,256,16,16) f32, K1 reads at most 50.3 MB and writes 16.8 MB; K2 at
-// batch 128 reads 33.6 MB and writes 100.7 MB.
+// batch 128 reads 33.6 MB and writes 100.7 MB. In bf16 both move half that.
 //
 // Design (simple first): layout NCHW, the layout the model holds, so the
 // model pays no permute. K1: one block per (b, c) output plane; threads over
@@ -52,10 +52,21 @@
 // 0): both skip the object, where the plain version gives NaN. The serving
 // path rejects such boxes, and training data has none. The kernels allocate
 // nothing and launch on the caller's stream.
+//
+// Both kernels are templates on the element type of the features and the
+// gradient: float32, or bf16 for the bf16 train step and serving. In bf16
+// each hat weight is rounded to bf16, as the JAX package's bf16 resample
+// rounds its weight matrices (multiple_objects_gan_tpu/ops/stn.py:130-138);
+// the values are read as f32, the products and the sums over taps and
+// objects run in f32, and the result is rounded to bf16 once on the store.
+// The boxes and the coordinates stay f32 in either type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxObjects = 16;  // ops/stn_place_cuda.py:MAX_OBJECTS
 constexpr int kThreads = 256;
@@ -95,10 +106,33 @@ __device__ __forceinline__ void place_affine(const float* bb, float* affine) {
                         __fsub_rn(0.5f, __fadd_rn(y, __fmul_rn(0.5f, h))));
 }
 
+// a value of the element type, read as f32
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// a hat weight as the element type holds it: unchanged in f32, rounded to
+// bf16 in bf16
+template <typename T>
+__device__ __forceinline__ float weight(float w) {
+  return w;
+}
+template <>
+__device__ __forceinline__ float weight<bf16>(float w) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stn_place_multi_kernel(const float* __restrict__ feat,
+stn_place_multi_kernel(const T* __restrict__ feat,
                        const float* __restrict__ bbox,
-                       float* __restrict__ out,
+                       T* __restrict__ out,
                        int n_objects, int channels, int in_h, int in_w,
                        int out_h, int out_w) {
   // sx, tx, sy, ty of each object's place affine
@@ -114,9 +148,9 @@ stn_place_multi_kernel(const float* __restrict__ feat,
 
   const size_t in_plane = static_cast<size_t>(in_h) * in_w;
   const size_t object_stride = static_cast<size_t>(channels) * in_plane;
-  const float* fb = feat + static_cast<size_t>(b) * n_objects * object_stride +
-                    static_cast<size_t>(c) * in_plane;
-  float* ob = out + static_cast<size_t>(plane) * out_h * out_w;
+  const T* fb = feat + static_cast<size_t>(b) * n_objects * object_stride +
+                static_cast<size_t>(c) * in_plane;
+  T* ob = out + static_cast<size_t>(plane) * out_h * out_w;
   const float fh = static_cast<float>(in_h);
   const float fw = static_cast<float>(in_w);
 
@@ -137,9 +171,9 @@ stn_place_multi_kernel(const float* __restrict__ feat,
       const int x0 = static_cast<int>(x0f);
       const float ty = sy - y0f;
       const float tx = sx - x0f;
-      const float wy[2] = {1.0f - ty, ty};
-      const float wx[2] = {1.0f - tx, tx};
-      const float* fo = fb + static_cast<size_t>(o) * object_stride;
+      const float wy[2] = {weight<T>(1.0f - ty), weight<T>(ty)};
+      const float wx[2] = {weight<T>(1.0f - tx), weight<T>(tx)};
+      const T* fo = fb + static_cast<size_t>(o) * object_stride;
       float v = 0.0f;
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
@@ -150,13 +184,13 @@ stn_place_multi_kernel(const float* __restrict__ feat,
         for (int dx = 0; dx < 2; ++dx) {
           const int xx = x0 + dx;
           if (xx < 0 || xx >= in_w) continue;
-          row += wx[dx] * __ldg(fo + static_cast<size_t>(yy) * in_w + xx);
+          row += wx[dx] * load(fo + static_cast<size_t>(yy) * in_w + xx);
         }
         v += wy[dy] * row;
       }
       acc += v;
     }
-    ob[p] = acc;
+    store(ob + p, acc);
   }
 }
 
@@ -166,10 +200,11 @@ __device__ __forceinline__ float hat(float src, int p) {
   return fmaxf(0.0f, 1.0f - fabsf(src - static_cast<float>(p)));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stn_place_multi_grad_kernel(const float* __restrict__ grad,
+stn_place_multi_grad_kernel(const T* __restrict__ grad,
                             const float* __restrict__ bbox,
-                            float* __restrict__ dfeat, int n_objects,
+                            T* __restrict__ dfeat, int n_objects,
                             int channels, int groups, int in_h, int in_w,
                             int out_h, int out_w) {
   __shared__ float affine[kMaxObjects][4];
@@ -241,33 +276,32 @@ stn_place_multi_grad_kernel(const float* __restrict__ grad,
     const int o = r % n_objects;
     const int c = c0 + r / n_objects;
     if (c >= channels) continue;
-    const float* gp = grad + (static_cast<size_t>(b) * channels + c) * out_plane;
+    const T* gp = grad + (static_cast<size_t>(b) * channels + c) * out_plane;
     const float* sy = src_y + o * out_h;
     const float* sx = src_x + o * out_w;
     const int j_lo = col_lo[o * in_w + q];
     const int j_hi = col_hi[o * in_w + q];
     float acc = 0.0f;
     for (int i = row_lo[o * in_h + p]; i <= row_hi[o * in_h + p]; ++i) {
-      const float wy = hat(sy[i], p);
+      const float wy = weight<T>(hat(sy[i], p));
       float row = 0.0f;
       for (int j = j_lo; j <= j_hi; ++j) {
-        row += hat(sx[j], q) * __ldg(gp + static_cast<size_t>(i) * out_w + j);
+        row += weight<T>(hat(sx[j], q)) *
+               load(gp + static_cast<size_t>(i) * out_w + j);
       }
       acc += wy * row;
     }
-    dfeat[((static_cast<size_t>(b) * n_objects + o) * channels + c) * in_plane +
-          p * in_w + q] = acc;
+    store(dfeat + ((static_cast<size_t>(b) * n_objects + o) * channels + c) *
+                      in_plane + p * in_w + q,
+          acc);
   }
 }
 
-}  // namespace
 
-// feat (B, O, C, H, W), bbox (B, O, 4), out (B, C, Ho, Wo): f32, contiguous,
-// on the current device. Returns cudaGetLastError() after the launch.
-extern "C" int stn_place_multi_f32(const float* feat, const float* bbox,
-                                   float* out, int batch, int n_objects,
-                                   int channels, int in_h, int in_w, int out_h,
-                                   int out_w, void* stream) {
+template <typename T>
+int place(const T* feat, const float* bbox, T* out, int batch, int n_objects,
+          int channels, int in_h, int in_w, int out_h, int out_w,
+          void* stream) {
   if (n_objects < 1 || n_objects > kMaxObjects) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -275,19 +309,16 @@ extern "C" int stn_place_multi_f32(const float* feat, const float* bbox,
   if (planes < 1 || planes > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  stn_place_multi_kernel<<<static_cast<unsigned>(planes), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  stn_place_multi_kernel<T><<<static_cast<unsigned>(planes), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       feat, bbox, out, n_objects, channels, in_h, in_w, out_h, out_w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// grad (B, C, Ho, Wo), bbox (B, O, 4), dfeat (B, O, C, H, W): f32,
-// contiguous, on the current device; every side at most kMaxSide. Returns
-// cudaGetLastError() after the launch.
-extern "C" int stn_place_multi_grad_f32(const float* grad, const float* bbox,
-                                        float* dfeat, int batch, int n_objects,
-                                        int channels, int in_h, int in_w,
-                                        int out_h, int out_w, void* stream) {
+template <typename T>
+int place_grad(const T* grad, const float* bbox, T* dfeat, int batch,
+               int n_objects, int channels, int in_h, int in_w, int out_h,
+               int out_w, void* stream) {
   if (n_objects < 1 || n_objects > kMaxObjects || batch < 1 || channels < 1 ||
       in_h < 1 || in_w < 1 || out_h < 1 || out_w < 1 || in_h > kMaxSide ||
       in_w > kMaxSide || out_h > kMaxSide || out_w > kMaxSide) {
@@ -301,9 +332,51 @@ extern "C" int stn_place_multi_grad_f32(const float* grad, const float* bbox,
   const size_t smem =
       static_cast<size_t>(n_objects) * (out_h + out_w) * sizeof(float) +
       static_cast<size_t>(n_objects) * (in_h + in_w) * 2 * sizeof(int);
-  stn_place_multi_grad_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  stn_place_multi_grad_kernel<T><<<static_cast<unsigned>(blocks), kThreads,
+                                   smem, static_cast<cudaStream_t>(stream)>>>(
       grad, bbox, dfeat, n_objects, channels, groups, in_h, in_w, out_h,
       out_w);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// feat (B, O, C, H, W), bbox (B, O, 4) f32, out (B, C, Ho, Wo): contiguous,
+// on the current device; feat and out f32 (_f32) or bf16 (_bf16). Return
+// cudaGetLastError() after the launch.
+extern "C" int stn_place_multi_f32(const float* feat, const float* bbox,
+                                   float* out, int batch, int n_objects,
+                                   int channels, int in_h, int in_w, int out_h,
+                                   int out_w, void* stream) {
+  return place(feat, bbox, out, batch, n_objects, channels, in_h, in_w, out_h,
+               out_w, stream);
+}
+
+extern "C" int stn_place_multi_bf16(const void* feat, const float* bbox,
+                                    void* out, int batch, int n_objects,
+                                    int channels, int in_h, int in_w,
+                                    int out_h, int out_w, void* stream) {
+  return place(static_cast<const bf16*>(feat), bbox, static_cast<bf16*>(out),
+               batch, n_objects, channels, in_h, in_w, out_h, out_w, stream);
+}
+
+// grad (B, C, Ho, Wo), bbox (B, O, 4) f32, dfeat (B, O, C, H, W):
+// contiguous, on the current device, every side at most kMaxSide; grad and
+// dfeat f32 (_f32) or bf16 (_bf16). Return cudaGetLastError() after the
+// launch.
+extern "C" int stn_place_multi_grad_f32(const float* grad, const float* bbox,
+                                        float* dfeat, int batch, int n_objects,
+                                        int channels, int in_h, int in_w,
+                                        int out_h, int out_w, void* stream) {
+  return place_grad(grad, bbox, dfeat, batch, n_objects, channels, in_h, in_w,
+                    out_h, out_w, stream);
+}
+
+extern "C" int stn_place_multi_grad_bf16(const void* grad, const float* bbox,
+                                         void* dfeat, int batch, int n_objects,
+                                         int channels, int in_h, int in_w,
+                                         int out_h, int out_w, void* stream) {
+  return place_grad(static_cast<const bf16*>(grad), bbox,
+                    static_cast<bf16*>(dfeat), batch, n_objects, channels,
+                    in_h, in_w, out_h, out_w, stream);
 }

@@ -3,11 +3,18 @@
 
 Only the Multi-MNIST preset is served by this slice of the port: it needs
 neither the conditioning-augmentation net nor a label embedding.
+
+Two fields are the JAX package's trace-time knobs, made explicit:
+``compute_dtype`` (``nn/blocks.py:set_compute_dtype``; the CLIs' ``--bf16``)
+and ``bn_groups`` (``BN_GROUPS``; ``--bn_groups``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +33,10 @@ class Stage1Config:
     use_bbox_layout: bool = True
     d_cond_dim: int = 10       # dim of the condition fed to the D cond head
     use_uncond_head: bool = False
+    # dtype of the convs, linears and activations; None: the parameters'
+    # (float32), as the JAX package's COMPUTE_DTYPE None
+    compute_dtype: Optional[torch.dtype] = None
+    bn_groups: int = 1         # train-mode BatchNorm statistic groups
 
     @property
     def ngf(self) -> int:

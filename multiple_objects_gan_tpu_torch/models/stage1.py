@@ -6,6 +6,9 @@ model.py:193-257. Modules and state-dict keys are the reference's, so a
 reference ``.pth`` and the JAX package's export load with ``strict=True``.
 Both run in train and eval mode; in train mode the object pathways keep
 the reference's per-object BatchNorm statistics (``ObjectBatchNorm2d``).
+The config's ``compute_dtype`` is the dtype of every conv and linear (and
+so of the activations: a bf16 ``Stage1G`` returns a bf16 image), and its
+``bn_groups`` the statistic groups of every BatchNorm (``nn/blocks.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.io.weights import reference_init_
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
 from multiple_objects_gan_tpu_torch.nn.blocks import (
-    Conv3x3, ObjectBatchNorm2d, UpBlock)
+    BatchNorm1d, BatchNorm2d, Conv2d, Conv3x3, Linear, ObjectBatchNorm2d,
+    UpBlock)
 from multiple_objects_gan_tpu_torch.nn.pathways import (
     DGetLogits, LayoutEncoder, ObjectPathwayD, object_pathway_g)
 
@@ -39,21 +43,27 @@ class Stage1G(nn.Module):
         self.cfg = cfg
         ngf = cfg.ngf
         nz = cfg.z_dim + cfg.layout_code_dim
-        self.fc = nn.Sequential(nn.Linear(nz, ngf * 4 * 4, bias=False),
-                                nn.BatchNorm1d(ngf * 4 * 4),
-                                nn.ReLU(True))
+        dt, groups = cfg.compute_dtype, cfg.bn_groups
+        self.fc = nn.Sequential(
+            Linear(nz, ngf * 4 * 4, bias=False, compute_dtype=dt),
+            BatchNorm1d(ngf * 4 * 4, groups=groups),
+            nn.ReLU(True))
         object_bn = functools.partial(ObjectBatchNorm2d,
-                                      n_objects=cfg.num_objects)
-        self.local1 = UpBlock(cfg.label_dim, ngf // 2, object_bn)
-        self.local2 = UpBlock(ngf // 2, ngf // 4, object_bn)
+                                      n_objects=cfg.num_objects,
+                                      groups=groups)
+        bn = functools.partial(BatchNorm2d, groups=groups)
+        self.local1 = UpBlock(cfg.label_dim, ngf // 2, object_bn, dt)
+        self.local2 = UpBlock(ngf // 2, ngf // 4, object_bn, dt)
         if cfg.use_bbox_layout:
-            self.bbox_net = LayoutEncoder(cfg.label_dim, cfg.condition_dim)
-        self.upsample1 = UpBlock(ngf, ngf // 2)
-        self.upsample2 = UpBlock(ngf // 2, ngf // 4)
-        self.upsample3 = UpBlock(ngf // 2, ngf // 8)
-        self.upsample4 = UpBlock(ngf // 8, ngf // 16)
-        self.img = nn.Sequential(Conv3x3(ngf // 16, cfg.img_channels),
-                                 nn.Tanh())
+            self.bbox_net = LayoutEncoder(cfg.label_dim, cfg.condition_dim,
+                                          dt, groups)
+        self.upsample1 = UpBlock(ngf, ngf // 2, bn, dt)
+        self.upsample2 = UpBlock(ngf // 2, ngf // 4, bn, dt)
+        self.upsample3 = UpBlock(ngf // 2, ngf // 8, bn, dt)
+        self.upsample4 = UpBlock(ngf // 8, ngf // 16, bn, dt)
+        self.img = nn.Sequential(
+            Conv3x3(ngf // 16, cfg.img_channels, compute_dtype=dt),
+            nn.Tanh())
         # The reference defines this label module and never calls it
         # (model.py:137-140). It stays, unused in forward, only so that
         # reference checkpoints load with strict=True.
@@ -90,24 +100,25 @@ class Stage1D(nn.Module):
         super().__init__()
         self.cfg = cfg
         ndf = cfg.df_dim
+        dt, groups = cfg.compute_dtype, cfg.bn_groups
 
         def down(cin, cout):
-            return nn.Conv2d(cin, cout, kernel_size=4, stride=2, padding=1,
-                             bias=False)
+            return Conv2d(cin, cout, kernel_size=4, stride=2, padding=1,
+                          bias=False, compute_dtype=dt)
 
         self.local = ObjectPathwayD(ndf, cfg.img_channels, cfg.label_dim,
-                                    cfg.num_objects)
+                                    cfg.num_objects, dt, groups)
         self.conv1 = down(cfg.img_channels, ndf)                # 32x32
         self.conv2 = down(ndf, ndf * 2)                         # 16x16
-        self.bn2 = nn.BatchNorm2d(ndf * 2)
+        self.bn2 = BatchNorm2d(ndf * 2, groups=groups)
         self.conv3 = down(ndf * 4, ndf * 4)                     # 8x8
-        self.bn3 = nn.BatchNorm2d(ndf * 4)
+        self.bn3 = BatchNorm2d(ndf * 4, groups=groups)
         self.conv4 = down(ndf * 4, ndf * 8)                     # 4x4
-        self.bn4 = nn.BatchNorm2d(ndf * 8)
+        self.bn4 = BatchNorm2d(ndf * 8, groups=groups)
         self.act = nn.LeakyReLU(0.2, inplace=True)
-        self.get_cond_logits = DGetLogits(ndf, cfg.d_cond_dim)
+        self.get_cond_logits = DGetLogits(ndf, cfg.d_cond_dim, dt, groups)
         if cfg.use_uncond_head:
-            self.get_uncond_logits = DGetLogits(ndf)
+            self.get_uncond_logits = DGetLogits(ndf, 0, dt, groups)
 
     def forward(self, image: torch.Tensor, labels: torch.Tensor,
                 bbox: torch.Tensor) -> torch.Tensor:

@@ -8,15 +8,19 @@ objects fold into the batch, (B, O) with O minor, and one kernel launch
 places and sums them all. The fold keeps the reference's statistics:
 eval-mode BatchNorm is per sample, and in train mode the object pathways'
 BatchNorms are :class:`~multiple_objects_gan_tpu_torch.nn.blocks.ObjectBatchNorm2d`.
+Every module takes the model config's ``compute_dtype`` for its convs and
+``bn_groups`` for its BatchNorms (``nn/blocks.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from multiple_objects_gan_tpu_torch.nn.blocks import (
-    Conv3x3, ObjectBatchNorm2d, UpBlock)
+    BatchNorm2d, Conv2d, Conv3x3, ObjectBatchNorm2d, UpBlock)
 from multiple_objects_gan_tpu_torch.ops.stn import (
     stn_extract_multi_nchw, stn_place_const_multi)
 from multiple_objects_gan_tpu_torch.ops.stn_place_cuda import (
@@ -31,16 +35,19 @@ class LayoutEncoder(nn.Module):
     labels (B, O, label_dim), bbox (B, O, 4) -> (B, (c_dim // 8) * 2 * 2).
     """
 
-    def __init__(self, label_dim: int, c_dim: int):
+    def __init__(self, label_dim: int, c_dim: int,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
         super().__init__()
+        dt = compute_dtype
         self.encode = nn.Sequential(
-            Conv3x3(label_dim, c_dim // 2, stride=2),
+            Conv3x3(label_dim, c_dim // 2, stride=2, compute_dtype=dt),
             nn.LeakyReLU(0.2, inplace=True),
-            Conv3x3(c_dim // 2, c_dim // 4, stride=2),
-            nn.BatchNorm2d(c_dim // 4),
+            Conv3x3(c_dim // 2, c_dim // 4, stride=2, compute_dtype=dt),
+            BatchNorm2d(c_dim // 4, groups=bn_groups),
             nn.LeakyReLU(0.2, inplace=True),
-            Conv3x3(c_dim // 4, c_dim // 8, stride=2),
-            nn.BatchNorm2d(c_dim // 8),
+            Conv3x3(c_dim // 4, c_dim // 8, stride=2, compute_dtype=dt),
+            BatchNorm2d(c_dim // 8, groups=bn_groups),
             nn.LeakyReLU(0.2, inplace=True))
 
     def forward(self, labels: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
@@ -78,11 +85,13 @@ class ObjectPathwayD(nn.Sequential):
     """
 
     def __init__(self, ndf: int, img_channels: int, label_dim: int,
-                 n_objects: int):
+                 n_objects: int, compute_dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
         super().__init__(
-            nn.Conv2d(img_channels + label_dim, ndf * 2, kernel_size=4,
-                      stride=1, padding=1, bias=False),
-            ObjectBatchNorm2d(ndf * 2, n_objects),
+            Conv2d(img_channels + label_dim, ndf * 2, kernel_size=4,
+                   stride=1, padding=1, bias=False,
+                   compute_dtype=compute_dtype),
+            ObjectBatchNorm2d(ndf * 2, n_objects, groups=bn_groups),
             nn.LeakyReLU(0.2, inplace=True))
 
     def forward(self, image: torch.Tensor, labels: torch.Tensor,
@@ -106,13 +115,18 @@ class DGetLogits(nn.Module):
     alone; key ``outlogits.0``.
     """
 
-    def __init__(self, ndf: int, cond_dim: int = 0):
+    def __init__(self, ndf: int, cond_dim: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
         super().__init__()
         self.cond_dim = cond_dim
-        final = nn.Conv2d(ndf * 8, 1, kernel_size=4, stride=4)
+        final = Conv2d(ndf * 8, 1, kernel_size=4, stride=4,
+                       compute_dtype=compute_dtype)
         if cond_dim:
             self.outlogits = nn.Sequential(
-                Conv3x3(ndf * 8 + cond_dim, ndf * 8), nn.BatchNorm2d(ndf * 8),
+                Conv3x3(ndf * 8 + cond_dim, ndf * 8,
+                        compute_dtype=compute_dtype),
+                BatchNorm2d(ndf * 8, groups=bn_groups),
                 nn.LeakyReLU(0.2, inplace=True), final)
         else:
             self.outlogits = nn.Sequential(final)

@@ -33,7 +33,8 @@ class Built:
     seconds: float
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()            # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _built: dict[str, Built] = {}
 
 
@@ -54,8 +55,11 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> Built:
-    """Build (once per process) and load ``csrc/<name>.cu``."""
+    """Build (once per process) and load ``csrc/<name>.cu``. Two sources
+    build at once from two threads; one source builds once."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _built:
             return _built[name]
         src = os.path.join(CSRC, f"{name}.cu")

@@ -87,10 +87,15 @@ def stn_separable(image: torch.Tensor, theta: torch.Tensor,
                   out_hw: tuple[int, int]) -> torch.Tensor:
     """Axis-aligned STN: (B, H, W, C), theta (B, 2, 3) -> (B, Ho, Wo, C).
 
-    Requires theta[:, 0, 1] == theta[:, 1, 0] == 0. Computed in f32 as two
-    matrix products: rows first, then columns.
+    Requires theta[:, 0, 1] == theta[:, 1, 0] == 0. Two matrix products,
+    rows first, then columns: in f32, or for a bf16 image in bf16 with the
+    weights rounded to bf16, as the JAX package's bf16 branch computes it
+    (``multiple_objects_gan_tpu/ops/stn.py:130-138``).
     """
     wy, wx = _theta_weights(theta, out_hw, image.shape[1:3])
+    if image.dtype == torch.bfloat16:
+        tmp = torch.einsum("bip,bpqc->biqc", wy.to(image.dtype), image)
+        return torch.einsum("biqc,bjq->bijc", tmp, wx.to(image.dtype))
     tmp = torch.einsum("bip,bpqc->biqc", wy, image.float())
     out = torch.einsum("biqc,bjq->bijc", tmp, wx)
     return out.to(image.dtype)
@@ -161,7 +166,9 @@ def stn_place_const_multi(labels: torch.Tensor, bbox: torch.Tensor,
     labels (B, O, C), bbox (B, O, 4) -> (B, Ho, Wo, C). For a constant map
     the bilinear result is an outer product of the weight row sums:
     ``placed[i, j, c] = label[c] * sum_p Wy[i, p] * sum_q Wx[j, q]``.
-    No Pallas kernel stood behind this op, so it stays plain torch.
+    No Pallas kernel stood behind this op, so it stays plain torch. Bf16
+    labels are pasted in bf16 with the mask rounded to bf16, as the JAX
+    package does (``multiple_objects_gan_tpu/ops/stn.py:219-222``).
     """
     b, o, c = labels.shape
     ho, wo = out_hw
@@ -169,5 +176,7 @@ def stn_place_const_multi(labels: torch.Tensor, bbox: torch.Tensor,
     wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, (16, 16))
     mask = wy.sum(-1)[:, :, None] * wx.sum(-1)[:, None, :]  # (B*O, Ho, Wo)
     mask = mask.reshape(b, o, ho, wo)
+    if labels.dtype == torch.bfloat16:
+        return torch.einsum("bohw,boc->bhwc", mask.to(labels.dtype), labels)
     out = torch.einsum("bohw,boc->bhwc", mask, labels.float())
     return out.to(labels.dtype)

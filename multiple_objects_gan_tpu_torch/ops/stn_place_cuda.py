@@ -12,8 +12,12 @@ wrappers, plain versions, and the autograd Function that pairs them.
   gradient for the boxes.
 
 Both kernels are ``csrc/stn_place.cu`` (CUDA C++ for ``sm_90a``, bound with
-ctypes). Their bound on the card is bytes: each input value they need is
-read once and each output written once, with a few operations per byte.
+ctypes), each in float32 and in bf16 (the bf16 train step and serving): in
+bf16 the hat weights are rounded to bf16, the sums run in float32 and the
+result is rounded once, and the plain versions round alike. The boxes are
+float32 in either type. Their bound on the card is bytes: each input value
+they need is read once and each output written once, with a few operations
+per byte.
 K1 is one block per (batch, channel) output plane, each output value a sum
 over objects of a 2x2-tap bilinear gather. K2 is a gather too, one block
 per (batch, 4 channels), over the tap ranges the block derives from the
@@ -41,6 +45,8 @@ from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 
 MAX_OBJECTS = 16    # csrc/stn_place.cu:kMaxObjects
 MAX_GRAD_SIDE = 64  # csrc/stn_place.cu:kMaxSide, K2's largest map side
+# the element types the kernels take, and their C entries' suffixes
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _count_lock = threading.Lock()
 _launches = {"place": 0, "grad": 0}
@@ -72,37 +78,51 @@ def _count(kernel: str) -> None:
 
 
 def _weights(bbox: torch.Tensor, out_hw, in_hw, dtype):
+    """The hat weights Wy (B, O, Ho, h) and Wx (B, O, Wo, w), computed in
+    float32 and rounded to ``dtype``, in the type the plain versions sum
+    in: float32 for bf16 and float32, float64 for float64."""
     b, o = bbox.shape[:2]
     wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, in_hw)
-    return (wy.reshape(b, o, out_hw[0], in_hw[0]).to(dtype),
-            wx.reshape(b, o, out_hw[1], in_hw[1]).to(dtype))
+    acc = _acc_dtype(dtype)
+    return (wy.reshape(b, o, out_hw[0], in_hw[0]).to(dtype).to(acc),
+            wx.reshape(b, o, out_hw[1], in_hw[1]).to(dtype).to(acc))
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
 
 
 def stn_place_multi_plain(features: torch.Tensor, bbox: torch.Tensor,
                           out_hw: tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version of K1, in the features' dtype.
+    """Plain PyTorch version of K1, returned in the features' dtype.
 
     features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo): per object
     Wy @ F @ Wx^T with the hat weights of its place affine (computed in
-    float32), summed over objects, as the Pallas kernel computes it.
+    float32), summed over objects, as the Pallas kernel computes it. For
+    bf16 features the weights are rounded to bf16, the products and sums
+    run in float32, and the result is rounded to bf16 once, as K1 does.
     """
     hi, wi = features.shape[-2:]
     wy, wx = _weights(bbox, out_hw, (hi, wi), features.dtype)
-    tmp = torch.einsum("boip,bocpq->bociq", wy, features)
-    return torch.einsum("bociq,bojq->bcij", tmp, wx)
+    tmp = torch.einsum("boip,bocpq->bociq", wy,
+                       features.to(_acc_dtype(features.dtype)))
+    out = torch.einsum("bociq,bojq->bcij", tmp, wx)
+    return out.to(features.dtype)
 
 
 def stn_place_multi_grad_plain(grad: torch.Tensor, bbox: torch.Tensor,
                                in_hw: tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch version of K2, in the gradient's dtype.
+    """Plain PyTorch version of K2, returned in the gradient's dtype.
 
     grad (B, C, Ho, Wo), bbox (B, O, 4) -> (B, O, C, h, w): per object
     Wy^T @ g @ Wx with the forward's own hat weights, the exact adjoint of
-    :func:`stn_place_multi_plain`.
+    :func:`stn_place_multi_plain`, rounded as it rounds.
     """
     wy, wx = _weights(bbox, grad.shape[-2:], in_hw, grad.dtype)
-    tmp = torch.einsum("boip,bcij->bocpj", wy, grad)
-    return torch.einsum("bocpj,bojq->bocpq", tmp, wx)
+    tmp = torch.einsum("boip,bcij->bocpj", wy,
+                       grad.to(_acc_dtype(grad.dtype)))
+    out = torch.einsum("bocpj,bojq->bocpq", tmp, wx)
+    return out.to(grad.dtype)
 
 
 # ------------------------------------------------------------------ kernels
@@ -110,15 +130,16 @@ def stn_place_multi_grad_plain(grad: torch.Tensor, bbox: torch.Tensor,
 
 def _check(x: torch.Tensor, bbox: torch.Tensor, n_objects: int,
            sides: tuple[int, ...]) -> None:
-    """What both kernels take: float32, contiguous, on one device, boxes
-    (B, O, 4) with 1..MAX_OBJECTS objects, every map side at least 1."""
+    """What both kernels take: float32 or bf16 values and float32 boxes,
+    contiguous, on one device, boxes (B, O, 4) with 1..MAX_OBJECTS
+    objects, every map side at least 1."""
     b, c = x.shape[0], x.shape[-3]
     if tuple(bbox.shape) != (b, n_objects, 4):
         raise ValueError(f"bbox must be {(b, n_objects, 4)}, got "
                          f"{tuple(bbox.shape)}")
-    if x.dtype != torch.float32 or bbox.dtype != torch.float32:
-        raise ValueError(f"the kernels take float32, got {x.dtype} and "
-                         f"{bbox.dtype}")
+    if x.dtype not in _SUFFIX or bbox.dtype != torch.float32:
+        raise ValueError(f"the kernels take float32 or bfloat16 values and "
+                         f"float32 boxes, got {x.dtype} and {bbox.dtype}")
     if bbox.device != x.device:
         raise ValueError(f"bbox on {bbox.device}, features on {x.device}")
     if not (x.is_contiguous() and bbox.is_contiguous()):
@@ -163,9 +184,9 @@ def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
     b, o, c, hi, wi = features.shape
     ho, wo = (int(v) for v in out_hw)
     _check(features, bbox, o, (hi, wi, ho, wo))
-    out = torch.empty((b, c, ho, wo), dtype=torch.float32,
+    out = torch.empty((b, c, ho, wo), dtype=features.dtype,
                       device=features.device)
-    _launch("stn_place_multi_f32", "place",
+    _launch(f"stn_place_multi_{_SUFFIX[features.dtype]}", "place",
             (features.data_ptr(), bbox.data_ptr(), out.data_ptr(),
              b, o, c, hi, wi, ho, wo), features.device)
     return out
@@ -173,7 +194,8 @@ def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
 
 def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
                               in_hw: tuple[int, int]) -> torch.Tensor:
-    """K2: grad (B, C, Ho, Wo) f32, bbox (B, O, 4) f32 -> (B, O, C, h, w).
+    """K2: grad (B, C, Ho, Wo) f32 or bf16, bbox (B, O, 4) f32 ->
+    (B, O, C, h, w) in the gradient's dtype.
 
     A CUDA tensor launches the kernel on the current stream (or raises); a
     CPU tensor runs :func:`stn_place_multi_grad_plain`. K2 has no backward
@@ -197,9 +219,9 @@ def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
     if max(hi, wi, ho, wo) > MAX_GRAD_SIDE:
         raise ValueError(f"K2 takes maps of at most {MAX_GRAD_SIDE} a side, "
                          f"got {(hi, wi)} <- {(ho, wo)}")
-    out = torch.empty((b, o, c, hi, wi), dtype=torch.float32,
+    out = torch.empty((b, o, c, hi, wi), dtype=grad.dtype,
                       device=grad.device)
-    _launch("stn_place_multi_grad_f32", "grad",
+    _launch(f"stn_place_multi_grad_{_SUFFIX[grad.dtype]}", "grad",
             (grad.data_ptr(), bbox.data_ptr(), out.data_ptr(),
              b, o, c, hi, wi, ho, wo), grad.device)
     return out
@@ -209,7 +231,8 @@ class StnPlaceMulti(torch.autograd.Function):
     """K3: the differentiable place-and-accumulate.
 
     Forward is K1 (or its plain version on the CPU), backward K2 (or its
-    plain version). Gradients flow to the features only; the boxes are
+    plain version), both in the features' dtype, so the gradient keeps it
+    (bf16 in the bf16 step). Gradients flow to the features only; the boxes are
     data, as in the reference and the JAX package's ``custom_vjp``. Saves
     only the boxes and the input size.
     """
@@ -235,7 +258,8 @@ def stn_place_multi_nchw(features: torch.Tensor, bbox: torch.Tensor,
     """features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo).
 
     Runs :class:`StnPlaceMulti`: K1 on the current stream for a CUDA tensor
-    (float32, or it raises), the plain version for a CPU tensor. The boxes
+    (float32 or bf16, or it raises), the plain version for a CPU tensor. The
+    output has the features' dtype. The boxes
     are detached; the output has a ``grad_fn`` whenever the features
     require grad.
     """

@@ -17,6 +17,12 @@ It follows the reference hot loop (code/multi-mnist/trainer.py:113-157):
 The D condition is the label sum for mnist (miscc/utils.py:78), clamped at
 0 for clevr. Noise is drawn from the caller's ``torch.Generator`` on the
 device, or passed in as ``z`` (the tests replay the JAX step's noise).
+
+Under a bf16 compute dtype (``Stage1Config.compute_dtype``) the modules
+compute in bf16 and the step does not change: the losses take the logits
+in float32 (``losses/gan.py``), the parameters, their gradients, the Adam
+state and the BatchNorm running statistics stay float32, and the losses the
+step returns are float32.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from multiple_objects_gan_tpu_torch.losses.gan import (
     discriminator_loss, generator_adv_loss)
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
+from multiple_objects_gan_tpu_torch.models.stage1 import Stage1G
 from multiple_objects_gan_tpu_torch.train.state import GANTrainState, set_lr
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
 
@@ -106,3 +113,23 @@ def make_train_step(cfg: Stage1Config) -> Callable:
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_sample_fn(cfg: Stage1Config) -> Callable:
+    """``sample(g, z, bbox, labels) -> image (B, C, H, W)`` float32: an
+    eval-mode generator forward without autograd (JAX
+    ``train/step.py:make_sample_fn``). The image comes back float32 under
+    any compute dtype, as the JAX package hands it back
+    (``train/step.py:397-401``), so PNG encoding and host reductions never
+    see bf16."""
+    if cfg.use_ca:
+        raise NotImplementedError(
+            f"{cfg.variant}: the CA variants' sampling is not ported yet")
+
+    def sample(g: Stage1G, z: torch.Tensor, bbox: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+        g.eval()
+        with torch.inference_mode():
+            return g(z, bbox, labels).float()
+
+    return sample
