@@ -9,7 +9,8 @@ elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds csrc/stn_place.cu and csrc/normconv.cu for
-                sm_90a, one nvcc for each, started together (ptxas report);
+                sm_90a, one nvcc for each, started together; one ptxas
+                line a kernel (registers, shared memory, spills);
   3. kernel   - the STN place kernel (K1) against its plain PyTorch version
                 on the card, at the served generator's shape, at the G and
                 D shapes of the train step and at edge cases, timed by CUDA
@@ -21,7 +22,8 @@ elapsed time:
                 served batches went through K1 (its launch count);
   6. grad     - the place backward (K2) against its plain version on the
                 card, at the G and D shapes of the train step and at edge
-                cases, timed beside the plain version and the bound;
+                cases, timed in turns with the plain version (plain, K2,
+                K2, plain) beside the bound and the rate it implies;
   7. autograd - gradients through StnPlaceMulti (K3) on the card against
                 the CPU, and a train-mode Stage1G's object-pathway gradient
                 on the card against the CPU;
@@ -36,13 +38,17 @@ elapsed time:
                 epoch on the card, and the proof that it went through K1
                 and K2 (their launch counts) and not K4;
  11. normconv - K4's path, the port's spike tool (tools/spike_normconv.py:
-                its check, then its bench at the three hot shapes, timed
-                beside the plain chain, cuDNN's bf16 F.conv2d and the
-                bound), with its launches; then K4 against its plain
-                version at the three hot shapes and two check shapes;
+                its check, then its bench at the three hot shapes), with
+                its launches; then K4 against its plain version, twice for
+                bit-identical sums, at the two check shapes, the three hot
+                shapes, five edge shapes of its tiling and a zero-gamma
+                channel; then K4 timed in turns with the plain chain and
+                cuDNN's bf16 F.conv2d at the hot shapes (TFLOP/s, share of
+                the bound);
  12. bf16     - K1 and K2 in bf16 against their plain versions at the G
                 and D train shapes and the serve shape, with padded boxes,
-                boxes off the canvas and boxes wider than it, timed;
+                boxes off the canvas and boxes wider than it, timed (K2 in
+                turns, as in phase 6);
  13. step16   - one bf16 train step, full width, on the card against the
                 same step on the CPU: losses, BatchNorm statistics and
                 per-tensor gradient cosines held;
@@ -155,6 +161,59 @@ def cuda_ms(fn, warmup: int = 5, runs: int = 50) -> float:
     return statistics.median(times)
 
 
+def run_ms(fn, warmup: int = 5, runs: int = 50) -> float:
+    """Time of one call of ``fn`` in a run of ``runs`` calls back to back
+    between two CUDA events, over the count: the host's launch work
+    overlaps the card's, as in the train step, where :func:`cuda_ms` adds
+    it to every call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def in_turns(order, warmup: int = 5, runs: int = 50) -> dict:
+    """Time the calls of ``order``, a list of (name, fn) in the order to
+    run them (plain, kernel, kernel, plain), each reading a run of ``runs``
+    back-to-back calls (:func:`run_ms`); returns {name: [reading, ...]} in
+    run order."""
+    out: dict = {}
+    for name, fn in order:
+        out.setdefault(name, []).append(run_ms(fn, warmup, runs))
+    return out
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name (the
+    readable part of the mangled one), registers, shared memory, stack
+    frame and spill stores and loads."""
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = mangled
+            for key in ("normconv", "stn_place"):
+                at = mangled.rfind(key)
+                if at >= 0:
+                    name = mangled[at:].split("EEv")[0].split("Ev")[0]
+                    break
+            frame = ""
+        elif "bytes stack frame" in line and name:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            out.append(f"{name}: used {used}; {frame or 'no frame line'}")
+            name = None
+    return out
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -182,11 +241,13 @@ def phase_build():
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for b in built:
-        for line in b.log.splitlines():
-            if line.strip():
-                print(f"  {line}", flush=True)
         log(f"build: {os.path.relpath(b.path, ROOT)} ready in "
-            f"{b.seconds:.2f}s")
+            f"{b.seconds:.2f}s; ptxas -v, one line a kernel:")
+        lines = ptxas_lines(b.log)
+        for line in lines:
+            print(f"  {line}", flush=True)
+        check(bool(lines) or not b.log, f"no ptxas report in the build log "
+              f"of {b.path}:\n{b.log}")
 
 
 def _service_boxes(rs, b, o):
@@ -545,18 +606,42 @@ def phase_grad_kernel():
     out = {"max_abs_err": worst}
     for path in ("G", "D"):
         g, bbox, hw = timed[path]
-        ms = cuda_ms(lambda: k1.stn_place_multi_grad_nchw(g, bbox, hw))
-        plain_ms = cuda_ms(lambda: k1.stn_place_multi_grad_plain(g, bbox, hw))
-        bound_ms, bound_by, dense_ms = _grad_bound(g, bbox, hw)
-        log(f"K2 at the {path} shape {tuple(g.shape)} -> "
-            f"{(g.shape[0], 3, g.shape[1]) + hw}, CUDA events, median of 50: "
-            f"{ms:.4f} ms; plain version {plain_ms:.4f} ms; bound "
-            f"{bound_ms:.4f} ms ({bound_by}, this run's boxes; "
-            f"{dense_ms:.4f} ms if every gradient value were read); "
-            f"{bound_ms / ms:.1%} of the bound")
-        out[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "dense_bound_ms": dense_ms}
+        out[path] = time_grad(g, bbox, hw, f"K2 at the {path} shape")
     return out
+
+
+def time_grad(g, bbox, hw, label):
+    """K2 and its plain version timed in turns (plain, kernel, kernel,
+    plain), each reading a run of 50 calls (:func:`run_ms`), and K2 a call
+    at a time (:func:`cuda_ms`), beside the bound for this run's boxes and
+    the rate it implies."""
+    def kernel():
+        return k1.stn_place_multi_grad_nchw(g, bbox, hw)
+
+    def plain():
+        return k1.stn_place_multi_grad_plain(g, bbox, hw)
+
+    t = in_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                  ("plain", plain)])
+    ms, plain_ms = statistics.mean(t["kernel"]), statistics.mean(t["plain"])
+    call_ms = cuda_ms(kernel)
+    bound_ms, bound_by, dense_ms = _grad_bound(g, bbox, hw)
+    gbps = bound_ms / ms * HBM_BYTES_PER_S / 1e9 if bound_by == "bytes" \
+        else float("nan")
+    out_shape = (g.shape[0], bbox.shape[1], g.shape[1]) + tuple(hw)
+    log(f"{label} {tuple(g.shape)} -> {out_shape} {str(g.dtype)[6:]}, in "
+        f"turns (plain, K2, K2, plain; CUDA events around 50 calls back to "
+        f"back each): K2 {t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms "
+        f"({call_ms:.4f} ms a call timed alone, median of 50); plain "
+        f"{t['plain'][0]:.4f}, {t['plain'][1]:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}, this run's boxes; {dense_ms:.4f} ms "
+        f"if every gradient value were read); {gbps:.0f} GB/s of the bytes "
+        f"it needs, {bound_ms / ms:.1%} of the bound")
+    return {"ms": ms, "ms_turns": t["kernel"], "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "plain_ms_turns": t["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "dense_bound_ms": dense_ms,
+            "share_of_bound": bound_ms / ms}
 
 
 def _f1_gradient(device, z, bbox, labels, weight):
@@ -837,12 +922,100 @@ def _ulp_bf16(t: torch.Tensor) -> float:
     return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
 
 
+# K4 at shapes that stress its tiling (name, B, H, W, Cin, Cout): M not a
+# multiple of the 128-row tile, Cout not a multiple of the N tile, the
+# smallest Cin the wrapper takes (one masked tail slice), Cin not a multiple
+# of 64 with Cout below 128, and the largest Cin with two N tiles. Each has
+# M of 450 or more: the plain chain sums its bf16 y, whose rounding errors
+# cancel less over a few dozen pixels (a 32-pixel case read 1.3e-3 of the
+# largest sum of squares against the f32 sums)
+K4_EDGE_SHAPES = [("M = 455, not a multiple of 128", 13, 7, 5, 64, 64),
+                  ("Cout 136, not a multiple of 256", 8, 16, 16, 128, 136),
+                  ("Cin 8, the smallest", 16, 5, 6, 8, 8),
+                  ("Cin 72 -> Cout 24", 16, 6, 6, 72, 24),
+                  ("Cin 1024, the largest, Cout 264", 8, 8, 8, 1024, 264)]
+# gamma 0 and beta 0.5 in channel 0: normalized 0.5 in the image, and the
+# zero padding of the normalized tensor on the border (not relu(beta))
+K4_ZERO_GAMMA_SHAPE = ("gamma 0, beta 0.5 in channel 0", 16, 6, 6, 64, 64)
+
+
+def k4_inputs(shape, seed, device, zero_gamma=False):
+    """The spike tool's inputs at ``shape``; with ``zero_gamma`` channel 0
+    folds to scale 0, shift 0.5."""
+    x, scale, shift, w = spike_normconv.make_inputs(shape, seed, device)
+    if zero_gamma:
+        scale[0], shift[0] = 0.0, 0.5
+    return x, scale, shift, w
+
+
+def check_k4(name, shape, args):
+    """K4 against its plain version on ``args``, and again for the same
+    sums; returns max |dy|."""
+    got = k4.normconv(*args)
+    want = k4.normconv_plain(*args)
+    again = k4.normconv(*args)
+    torch.cuda.synchronize()
+    dy, scale, rs, rq = spike_normconv.disagreement(got, want)
+    ulp = _ulp_bf16(want[0])
+    same = bool(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+                and torch.equal(got[0], again[0]))
+    log(f"  {name} {tuple(shape)}: max |y - plain| = {dy:.4g} ({dy / ulp:g}"
+        f" bf16 ulp of max |y| {scale:.4g}; limit {BF16_ULPS}); sums "
+        f"{rs:.2e}, squares {rq:.2e} of their max (limit {K4_SUM_RTOL:g}); "
+        f"a second run bit-identical: {same}")
+    check(bool(torch.isfinite(got[0].float()).all()), f"K4 non-finite "
+          f"({name})")
+    check(dy <= BF16_ULPS * ulp, f"K4 y disagrees at {name}")
+    check(rs <= K4_SUM_RTOL and rq <= K4_SUM_RTOL,
+          f"K4 sums disagree at {name}")
+    check(same, f"K4 gave another result on a second run at {name}")
+    return dy
+
+
+def time_k4(name, shape, args):
+    """K4, its plain chain and cuDNN's bf16 ``F.conv2d`` (NCHW, the
+    yardstick; the port never calls it) in turns: plain, K4, cuDNN, cuDNN,
+    K4, plain, each reading a run of 50 calls (:func:`run_ms`)."""
+    x, scale, shift, w = args
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+    def kernel():
+        return k4.normconv(x, scale, shift, w)
+
+    def plain():
+        return k4.normconv_plain(x, scale, shift, w)
+
+    def conv():
+        return torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)
+
+    t = in_turns([("plain", plain), ("kernel", kernel), ("library", conv),
+                  ("library", conv), ("kernel", kernel), ("plain", plain)])
+    ms, plain_ms, lib_ms = (statistics.mean(t[k])
+                            for k in ("kernel", "plain", "library"))
+    bound_ms, bound_by, flops, _ = spike_normconv.bound(shape)
+    log(f"  {name} {tuple(shape)} in turns (plain, K4, cuDNN, cuDNN, K4, "
+        f"plain; CUDA events around 50 calls back to back each): "
+        f"K4 {t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the "
+        f"{bound_ms:.4f} ms {bound_by} bound; plain chain {t['plain'][0]:.4f}"
+        f", {t['plain'][1]:.4f} ms; cuDNN bf16 F.conv2d {t['library'][0]:.4f}"
+        f", {t['library'][1]:.4f} ms; K4 takes {ms / lib_ms:.2f}x cuDNN's "
+        f"time and {ms / plain_ms:.2f}x the plain chain's")
+    return {"shape": name, "dims": list(shape), "ms": ms,
+            "ms_turns": t["kernel"], "plain_ms": plain_ms,
+            "plain_ms_turns": t["plain"], "library_ms": lib_ms,
+            "library_ms_turns": t["library"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "tflops": flops / ms / 1e9,
+            "share_of_bound": bound_ms / ms}
+
+
 def phase_normconv():
     log("phase 11/15 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
-    rows = spike_normconv.run(dev)
+    spike_normconv.run(dev)
     torch.cuda.synchronize()
     tool_launches = k4.launch_count()
     want = len(spike_normconv.CHECK_SHAPES) + len(spike_normconv.HOT_SHAPES) \
@@ -854,24 +1027,16 @@ def phase_normconv():
         f"{len(spike_normconv.HOT_SHAPES)} hot shapes x "
         f"({spike_normconv.WARMUP} warm-up + {spike_normconv.RUNS} timed)")
     worst = 0.0
-    shapes = spike_normconv.CHECK_SHAPES + spike_normconv.HOT_SHAPES
+    shapes = spike_normconv.CHECK_SHAPES + spike_normconv.HOT_SHAPES \
+        + K4_EDGE_SHAPES
     for i, (name, *shape) in enumerate(shapes):
-        args = spike_normconv.make_inputs(shape, 100 + i, dev)
-        got = k4.normconv(*args)
-        want = k4.normconv_plain(*args)
-        torch.cuda.synchronize()
-        dy, scale, rs, rq = spike_normconv.disagreement(got, want)
-        ulp = _ulp_bf16(want[0])
-        worst = max(worst, dy)
-        log(f"  {name} {tuple(shape)}: max |y - plain| = {dy:.4g} ({dy / ulp:g}"
-            f" bf16 ulp of max |y| {scale:.4g}; limit {BF16_ULPS}); sums "
-            f"{rs:.2e}, squares {rq:.2e} of their max (limit "
-            f"{K4_SUM_RTOL:g})")
-        check(bool(torch.isfinite(got[0].float()).all()), f"K4 non-finite "
-              f"({name})")
-        check(dy <= BF16_ULPS * ulp, f"K4 y disagrees at {name}")
-        check(rs <= K4_SUM_RTOL and rq <= K4_SUM_RTOL,
-              f"K4 sums disagree at {name}")
+        args = k4_inputs(shape, 100 + i, dev)
+        worst = max(worst, check_k4(name, shape, args))
+    name, *shape = K4_ZERO_GAMMA_SHAPE
+    args = k4_inputs(shape, 99, dev, zero_gamma=True)
+    worst = max(worst, check_k4(name, shape, args))
+    rows = [time_k4(name, shape, k4_inputs(shape, 1, dev))
+            for name, *shape in spike_normconv.HOT_SHAPES]
     return {"max_abs_err": worst, "launches": tool_launches, "rows": rows}
 
 
@@ -929,12 +1094,13 @@ def phase_bf16_kernels():
                       f"{name} bf16: padded items must give exact zeros")
             if timed is None or (kernel == "grad" and timed == "serve"):
                 continue
+            if kernel == "grad":
+                out[kernel][timed] = time_grad(arg, bbox, hw,
+                                               f"K2 bf16 at the {timed} shape")
+                continue
             ms = cuda_ms(lambda: run(arg, bbox, hw_arg))
             plain_ms = cuda_ms(lambda: plain(arg, bbox, hw_arg))
-            if kernel == "place":
-                bound_ms, bound_by, dense_ms = _bound(arg, bbox, (16, 16))
-            else:
-                bound_ms, bound_by, dense_ms = _grad_bound(arg, bbox, hw)
+            bound_ms, bound_by, dense_ms = _bound(arg, bbox, (16, 16))
             log(f"{name} bf16 at the {timed} shape {tuple(arg.shape)}, CUDA "
                 f"events, median of 50: {ms:.4f} ms; plain version "
                 f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
@@ -1103,6 +1269,7 @@ def main() -> int:
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
+        "redesigned": "PR 8",
         **launches(1),
         "max_abs_err": grad["max_abs_err"],
         **grad["G"],
@@ -1112,6 +1279,7 @@ def main() -> int:
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",
         "replaces": "tools/spike_normconv.py:90",
+        "redesigned": "PR 8",
         "launches": sum(k4_paths.values()),
         "launches_by_path": k4_paths,
         "max_abs_err": normconv["max_abs_err"],

@@ -24,8 +24,8 @@
 // source coordinate lies within 1 of it. The source is monotone in i, so
 // those outputs form one range; the kernel finds it by testing the weights
 // themselves, so it holds for any box, however wide (a box wider than the
-// canvas sends several outputs to one input pixel). Each weight is
-// recomputed from the same grid_coord/source_coord as K1's, so forward and
+// canvas sends several outputs to one input pixel). Each weight comes from
+// the same grid_coord/source_coord/place_affine as K1's, so forward and
 // backward use the same coordinates bit for bit. A gather writes each value
 // once with a fixed order of sums, so the result does not vary from run to
 // run, as a scatter with atomics would.
@@ -36,22 +36,37 @@
 // -> (64,256,16,16) f32, K1 reads at most 50.3 MB and writes 16.8 MB; K2 at
 // batch 128 reads 33.6 MB and writes 100.7 MB. In bf16 both move half that.
 //
-// Design (simple first): layout NCHW, the layout the model holds, so the
-// model pays no permute. K1: one block per (b, c) output plane; threads over
-// the plane's pixels, j fastest, so the stores coalesce and the taps of
-// neighbouring threads fall in the same 1 KB input plane (L1 hits). The
-// per-object affines are computed once per block into shared memory. Taps
-// outside the input and objects whose box misses a pixel are skipped, so
-// a padded object (bbox = -1) reads nothing and adds nothing. K2: one block
-// per (b, group of kGradChannels channels); the block computes each object's
-// source coordinates and tap ranges once into shared memory, then threads
-// run over (channel, object, p, q), q fastest, so the stores coalesce.
-// A padded object's ranges are empty, so it writes exact zeros. A box with a
-// non-finite value gives non-finite sources, which K1 skips (the test below
-// is false for NaN and for infinities) and K2 weighs 0 (fmaxf(0, NaN) is
-// 0): both skip the object, where the plain version gives NaN. The serving
-// path rejects such boxes, and training data has none. The kernels allocate
-// nothing and launch on the caller's stream.
+// Design: layout NCHW, the layout the model holds, so the model pays no
+// permute. K1: one block per (b, c) output plane; threads over the plane's
+// pixels, j fastest, so the stores coalesce and the taps of neighbouring
+// threads fall in the same 1 KB input plane (L1 hits). The per-object
+// affines are computed once per block into shared memory. Taps outside the
+// input and objects whose box misses a pixel are skipped, so a padded
+// object (bbox = -1) reads nothing and adds nothing.
+// K2 (redesigned for its byte bound): one block per (b, tile of channels),
+// the tile sized from the map sides by the wrapper (16 channels at the
+// train step's shapes, fewer for sides up to kMaxSide), so the per-object
+// set-up is paid once per 16 channels, not per 4. The block builds its
+// tables once in shared memory: each output row's and column's first tap
+// and the two hat weights it has (the only non-zero ones), and each input
+// row's and column's tap range (marked from the outputs' taps with shared
+// atomicMin/atomicMax, which give the same range in any order). It stages
+// the tile's gradient planes, one contiguous run, with 16-byte loads. Then
+// per object two separable passes through shared memory: T[c][i][q] =
+// sum_j Wx[j, q] * g[c][i][j] for the output rows i that have taps, then
+// dfeat[c][p][q] = sum_i Wy[i, p] * T[c][i][q], the order the first design
+// summed in (j, then i), with every weight read from the tables. A thread
+// owns one input column q and walks rows without divisions, so a column's
+// taps (at most two for a box inside the canvas) sit in registers, and the
+// rows' ranges and weights are broadcast reads. The (b, o, tile) output
+// planes, one contiguous run, are gathered in shared memory and written
+// with 16-byte stores where aligned. A padded object's ranges are empty,
+// so it writes exact zeros. A box with a non-finite value gives non-finite
+// sources, which K1 skips (the test below is false for NaN and for
+// infinities) and K2 weighs 0 (fmaxf(0, NaN) is 0): both skip the object,
+// where the plain version gives NaN. The serving path rejects such boxes,
+// and training data has none. The kernels allocate nothing and launch on
+// the caller's stream.
 //
 // Both kernels are templates on the element type of the features and the
 // gradient: float32, or bf16 for the bf16 train step and serving. In bf16
@@ -64,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -71,7 +88,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kMaxObjects = 16;  // ops/stn_place_cuda.py:MAX_OBJECTS
 constexpr int kThreads = 256;
 constexpr int kMaxSide = 64;        // ops/stn_place_cuda.py:MAX_GRAD_SIDE
-constexpr int kGradChannels = 4;    // channels per K2 block
+constexpr int kMaxGradTile = 64;    // channels per K2 block, at most
+// K2's dynamic shared memory, at most: the card's 227 KB a block less the
+// static affine table
+constexpr size_t kMaxGradSmem = 232448 - kMaxObjects * 4 * sizeof(float);
 
 // The coordinate arithmetic uses the _rn intrinsics, which the compiler
 // never contracts into fused multiply-adds: it then rounds operation by
@@ -111,6 +131,9 @@ __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const bf16* p) {
   return __bfloat162float(__ldg(p));
 }
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
@@ -200,100 +223,289 @@ __device__ __forceinline__ float hat(float src, int p) {
   return fmaxf(0.0f, 1.0f - fabsf(src - static_cast<float>(p)));
 }
 
+// K2's shared memory in 4-byte words for a tile of channels: the tile's
+// gradient planes, one object's row sums T and its output planes in f32,
+// then the tables of every object (the first tap and its two weights of
+// each output row and column, the tap range of each input row and column,
+// the first and last output row that has taps, and each input row's taps).
+// ops/stn_place_cuda.py:grad_smem_bytes counts the same.
+__host__ __device__ __forceinline__ int grad_smem_words(int n_objects,
+                                                        int tile, int in_h,
+                                                        int in_w, int out_h,
+                                                        int out_w) {
+  return tile * (out_h * (out_w + in_w) + in_h * in_w) +
+         n_objects * (3 * (out_h + out_w) + 2 * (in_h + in_w) + 2 + 4 * in_h);
+}
+
+// n values of the element type from global memory at src, as f32 into
+// shared memory at dst: 16-byte loads where aligned, four in flight a
+// thread, single ones around them
+template <typename T>
+__device__ void stage_f32(const T* __restrict__ src, float* dst, int n) {
+  constexpr int kV = 16 / sizeof(T);
+  const int head = min(n, static_cast<int>(
+      ((16 - reinterpret_cast<uintptr_t>(src) % 16) % 16) / sizeof(T)));
+  const int nv = (n - head) / kV;
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  for (int v0 = threadIdx.x; v0 < nv; v0 += 4 * blockDim.x) {
+    uint4 raw[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v = v0 + k * blockDim.x;
+      if (v < nv) raw[k] = __ldg(vsrc + v);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v = v0 + k * blockDim.x;
+      if (v >= nv) break;
+      const T* in = reinterpret_cast<const T*>(&raw[k]);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) dst[head + v * kV + e] = to_f32(in[e]);
+    }
+  }
+  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = load(src + e);
+  for (int e = head + nv * kV + threadIdx.x; e < n; e += blockDim.x) {
+    dst[e] = load(src + e);
+  }
+}
+
+// K2, one block per (b, tile of channels): the tables once, the tile's
+// gradient planes staged once, then per object the two separable passes
+//   T[c][i][q] = sum_j Wx[j, q] * g[c][i][j]      (j ascending)
+//   dfeat[c][p][q] = sum_i Wy[i, p] * T[c][i][q]  (i ascending)
+// over the tap ranges, each weight read from the tables. A thread owns one
+// input column q, so its column's range and weights stay in registers, and
+// walks rows; T is computed only for the output rows i that have taps.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stn_place_multi_grad_kernel(const T* __restrict__ grad,
                             const float* __restrict__ bbox,
                             T* __restrict__ dfeat, int n_objects,
-                            int channels, int groups, int in_h, int in_w,
-                            int out_h, int out_w) {
+                            int channels, int tile, int groups, int in_h,
+                            int in_w, int out_h, int out_w) {
   __shared__ float affine[kMaxObjects][4];
-  // src_y[o][i], src_x[o][j], then the tap ranges lo/hi of every input
-  // row p and column q of every object; sized by the wrapper
   extern __shared__ float smem[];
-  float* src_y = smem;
-  float* src_x = src_y + n_objects * out_h;
-  int* row_lo = reinterpret_cast<int*>(src_x + n_objects * out_w);
+  const int out_plane = out_h * out_w;
+  const int in_plane = in_h * in_w;
+  // [o][in_h]: an input row's taps when it has one or two: (ia, ib, wa,
+  // wb) with a zero weight for a missing tap; ia = -1 for more, -2 for none
+  int4* rtap = reinterpret_cast<int4*>(smem);
+  float* gs = smem + 4 * n_objects * in_h;        // [tile][out_h][out_w]
+  float* ts = gs + tile * out_plane;              // [tile][ni][in_w]
+  float* os = ts + tile * out_h * in_w;           // [tile][in_h][in_w]
+  float* wy0 = os + tile * in_plane;              // [o][out_h]: weight of
+  float* wy1 = wy0 + n_objects * out_h;           // tap p0, of p0 + 1
+  float* wx0 = wy1 + n_objects * out_h;           // [o][out_w]
+  float* wx1 = wx0 + n_objects * out_w;
+  int* py0 = reinterpret_cast<int*>(wx1 + n_objects * out_w);  // floor(src)
+  int* px0 = py0 + n_objects * out_h;
+  int* row_lo = px0 + n_objects * out_w;          // [o][in_h]: tap range
   int* row_hi = row_lo + n_objects * in_h;
-  int* col_lo = row_hi + n_objects * in_h;
+  int* col_lo = row_hi + n_objects * in_h;        // [o][in_w]
   int* col_hi = col_lo + n_objects * in_w;
+  int* rows = col_hi + n_objects * in_w;          // [o]: output rows with taps
 
   const int b = blockIdx.x / groups;
-  const int c0 = (blockIdx.x - b * groups) * kGradChannels;
+  const int c0 = (blockIdx.x - b * groups) * tile;
+  const int cnt = min(tile, channels - c0);
   if (threadIdx.x < n_objects) {
     place_affine(bbox + (static_cast<size_t>(b) * n_objects + threadIdx.x) * 4,
                  affine[threadIdx.x]);
   }
+  // every range starts empty (lo > hi)
+  for (int t = threadIdx.x; t < n_objects * in_h; t += blockDim.x) {
+    row_lo[t] = 0x7fffffff;
+    row_hi[t] = -1;
+  }
+  for (int t = threadIdx.x; t < n_objects * in_w; t += blockDim.x) {
+    col_lo[t] = 0x7fffffff;
+    col_hi[t] = -1;
+  }
+  for (int t = threadIdx.x; t < n_objects; t += blockDim.x) {
+    rows[2 * t] = 0x7fffffff;
+    rows[2 * t + 1] = -1;
+  }
+  // the tile's gradient planes are one contiguous run
+  stage_f32(grad + (static_cast<size_t>(b) * channels + c0) * out_plane, gs,
+            cnt * out_plane);
   __syncthreads();
 
+  // every output row's and column's first tap p0 and the two weights
+  // weight<T>(hat(src, p0)), weight<T>(hat(src, p0 + 1)), the only non-zero
+  // ones; and each input row's (column's) tap range, the outputs with a
+  // non-zero weight on it. The source is monotone, so these are
+  // contiguous; atomicMin and atomicMax give the same range in any order,
+  // the range a search of every output's weight finds, so any box works,
+  // however wide.
   const int n_src = out_h + out_w;
   for (int t = threadIdx.x; t < n_objects * n_src; t += blockDim.x) {
     const int o = t / n_src;
     const int k = t - o * n_src;
-    if (k < out_h) {
-      src_y[o * out_h + k] = source_coord(affine[o][2], affine[o][3],
-                                          grid_coord(k, out_h), in_h);
-    } else {
-      src_x[o * out_w + k - out_h] = source_coord(
-          affine[o][0], affine[o][1], grid_coord(k - out_h, out_w), in_w);
-    }
-  }
-  __syncthreads();
-
-  const int n_in = in_h + in_w;
-  for (int t = threadIdx.x; t < n_objects * n_in; t += blockDim.x) {
-    const int o = t / n_in;
-    const int k = t - o * n_in;
-    const bool is_row = k < in_h;
-    const int p = is_row ? k : k - in_h;
-    const float* src = is_row ? src_y + o * out_h : src_x + o * out_w;
-    const int n_out = is_row ? out_h : out_w;
-    int lo = 0, hi = -1;                // empty
-    for (int i = 0; i < n_out; ++i) {
-      if (hat(src[i], p) > 0.0f) {
-        if (hi < lo) lo = i;
-        hi = i;
-      }
-    }
+    const bool is_row = k < out_h;
+    const int i = is_row ? k : k - out_h;
+    const int n = is_row ? in_h : in_w;
+    const float src =
+        is_row ? source_coord(affine[o][2], affine[o][3],
+                              grid_coord(i, out_h), in_h)
+               : source_coord(affine[o][0], affine[o][1],
+                              grid_coord(i, out_w), in_w);
+    // a source far outside, or not finite, has no taps, so its p0 is
+    // clamped only to stay an int
+    const int p0 = static_cast<int>(
+        floorf(fminf(fmaxf(src, -2.0f), static_cast<float>(n) + 1.0f)));
+    const float h0 = hat(src, p0);
+    const float h1 = hat(src, p0 + 1);
+    int* lo = is_row ? row_lo + o * in_h : col_lo + o * in_w;
+    int* hi = is_row ? row_hi + o * in_h : col_hi + o * in_w;
     if (is_row) {
-      row_lo[o * in_h + p] = lo;
-      row_hi[o * in_h + p] = hi;
+      py0[o * out_h + i] = p0;
+      wy0[o * out_h + i] = weight<T>(h0);
+      wy1[o * out_h + i] = weight<T>(h1);
     } else {
-      col_lo[o * in_w + p] = lo;
-      col_hi[o * in_w + p] = hi;
+      px0[o * out_w + i] = p0;
+      wx0[o * out_w + i] = weight<T>(h0);
+      wx1[o * out_w + i] = weight<T>(h1);
+    }
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int p = p0 + d;
+      if (!((d == 0 ? h0 : h1) > 0.0f) || p < 0 || p >= n) continue;
+      atomicMin(lo + p, i);
+      atomicMax(hi + p, i);
+      if (is_row) {
+        atomicMin(rows + 2 * o, i);
+        atomicMax(rows + 2 * o + 1, i);
+      }
     }
   }
   __syncthreads();
 
-  const int in_plane = in_h * in_w;
-  const size_t out_plane = static_cast<size_t>(out_h) * out_w;
-  const int work = kGradChannels * n_objects * in_plane;
-  for (int t = threadIdx.x; t < work; t += blockDim.x) {
-    const int q = t % in_w;
-    int r = t / in_w;
-    const int p = r % in_h;
-    r /= in_h;
-    const int o = r % n_objects;
-    const int c = c0 + r / n_objects;
-    if (c >= channels) continue;
-    const T* gp = grad + (static_cast<size_t>(b) * channels + c) * out_plane;
-    const float* sy = src_y + o * out_h;
-    const float* sx = src_x + o * out_w;
-    const int j_lo = col_lo[o * in_w + q];
-    const int j_hi = col_hi[o * in_w + q];
-    float acc = 0.0f;
-    for (int i = row_lo[o * in_h + p]; i <= row_hi[o * in_h + p]; ++i) {
-      const float wy = weight<T>(hat(sy[i], p));
-      float row = 0.0f;
-      for (int j = j_lo; j <= j_hi; ++j) {
-        row += weight<T>(hat(sx[j], q)) *
-               load(gp + static_cast<size_t>(i) * out_w + j);
-      }
-      acc += wy * row;
+  // each input row's taps for pass 2, in one 16-byte read where it has one
+  // or two (always, for a box inside the canvas); else the range loop
+  for (int t = threadIdx.x; t < n_objects * in_h; t += blockDim.x) {
+    const int o = t / in_h;
+    const int p = t - o * in_h;
+    const int lo = row_lo[t];
+    const int hi = row_hi[t];
+    int4 tap = make_int4(-1, 0, 0, 0);
+    if (lo > hi) {                    // no taps
+      tap.x = -2;
+    } else if (hi - lo <= 1) {
+      const int k0 = o * out_h + lo;
+      const int k1 = o * out_h + hi;
+      const float wa = py0[k0] == p ? wy0[k0] : wy1[k0];
+      const float wb = lo < hi ? (py0[k1] == p ? wy0[k1] : wy1[k1]) : 0.0f;
+      tap = make_int4(lo, hi, __float_as_int(wa), __float_as_int(wb));
     }
-    store(dfeat + ((static_cast<size_t>(b) * n_objects + o) * channels + c) *
-                      in_plane + p * in_w + q,
-          acc);
+    rtap[t] = tap;
+  }
+  __syncthreads();
+
+  // this thread's column q and first row; it owns rows r0, r0 + rstep, ...
+  // of each pass and walks the tile's channels in each
+  const int q = threadIdx.x % in_w;
+  const int r0 = threadIdx.x / in_w;
+  const int rstep = blockDim.x / in_w;
+  const int r_end = r0 < rstep ? 0x7fffffff : 0;  // threads past rstep idle
+  constexpr int kV = 16 / sizeof(T);
+  const int n_out = cnt * in_plane;
+  for (int o = 0; o < n_objects; ++o) {
+    const int ilo = rows[2 * o];
+    const int ni = rows[2 * o + 1] - ilo + 1;  // <= 0: no taps at all
+    // pass 1: T[c][i][q] for the output rows i with taps
+    if (r0 < min(ni, r_end)) {
+      const int jlo = col_lo[o * in_w + q];
+      const int jhi = col_hi[o * in_w + q];
+      const int* pxo = px0 + o * out_w;
+      const float* wx0o = wx0 + o * out_w;
+      const float* wx1o = wx1 + o * out_w;
+      // in the range, p0 is q or q - 1; a column with at most two taps
+      // keeps them in registers (a zero weight adds an exact 0)
+      const bool two = jhi - jlo <= 1;
+      const int ja = two && jlo <= jhi ? jlo : 0;
+      const int jb = two && jlo < jhi ? jhi : ja;
+      const float wa = two && jlo <= jhi
+                           ? (pxo[ja] == q ? wx0o[ja] : wx1o[ja]) : 0.0f;
+      const float wb = two && jlo < jhi
+                           ? (pxo[jb] == q ? wx0o[jb] : wx1o[jb]) : 0.0f;
+      for (int ii = r0; ii < ni; ii += rstep) {
+        const float* g = gs + (ilo + ii) * out_w;
+        float* dst = ts + ii * in_w + q;
+        for (int c = 0; c < cnt; ++c, g += out_plane, dst += ni * in_w) {
+          float row = 0.0f;
+          if (two) {
+            row += wa * g[ja];
+            row += wb * g[jb];
+          } else {
+            for (int j = jlo; j <= jhi; ++j) {
+              row += (pxo[j] == q ? wx0o[j] : wx1o[j]) * g[j];
+            }
+          }
+          *dst = row;
+        }
+      }
+    }
+    __syncthreads();
+
+    // pass 2: every value of the tile's output planes, into os
+    const int* pyo = py0 + o * out_h;
+    const float* wy0o = wy0 + o * out_h;
+    const float* wy1o = wy1 + o * out_h;
+    for (int p = r0; p < min(in_h, r_end); p += rstep) {
+      const int4 tap = rtap[o * in_h + p];
+      float* dst = os + p * in_w + q;
+      if (tap.x == -2) {              // no taps
+        for (int c = 0; c < cnt; ++c) dst[c * in_plane] = 0.0f;
+        continue;
+      }
+      // T[c][i][q] is tc[c * ni * in_w + i * in_w]
+      const float* tc = ts + (q - ilo * in_w);
+      if (tap.x >= 0) {               // one or two taps
+        const float wa = __int_as_float(tap.z);
+        const float wb = __int_as_float(tap.w);
+        const float* ta = tc + tap.x * in_w;
+        const float* tb = tc + tap.y * in_w;
+        for (int c = 0; c < cnt; ++c) {
+          float acc = 0.0f;
+          acc += wa * ta[c * ni * in_w];
+          acc += wb * tb[c * ni * in_w];
+          dst[c * in_plane] = acc;
+        }
+      } else {                        // more: the range
+        const int lo = row_lo[o * in_h + p];
+        const int hi = row_hi[o * in_h + p];
+        for (int c = 0; c < cnt; ++c) {
+          float acc = 0.0f;
+          for (int i = lo; i <= hi; ++i) {
+            acc += (pyo[i] == p ? wy0o[i] : wy1o[i]) *
+                   tc[(c * ni + i) * in_w];
+          }
+          dst[c * in_plane] = acc;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the (b, o, c0..c0+cnt) planes are one contiguous run of the output:
+    // 16-byte stores where aligned, single ones around them
+    T* out = dfeat + ((static_cast<size_t>(b) * n_objects + o) * channels +
+                      c0) * in_plane;
+    const int head = min(n_out, static_cast<int>(
+        ((16 - reinterpret_cast<uintptr_t>(out) % 16) % 16) / sizeof(T)));
+    const int nv = (n_out - head) / kV;
+    for (int e = threadIdx.x; e < head; e += blockDim.x) store(out + e, os[e]);
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      const float* src = os + head + v * kV;
+      uint4 packed;
+      T* vals = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int k = 0; k < kV; ++k) store(vals + k, src[k]);
+      *reinterpret_cast<uint4*>(out + head + v * kV) = packed;
+    }
+    for (int e = head + nv * kV + threadIdx.x; e < n_out; e += blockDim.x) {
+      store(out + e, os[e]);
+    }
+    __syncthreads();                  // ts and os are rewritten for o + 1
   }
 }
 
@@ -318,24 +530,31 @@ int place(const T* feat, const float* bbox, T* out, int batch, int n_objects,
 template <typename T>
 int place_grad(const T* grad, const float* bbox, T* dfeat, int batch,
                int n_objects, int channels, int in_h, int in_w, int out_h,
-               int out_w, void* stream) {
+               int out_w, int tile, void* stream) {
   if (n_objects < 1 || n_objects > kMaxObjects || batch < 1 || channels < 1 ||
       in_h < 1 || in_w < 1 || out_h < 1 || out_w < 1 || in_h > kMaxSide ||
-      in_w > kMaxSide || out_h > kMaxSide || out_w > kMaxSide) {
+      in_w > kMaxSide || out_h > kMaxSide || out_w > kMaxSide || tile < 1 ||
+      tile > kMaxGradTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int groups = (channels + kGradChannels - 1) / kGradChannels;
+  const int groups = (channels + tile - 1) / tile;
   const long long blocks = static_cast<long long>(batch) * groups;
-  if (blocks > 0x7fffffffLL) {
+  const size_t smem = static_cast<size_t>(grad_smem_words(
+                          n_objects, tile, in_h, in_w, out_h, out_w)) *
+                      sizeof(float);
+  if (blocks > 0x7fffffffLL || smem > kMaxGradSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      static_cast<size_t>(n_objects) * (out_h + out_w) * sizeof(float) +
-      static_cast<size_t>(n_objects) * (in_h + in_w) * 2 * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stn_place_multi_grad_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   stn_place_multi_grad_kernel<T><<<static_cast<unsigned>(blocks), kThreads,
                                    smem, static_cast<cudaStream_t>(stream)>>>(
-      grad, bbox, dfeat, n_objects, channels, groups, in_h, in_w, out_h,
-      out_w);
+      grad, bbox, dfeat, n_objects, channels, tile, groups, in_h, in_w,
+      out_h, out_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,21 +581,25 @@ extern "C" int stn_place_multi_bf16(const void* feat, const float* bbox,
 
 // grad (B, C, Ho, Wo), bbox (B, O, 4) f32, dfeat (B, O, C, H, W):
 // contiguous, on the current device, every side at most kMaxSide; grad and
-// dfeat f32 (_f32) or bf16 (_bf16). Return cudaGetLastError() after the
+// dfeat f32 (_f32) or bf16 (_bf16); tile channels a block, at most
+// kMaxGradTile, with grad_smem_words within kMaxGradSmem
+// (ops/stn_place_cuda.py:grad_tile). Return cudaGetLastError() after the
 // launch.
 extern "C" int stn_place_multi_grad_f32(const float* grad, const float* bbox,
                                         float* dfeat, int batch, int n_objects,
                                         int channels, int in_h, int in_w,
-                                        int out_h, int out_w, void* stream) {
+                                        int out_h, int out_w, int tile,
+                                        void* stream) {
   return place_grad(grad, bbox, dfeat, batch, n_objects, channels, in_h, in_w,
-                    out_h, out_w, stream);
+                    out_h, out_w, tile, stream);
 }
 
 extern "C" int stn_place_multi_grad_bf16(const void* grad, const float* bbox,
                                          void* dfeat, int batch, int n_objects,
                                          int channels, int in_h, int in_w,
-                                         int out_h, int out_w, void* stream) {
+                                         int out_h, int out_w, int tile,
+                                         void* stream) {
   return place_grad(static_cast<const bf16*>(grad), bbox,
                     static_cast<bf16*>(dfeat), batch, n_objects, channels,
-                    in_h, in_w, out_h, out_w, stream);
+                    in_h, in_w, out_h, out_w, tile, stream);
 }

@@ -3,13 +3,16 @@
 Replaces the Pallas TPU kernel ``tools/spike_normconv.py:normconv`` (body
 ``_normconv_kernel``), a forward-only bf16 fusion of one link of the
 Stage-1 step's conv chain. :func:`normconv` launches the CUDA kernel of
-``csrc/normconv.cu`` (CUDA C++ for ``sm_90a``, an implicit GEMM on the
-bf16 tensor cores, bound with ctypes) for a CUDA tensor, and runs
-:func:`normconv_plain` for a CPU tensor; nothing else is accepted and
-nothing falls back. Each kernel launch adds one to :func:`launch_count`.
+``csrc/normconv.cu`` (CUDA C++ for ``sm_90a``, a pipelined implicit GEMM
+on the bf16 tensor cores through ``wgmma``, bound with ctypes) for a CUDA
+tensor, and runs :func:`normconv_plain` for a CPU tensor; nothing else is
+accepted and nothing falls back. Each kernel launch adds one to
+:func:`launch_count`.
 
 Layout is the spike's: x (B, H, W, Cin) NHWC and w (3, 3, Cin, Cout) HWIO,
-bf16. No model of the port calls K4: its caller is the port's spike tool,
+bf16. The kernel reads the weights as (Cout, 3, 3, Cin), K-major rows of
+its TMA boxes: :func:`pack_weights` repacks them on each call. No model
+of the port calls K4: its caller is the port's spike tool,
 ``multiple_objects_gan_tpu_torch/tools/spike_normconv.py``.
 
 Padding follows the function the spike states (and its XLA baseline): the
@@ -30,6 +33,8 @@ from multiple_objects_gan_tpu_torch.ops import _build
 
 EPS = 1e-5
 VEC = 8          # csrc/normconv.cu:kVec, Cin and Cout are multiples of it
+MAX_CIN = 1024   # csrc/normconv.cu:kMaxCin, scale and shift in shared memory
+MAX_WIDTH = 32   # csrc/normconv.cu:kMaxWidth, the halo in shared memory
 
 _count_lock = threading.Lock()
 _launches = 0
@@ -80,6 +85,13 @@ def normconv_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return y, yf.sum(dim=(0, 1, 2)), yf.square().sum(dim=(0, 1, 2))
 
 
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO weights (3, 3, Cin, Cout) -> (Cout, 3, 3, Cin), contiguous: the
+    layout the kernel's B tiles read, each output channel's 9 * Cin values
+    in a row with Cin innermost (K-major for ``wgmma``)."""
+    return w.permute(3, 0, 1, 2).contiguous()
+
+
 def _check(x, scale, shift, w) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) \
             or w.shape[2] != x.shape[3]:
@@ -96,6 +108,10 @@ def _check(x, scale, shift, w) -> None:
     if cin % VEC or cout % VEC:
         raise ValueError(f"K4 takes Cin and Cout in multiples of {VEC}, got "
                          f"{cin} and {cout}")
+    if cin > MAX_CIN:
+        raise ValueError(f"K4 takes Cin up to {MAX_CIN}, got {cin}")
+    if x.shape[2] > MAX_WIDTH:
+        raise ValueError(f"K4 takes W up to {MAX_WIDTH}, got {x.shape[2]}")
     if x.numel() == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
     if x.shape[0] * x.shape[1] * x.shape[2] >= 2 ** 31:
@@ -138,16 +154,17 @@ def normconv(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     cout = w.shape[3]
     fn, rows = _kernel()
     dev = x.device
+    w_packed = pack_weights(w)
     y = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=dev)
     part = torch.empty((2, rows(b, h, wd), cout), dtype=torch.float32,
                        device=dev)
     sums = torch.empty((2, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+                 w_packed.data_ptr(), y.data_ptr(), part[0].data_ptr(),
                  part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
                  b, h, wd, x.shape[3], cout,
-                 torch.cuda.current_stream().cuda_stream)
+                 _build.current_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"normconv_bf16 launch failed with CUDA error "
                            f"{err}")

@@ -20,8 +20,10 @@ they need is read once and each output written once, with a few operations
 per byte.
 K1 is one block per (batch, channel) output plane, each output value a sum
 over objects of a 2x2-tap bilinear gather. K2 is a gather too, one block
-per (batch, 4 channels), over the tap ranges the block derives from the
-weights.
+per (batch, tile of channels) with the tile sized by :func:`grad_tile`:
+weight tables built once a block, the tile's gradient planes staged in
+shared memory, then two separable passes per object over the tap ranges
+the block derives from the weights.
 
 :func:`stn_place_multi_nchw` is the entry the model calls. It always goes
 through :class:`StnPlaceMulti`, so on either device its output has a
@@ -45,6 +47,9 @@ from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 
 MAX_OBJECTS = 16    # csrc/stn_place.cu:kMaxObjects
 MAX_GRAD_SIDE = 64  # csrc/stn_place.cu:kMaxSide, K2's largest map side
+GRAD_TILE = 16      # K2's channels a block where the planes fit
+GRAD_TILE_BYTES = 48 * 1024  # shared memory for a tile's planes, at most
+MAX_GRAD_SMEM = 232448 - MAX_OBJECTS * 16  # csrc/stn_place.cu:kMaxGradSmem
 # the element types the kernels take, and their C entries' suffixes
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -128,6 +133,28 @@ def stn_place_multi_grad_plain(grad: torch.Tensor, bbox: torch.Tensor,
 # ------------------------------------------------------------------ kernels
 
 
+def grad_smem_bytes(n_objects: int, tile: int, in_hw, out_hw) -> int:
+    """K2's dynamic shared memory for a tile of channels: the tile's
+    gradient planes, one object's row sums T and its output planes in
+    float32, then every object's tables (csrc/stn_place.cu:grad_smem_words,
+    in bytes)."""
+    (hi, wi), (ho, wo) = in_hw, out_hw
+    return 4 * (tile * (ho * (wo + wi) + hi * wi)
+                + n_objects * (3 * (ho + wo) + 2 * (hi + wi) + 2 + 4 * hi))
+
+
+def grad_tile(in_hw, out_hw) -> int:
+    """K2's channels a block: GRAD_TILE, halved until the tile's planes
+    fit in GRAD_TILE_BYTES (16 at the train step's shapes, 1 at 64 a
+    side). The block's whole shared memory, tables included, then stays
+    within MAX_GRAD_SMEM for every side up to MAX_GRAD_SIDE."""
+    tile = GRAD_TILE
+    while tile > 1 and grad_smem_bytes(0, tile, in_hw, out_hw) \
+            > GRAD_TILE_BYTES:
+        tile //= 2
+    return tile
+
+
 def _check(x: torch.Tensor, bbox: torch.Tensor, n_objects: int,
            sides: tuple[int, ...]) -> None:
     """What both kernels take: float32 or bf16 values and float32 boxes,
@@ -157,19 +184,27 @@ def _check_device(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
 
 
-def _kernel(symbol: str):
-    fn = getattr(_build.build("stn_place").lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+_fns: dict = {}     # C entry name -> its ctypes function, typed once
+
+
+def _kernel(symbol: str, n_ints: int):
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.build("stn_place").lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
     return fn
 
 
 def _launch(symbol: str, kernel: str, args, device) -> None:
-    fn = _kernel(symbol)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+    fn = _kernel(symbol, len(args) - 3)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _build.current_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _build.current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {err}")
     _count(kernel)
@@ -223,7 +258,8 @@ def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
                       device=grad.device)
     _launch(f"stn_place_multi_grad_{_SUFFIX[grad.dtype]}", "grad",
             (grad.data_ptr(), bbox.data_ptr(), out.data_ptr(),
-             b, o, c, hi, wi, ho, wo), grad.device)
+             b, o, c, hi, wi, ho, wo, grad_tile((hi, wi), (ho, wo))),
+            grad.device)
     return out
 
 

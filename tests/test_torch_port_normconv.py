@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.tools import spike_normconv as tool
 
@@ -92,6 +93,20 @@ def test_plain_matches_the_spike_xla_baseline(shape):
     assert dy <= 1.0 and rs < SUM_RTOL and rq < SUM_RTOL, (dy, rs, rq)
 
 
+@pytest.mark.parametrize("edge", chip_smoke.K4_EDGE_SHAPES
+                         + [chip_smoke.K4_ZERO_GAMMA_SHAPE],
+                         ids=lambda e: e[0])
+def test_plain_matches_the_spike_at_the_chip_smoke_edge_shapes(edge):
+    """The edge shapes at which chip_smoke.py phase 11 holds K4 against
+    the plain version: the plain version (K4's CPU path) against the
+    spike's XLA baseline there, so the card's reference is right too."""
+    name, *shape = edge
+    args = _inputs(tuple(shape), 5, zero_gamma=name.startswith("gamma 0"))
+    got = _port(*args)
+    dy, rs, rq = _agree(got, _jax(spike.normconv_xla, *args))
+    assert dy <= 1.0 and rs < SUM_RTOL and rq < SUM_RTOL, (dy, rs, rq)
+
+
 def test_plain_matches_the_pallas_kernel_in_interpret_mode():
     args = _inputs((4, 8, 8, 16, 8), 1)
     want = _jax(spike.normconv, *args, tile_b=2, interpret=True)
@@ -144,11 +159,41 @@ def test_cpu_path_launches_no_kernel_and_other_devices_are_refused():
     (lambda x, s, t, w: (x.float(), s, t, w), "bf16 x and w"),
     (lambda x, s, t, w: (x, s, t, w[:, :, :4]), r"\(3, 3, Cin, Cout\)"),
     (lambda x, s, t, w: (x.transpose(1, 2), s, t, w), "contiguous"),
-], ids=["cin-4", "float-x", "cin-mismatch", "strided"])
+    (lambda x, s, t, w: (torch.zeros(1, 1, 1, 1032, dtype=torch.bfloat16),
+                         torch.ones(1032), torch.zeros(1032),
+                         torch.zeros(3, 3, 1032, 8, dtype=torch.bfloat16)),
+     "Cin up to 1024"),
+    (lambda x, s, t, w: (x, s, t, w[:, :, :, :4]), "multiples of 8"),
+    (lambda x, s, t, w: (torch.zeros(1, 2, 33, 8, dtype=torch.bfloat16), s,
+                         t, w), "W up to 32"),
+], ids=["cin-4", "float-x", "cin-mismatch", "strided", "cin-1032",
+        "cout-4", "width-33"])
 def test_kernel_wrapper_checks_what_the_kernel_takes(bad, match):
     args = tool.make_inputs((2, 4, 4, 8, 8), 0, torch.device("cpu"))
     with pytest.raises(ValueError, match=match):
         k4._check(*bad(*args))
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 6, 8, 8), (3, 4, 4, 136, 264)],
+                         ids=["cin-8", "cin-136-cout-264"])
+def test_packed_weights_are_the_kernels_b_operand(shape):
+    """The kernel's GEMM through :func:`pack_weights`: row n of the packed
+    weights, read as 9 * Cin values (tap-major, Cin innermost), against the
+    im2col rows of the zero-padded normalized x gives the convolution."""
+    b, h, w, cin, cout = shape
+    rs = np.random.RandomState(4)
+    xn = torch.from_numpy(rs.randn(b, h, w, cin)).relu()
+    wt = torch.from_numpy(rs.randn(3, 3, cin, cout))
+    packed = k4.pack_weights(wt)
+    assert tuple(packed.shape) == (cout, 3, 3, cin) and packed.is_contiguous()
+    pad = torch.nn.functional.pad(xn, (0, 0, 1, 1, 1, 1))
+    a = torch.stack([pad[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                     for dx in range(3)], dim=3).reshape(b * h * w, 9 * cin)
+    got = torch.matmul(a, packed.reshape(cout, 9 * cin).T)
+    want = torch.nn.functional.conv2d(xn.permute(0, 3, 1, 2),
+                                      wt.permute(3, 2, 0, 1), padding=1)
+    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).reshape(
+        b * h * w, cout).numpy(), rtol=1e-12, atol=1e-10)
 
 
 def test_tool_check_on_the_cpu(capsys):

@@ -219,3 +219,70 @@ def test_stn_place_and_extract_match_jax(place):
     want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(bbox), (16, 16)))
     got = tfn(torch.from_numpy(x), torch.from_numpy(bbox), (16, 16)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _k2_box_algorithm(g, bbox, in_hw):
+    """K2's redesigned algorithm (csrc/stn_place.cu) in numpy, from the
+    same hat weights: each input row's (column's) tap range, the object's
+    box of output rows i and input rows p and columns q that have taps,
+    T = Wx-sum over j inside the box, then the Wy-sum over the tap range;
+    every value outside the box left at zero."""
+    b, c, ho, wo = g.shape
+    o = bbox.shape[1]
+    wy, wx = stn.place_weights(torch.from_numpy(bbox).reshape(b * o, 4),
+                               (ho, wo), in_hw)
+    wy = wy.double().numpy().reshape(b, o, ho, in_hw[0])
+    wx = wx.double().numpy().reshape(b, o, wo, in_hw[1])
+    assert ((wy != 0).sum(-1) <= 2).all() and ((wx != 0).sum(-1) <= 2).all()
+    out = np.zeros((b, o, c) + tuple(in_hw))
+    for bi in range(b):
+        for oi in range(o):
+            rows = np.nonzero((wy[bi, oi] != 0).any(axis=1))[0]   # i
+            prow = np.nonzero((wy[bi, oi] != 0).any(axis=0))[0]   # p
+            qcol = np.nonzero((wx[bi, oi] != 0).any(axis=0))[0]   # q
+            if not (len(rows) and len(prow) and len(qcol)):
+                continue
+            i0, i1 = rows.min(), rows.max() + 1
+            p0, p1 = prow.min(), prow.max() + 1
+            q0, q1 = qcol.min(), qcol.max() + 1
+            t = np.einsum("cij,jq->ciq", g[bi][:, i0:i1],
+                          wx[bi, oi][:, q0:q1])
+            out[bi, oi, :, p0:p1, q0:q1] = np.einsum(
+                "ip,ciq->cpq", wy[bi, oi][i0:i1, p0:p1], t)
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("in_hw", [(16, 16), (15, 15), (7, 23)])
+def test_k2_box_algorithm_matches_the_plain_version(in_hw, kind):
+    """Restricting both passes to the box of rows and columns with taps
+    drops nothing: the result equals the plain version's (float64)."""
+    rng = np.random.RandomState(11)
+    g = rng.uniform(-1.0, 1.0, (4, 5, 16, 16))
+    bbox = _boxes(rng, 4, 3, kind)
+    want = stn_place_cuda.stn_place_multi_grad_plain(
+        torch.from_numpy(g), torch.from_numpy(bbox), in_hw).numpy()
+    got = _k2_box_algorithm(g, bbox, in_hw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    if kind == "padded":
+        assert not got[::2].any()
+
+
+def test_k2_tile_fits_shared_memory_at_every_side():
+    """The wrapper's channel tile keeps K2's shared memory within the
+    block's 227 KB for every side up to MAX_GRAD_SIDE and 1..MAX_OBJECTS
+    objects, and is 16 channels at the train step's shapes."""
+    m = stn_place_cuda
+    assert m.grad_tile((16, 16), (16, 16)) == 16
+    assert m.grad_tile((15, 15), (16, 16)) == 16
+    worst = 0
+    for side_in in range(1, m.MAX_GRAD_SIDE + 1):
+        for side_out in (1, side_in, m.MAX_GRAD_SIDE):
+            for objects in (1, m.MAX_OBJECTS):
+                hw_in, hw_out = (side_in, side_in), (side_out, side_out)
+                tile = m.grad_tile(hw_in, hw_out)
+                assert 1 <= tile <= m.GRAD_TILE
+                smem = m.grad_smem_bytes(objects, tile, hw_in, hw_out)
+                assert smem <= m.MAX_GRAD_SMEM < 227 * 1024
+                worst = max(worst, smem)
+    assert worst == m.grad_smem_bytes(m.MAX_OBJECTS, 1, (64, 64), (64, 64))
