@@ -13,8 +13,11 @@ elapsed time:
                 line a kernel (registers, shared memory, spills);
   3. kernel   - the STN place kernel (K1) against its plain PyTorch version
                 on the card, at the served generator's shape, at the G and
-                D shapes of the train step and at edge cases, timed by CUDA
-                events beside the plain version and the bound;
+                D shapes of the train step and at edge cases (padded,
+                off-canvas and wider-than-canvas boxes, 37 channels, sides
+                32 and 64, a side of 65 refused), timed cold in turns with
+                the plain version (plain, K1, K1, plain, on a rotation of
+                input copies larger than twice the L2) beside the bound;
   4. model    - the full-width trained Stage1G on the card against the port
                 on the CPU, batch 64, and its forward time on the card;
   5. serve    - the port's HTTP server on the card: concurrent /generate
@@ -22,8 +25,9 @@ elapsed time:
                 served batches went through K1 (its launch count);
   6. grad     - the place backward (K2) against its plain version on the
                 card, at the G and D shapes of the train step and at edge
-                cases, timed in turns with the plain version (plain, K2,
-                K2, plain) beside the bound and the rate it implies;
+                cases, timed cold in turns with the plain version (as K1
+                in phase 3) and warm (one set of buffers) beside the bound
+                and the rate it implies;
   7. autograd - gradients through StnPlaceMulti (K3) on the card against
                 the CPU, and a train-mode Stage1G's object-pathway gradient
                 on the card against the CPU;
@@ -47,8 +51,9 @@ elapsed time:
                 the bound);
  12. bf16     - K1 and K2 in bf16 against their plain versions at the G
                 and D train shapes and the serve shape, with padded boxes,
-                boxes off the canvas and boxes wider than it, timed (K2 in
-                turns, as in phase 6);
+                boxes off the canvas and wider than it, and at K1's tile
+                edges (37 channels, sides 32 and 64; 65 refused), timed
+                cold in turns (as in phases 3 and 6);
  13. step16   - one bf16 train step, full width, on the card against the
                 same step on the CPU: losses, BatchNorm statistics and
                 per-tensor gradient cosines held;
@@ -133,6 +138,9 @@ BF16_STATS_ATOL = 5e-3
 BF16_MIN_GRAD_COSINE = 0.9
 MIN_BF16_SEPARATION = MIN_SEPARATION
 MAX_BF16_SERVE_MEAN_DIFF = 0.05  # bf16 served image vs float32, [-1, 1]
+COLD_BYTES = 100 * 2**20    # twice the card's 50 MB L2: K1 and K2 are timed
+                            # on a rotation of inputs that reads more than
+                            # this before it reuses one (cold_sets)
 
 
 def log(msg: str) -> None:
@@ -161,32 +169,74 @@ def cuda_ms(fn, warmup: int = 5, runs: int = 50) -> float:
     return statistics.median(times)
 
 
-def run_ms(fn, warmup: int = 5, runs: int = 50) -> float:
+def cold_sets(args, read_bytes: int, min_bytes: int = COLD_BYTES) -> list:
+    """``args``, a call's tensor arguments, and copies of them: enough sets
+    that a rotation through them reads more than ``min_bytes`` (each call
+    ``read_bytes``) before it comes back to a set, so that every call finds
+    its inputs in device memory and not in the L2 cache. The first set is
+    ``args`` itself; there are at least two."""
+    n = max(2, min_bytes // max(1, read_bytes) + 1)
+    return [tuple(args)] + [tuple(a.clone() for a in args)
+                            for _ in range(n - 1)]
+
+
+def run_ms(fn, warmup: int = 5, runs: int = 50, sets=None) -> float:
     """Time of one call of ``fn`` in a run of ``runs`` calls back to back
     between two CUDA events, over the count: the host's launch work
     overlaps the card's, as in the train step, where :func:`cuda_ms` adds
-    it to every call."""
-    for _ in range(warmup):
-        fn()
+    it to every call. With ``sets`` (:func:`cold_sets`), call k, warm-up
+    included, takes the arguments ``sets[k % len(sets)]``; without, ``fn``
+    takes none and reads the same buffers every call."""
+    sets = sets or [()]
+    for k in range(warmup):
+        fn(*sets[k % len(sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(runs):
-        fn()
+    for k in range(warmup, warmup + runs):
+        fn(*sets[k % len(sets)])
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / runs
 
 
-def in_turns(order, warmup: int = 5, runs: int = 50) -> dict:
+def graph_ms(fn, sets, runs: int = 50) -> float:
+    """Device time of one call of ``fn``: ``runs`` calls, call k taking
+    ``sets[k % len(sets)]``, captured in one CUDA graph and replayed
+    between two CUDA events, over the count. The host's launch work, which
+    :func:`run_ms` overlaps but cannot hide when a call's device work is
+    shorter than its host work, is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # capture wants a warmed-up side stream
+        for k in range(3):
+            fn(*sets[k % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a wrapper sets its kernel's shared-memory attribute per launch
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for k in range(runs):
+            fn(*sets[k % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def in_turns(order, warmup: int = 5, runs: int = 50, sets=None) -> dict:
     """Time the calls of ``order``, a list of (name, fn) in the order to
     run them (plain, kernel, kernel, plain), each reading a run of ``runs``
-    back-to-back calls (:func:`run_ms`); returns {name: [reading, ...]} in
-    run order."""
+    back-to-back calls (:func:`run_ms`, through ``sets`` when given);
+    returns {name: [reading, ...]} in run order."""
     out: dict = {}
     for name, fn in order:
-        out.setdefault(name, []).append(run_ms(fn, warmup, runs))
+        out.setdefault(name, []).append(run_ms(fn, warmup, runs, sets))
     return out
 
 
@@ -260,7 +310,9 @@ def _bound(features, bbox, out_hw):
     """Least time for this run's data: the input values with a non-zero
     weight, the boxes and the output, in the features' element size, over
     the memory rate; two flops a tap over the float32 rate (the kernel's
-    arithmetic in either type). Returns (bound_ms, bound_by, dense_ms)."""
+    arithmetic in either type). Returns (bound_ms, bound_by, dense_ms,
+    read_bytes): dense_ms reads every input value, read_bytes is what the
+    bound reads."""
     b, o, c, hi, wi = features.shape
     es = features.element_size()
     wy, wx = place_weights(bbox.reshape(b * o, 4), out_hw, (hi, wi))
@@ -275,7 +327,7 @@ def _bound(features, bbox, out_hw):
     dense_ms = (features.numel() * es + bbox.numel() * 4 + out_bytes) \
         / HBM_BYTES_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"), dense_ms
+                                   else "operations"), dense_ms, read
 
 
 def phase_kernel():
@@ -296,54 +348,119 @@ def phase_kernel():
                             -1).astype(np.float32)
         elif kind == "train":         # the train step's boxes
             bbox = _train_boxes(b, int(rs.randint(1 << 30)))
+        elif kind == "wide":          # wider than the canvas, any place
+            bbox = _grad_boxes(rs, b, o, "wide")
         return (torch.from_numpy(feats).to(dev),
                 torch.from_numpy(bbox).to(dev))
 
-    cases = [
-        ("generator path", (64, 3, 256, (16, 16), "service")),
-        ("train step, G", (STEP_BATCH, 3, 256, (16, 16), "train")),
-        ("train step, D, 15x15", (STEP_BATCH, 3, 128, (15, 15), "train")),
-        ("padded objects", (64, 3, 256, (16, 16), "padded")),
-        ("boxes partly off the canvas", (64, 3, 256, (16, 16), "off-canvas")),
-        ("odd channel count", (64, 3, 37, (16, 16), "service")),
-        ("batch of one", (1, 3, 256, (16, 16), "service")),
-        ("15x15 maps onto the 16x16 canvas", (64, 3, 128, (15, 15), "service")),
-    ]
+    cases = [  # (label, (B, O, C, input side, boxes), output side)
+        ("generator path", (64, 3, 256, (16, 16), "service"), 16),
+        ("train step, G", (STEP_BATCH, 3, 256, (16, 16), "train"), 16),
+        ("train step, D, 15x15", (STEP_BATCH, 3, 128, (15, 15), "train"), 16),
+        ("padded objects", (64, 3, 256, (16, 16), "padded"), 16),
+        ("boxes partly off the canvas", (64, 3, 256, (16, 16), "off-canvas"),
+         16),
+        ("odd channel count", (64, 3, 37, (16, 16), "service"), 16),
+        ("batch of one", (1, 3, 256, (16, 16), "service"), 16),
+        ("15x15 maps onto the 16x16 canvas", (64, 3, 128, (15, 15), "service"),
+         16),
+        ("boxes wider than the canvas", (STEP_BATCH, 3, 256, (16, 16), "wide"),
+         16),
+        ("boxes wider than the canvas, 15x15",
+         (STEP_BATCH, 3, 128, (15, 15), "wide"), 16),
+    ] + K1_TILE_EDGES
     worst = 0.0
     timed = {}
-    for label, (b, o, c, hw, kind) in cases:
+    for label, (b, o, c, hw, kind), side in cases:
         feats, bbox = case(b, o, c, hw, kind)
-        got = k1.stn_place_multi_nchw(feats, bbox, (16, 16))
-        want = k1.stn_place_multi_plain(feats, bbox, (16, 16))
+        got = k1.stn_place_multi_nchw(feats, bbox, (side, side))
+        want = k1.stn_place_multi_plain(feats, bbox, (side, side))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"  {label}: {tuple(feats.shape)} -> (16, 16): max |kernel - "
-            f"plain| = {err:.3e} (atol {KERNEL_ATOL:g})")
+        log(f"  {label}: {tuple(feats.shape)} -> {(side, side)}: max |kernel "
+            f"- plain| = {err:.3e} (atol {KERNEL_ATOL:g}); tile "
+            f"{k1.place_tile(hw, (side, side))}")
         check(err <= KERNEL_ATOL, f"K1 disagrees with its plain version "
               f"({label}): {err:.3e} > {KERNEL_ATOL:g}")
         if kind == "padded":
             check(int(torch.count_nonzero(got[::2])) == 0,
                   "padded items must place exact zeros")
-        if kind in ("service", "train") and c != 37 and b > 1:
+        if kind in ("service", "train") and c != 37 and b > 1 and side == 16:
             timed.setdefault(f"{kind} {hw[0]}", (feats, bbox))
+    check_side_limit(dev, torch.float32)
 
     out = {"max_abs_err": worst}
     for path, key in (("serve", "service 16"), ("train G", "train 16"),
                       ("train D", "train 15")):
         feats, bbox = timed[key]
-        ms = cuda_ms(lambda: k1.stn_place_multi_nchw(feats, bbox, (16, 16)))
-        plain_ms = cuda_ms(
-            lambda: k1.stn_place_multi_plain(feats, bbox, (16, 16)))
-        bound_ms, bound_by, dense_ms = _bound(feats, bbox, (16, 16))
-        log(f"K1 at the {path} shape {tuple(feats.shape)} -> (16, 16), CUDA "
-            f"events, median of 50: {ms:.4f} ms; plain version "
-            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, this "
-            f"run's boxes; {dense_ms:.4f} ms if every input value were "
-            f"read); {bound_ms / ms:.1%} of the bound")
-        out[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "dense_bound_ms": dense_ms}
+        out[path] = time_place(feats, bbox, f"K1 at the {path} shape")
     return out
+
+
+# K1 at the sides of Stage 2's places (label, (B, O, C, input side, boxes),
+# output side), where its channel tile halves to 4 and to 1
+K1_TILE_EDGES = [
+    ("32x32 onto 32x32", (8, 3, 64, (32, 32), "service"), 32),
+    ("64x64 onto 64x64", (4, 3, 32, (64, 64), "service"), 64),
+]
+
+
+def check_side_limit(dev, dtype):
+    """K1 refuses a side above MAX_SIDE (64) with a ValueError before it
+    launches anything."""
+    before = k1.launch_count()
+    for in_side, out_side in ((65, 16), (16, 65)):
+        feats = torch.zeros((1, 3, 4, in_side, in_side), device=dev,
+                            dtype=dtype)
+        bbox = torch.full((1, 3, 4), 0.25, device=dev)
+        try:
+            k1.stn_place_multi_nchw(feats, bbox, (out_side, out_side))
+        except ValueError as e:
+            log(f"  side {max(in_side, out_side)} ({in_side} -> {out_side}), "
+                f"{str(dtype)[6:]}: refused ({e})")
+        else:
+            check(False, f"K1 took a side of {max(in_side, out_side)}")
+    check(k1.launch_count() == before, "a refused call launched K1")
+
+
+def time_place(feats, bbox, label):
+    """K1 and its plain version timed cold in turns (plain, kernel, kernel,
+    plain), each reading a run of 50 calls (:func:`run_ms`) on a rotation
+    of input copies that finds every call's inputs in device memory
+    (:func:`cold_sets`), beside the bound for this run's boxes and the rate
+    it implies."""
+    bound_ms, bound_by, dense_ms, read = _bound(feats, bbox, (16, 16))
+    sets = cold_sets((feats, bbox), read)
+
+    def kernel(f, bb):
+        return k1.stn_place_multi_nchw(f, bb, (16, 16))
+
+    def plain(f, bb):
+        return k1.stn_place_multi_plain(f, bb, (16, 16))
+
+    t = in_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
+                  ("plain", plain)], sets=sets)
+    ms, plain_ms = statistics.mean(t["kernel"]), statistics.mean(t["plain"])
+    dev_ms = graph_ms(kernel, sets)
+    gbps = bound_ms / ms * HBM_BYTES_PER_S / 1e9 if bound_by == "bytes" \
+        else float("nan")
+    log(f"{label} {tuple(feats.shape)} -> (16, 16) {str(feats.dtype)[6:]}, "
+        f"cold in turns (plain, K1, K1, plain; CUDA events around 50 calls "
+        f"back to back each, rotating over {len(sets)} copies of the "
+        f"inputs): K1 {t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms; plain "
+        f"{t['plain'][0]:.4f}, {t['plain'][1]:.4f} ms; bound {bound_ms:.4f} "
+        f"ms ({bound_by}, this run's boxes; {dense_ms:.4f} ms if every input "
+        f"value were read); {gbps:.0f} GB/s of the bytes it needs, "
+        f"{bound_ms / ms:.1%} of the bound; on the device alone (the same "
+        f"calls in a CUDA graph) {dev_ms:.4f} ms, {bound_ms / dev_ms:.1%} of "
+        f"the bound")
+    return {"ms": ms, "ms_turns": t["kernel"], "plain_ms": plain_ms,
+            "plain_ms_turns": t["plain"], "graph_ms": dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "dense_bound_ms": dense_ms, "share_of_bound": bound_ms / ms,
+            "graph_share_of_bound": bound_ms / dev_ms, "gb_per_s": gbps,
+            "input_sets": len(sets)}
 
 
 def phase_model():
@@ -543,8 +660,9 @@ def _grad_bound(g, bbox, in_hw):
     """Least time of K2 for this run's data: the gradient values some
     object's weights touch, the boxes, and the whole output over the
     memory rate, in the gradient's element size; two flops a tap over the
-    float32 rate. Returns (bound_ms, bound_by, dense_ms), dense_ms reading
-    every gradient value."""
+    float32 rate. Returns (bound_ms, bound_by, dense_ms, read_bytes),
+    dense_ms reading every gradient value, read_bytes what the bound
+    reads."""
     b, c, ho, wo = g.shape
     o = bbox.shape[1]
     es = g.element_size()
@@ -560,7 +678,7 @@ def _grad_bound(g, bbox, in_hw):
     dense_ms = (g.numel() * es + bbox.numel() * 4 + out_bytes) \
         / HBM_BYTES_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"), dense_ms
+                                   else "operations"), dense_ms, read
 
 
 def phase_grad_kernel():
@@ -611,37 +729,53 @@ def phase_grad_kernel():
 
 
 def time_grad(g, bbox, hw, label):
-    """K2 and its plain version timed in turns (plain, kernel, kernel,
-    plain), each reading a run of 50 calls (:func:`run_ms`), and K2 a call
-    at a time (:func:`cuda_ms`), beside the bound for this run's boxes and
-    the rate it implies."""
-    def kernel():
-        return k1.stn_place_multi_grad_nchw(g, bbox, hw)
+    """K2 and its plain version timed cold in turns (plain, kernel, kernel,
+    plain), each reading a run of 50 calls (:func:`run_ms`) on a rotation
+    of gradient copies (:func:`cold_sets`); beside them the same turns on
+    one set of buffers (warm, partly in L2, the method of earlier
+    readings), K2 a call at a time (:func:`cuda_ms`), the bound for this
+    run's boxes and the rate it implies."""
+    def kernel(gg=g, bb=bbox):
+        return k1.stn_place_multi_grad_nchw(gg, bb, hw)
 
-    def plain():
-        return k1.stn_place_multi_grad_plain(g, bbox, hw)
+    def plain(gg=g, bb=bbox):
+        return k1.stn_place_multi_grad_plain(gg, bb, hw)
 
-    t = in_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
-                  ("plain", plain)])
+    order = [("plain", plain), ("kernel", kernel), ("kernel", kernel),
+             ("plain", plain)]
+    bound_ms, bound_by, dense_ms, read = _grad_bound(g, bbox, hw)
+    sets = cold_sets((g, bbox), read)
+    t = in_turns(order, sets=sets)
+    warm = in_turns(order)
     ms, plain_ms = statistics.mean(t["kernel"]), statistics.mean(t["plain"])
+    warm_ms = statistics.mean(warm["kernel"])
+    dev_ms = graph_ms(kernel, sets)
     call_ms = cuda_ms(kernel)
-    bound_ms, bound_by, dense_ms = _grad_bound(g, bbox, hw)
     gbps = bound_ms / ms * HBM_BYTES_PER_S / 1e9 if bound_by == "bytes" \
         else float("nan")
     out_shape = (g.shape[0], bbox.shape[1], g.shape[1]) + tuple(hw)
-    log(f"{label} {tuple(g.shape)} -> {out_shape} {str(g.dtype)[6:]}, in "
-        f"turns (plain, K2, K2, plain; CUDA events around 50 calls back to "
-        f"back each): K2 {t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms "
-        f"({call_ms:.4f} ms a call timed alone, median of 50); plain "
-        f"{t['plain'][0]:.4f}, {t['plain'][1]:.4f} ms; bound "
+    log(f"{label} {tuple(g.shape)} -> {out_shape} {str(g.dtype)[6:]}, cold "
+        f"in turns (plain, K2, K2, plain; CUDA events around 50 calls back "
+        f"to back each, rotating over {len(sets)} copies of the inputs): K2 "
+        f"{t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms; plain "
+        f"{t['plain'][0]:.4f}, {t['plain'][1]:.4f} ms; warm (one set of "
+        f"buffers): K2 {warm['kernel'][0]:.4f}, {warm['kernel'][1]:.4f} ms, "
+        f"plain {warm['plain'][0]:.4f}, {warm['plain'][1]:.4f} ms; "
+        f"{call_ms:.4f} ms a call timed alone (median of 50); bound "
         f"{bound_ms:.4f} ms ({bound_by}, this run's boxes; {dense_ms:.4f} ms "
         f"if every gradient value were read); {gbps:.0f} GB/s of the bytes "
-        f"it needs, {bound_ms / ms:.1%} of the bound")
-    return {"ms": ms, "ms_turns": t["kernel"], "call_ms": call_ms,
-            "plain_ms": plain_ms,
-            "plain_ms_turns": t["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "dense_bound_ms": dense_ms,
-            "share_of_bound": bound_ms / ms}
+        f"it needs, {bound_ms / ms:.1%} of the bound cold, "
+        f"{bound_ms / warm_ms:.1%} warm; on the device alone (the cold calls "
+        f"in a CUDA graph) {dev_ms:.4f} ms, {bound_ms / dev_ms:.1%} of the "
+        f"bound")
+    return {"ms": ms, "ms_turns": t["kernel"], "plain_ms": plain_ms,
+            "plain_ms_turns": t["plain"], "graph_ms": dev_ms,
+            "graph_share_of_bound": bound_ms / dev_ms, "warm_ms": warm_ms,
+            "warm_ms_turns": warm["kernel"],
+            "warm_plain_ms": statistics.mean(warm["plain"]),
+            "call_ms": call_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "dense_bound_ms": dense_ms, "share_of_bound": bound_ms / ms,
+            "gb_per_s": gbps, "input_sets": len(sets)}
 
 
 def _f1_gradient(device, z, bbox, labels, weight):
@@ -1050,28 +1184,31 @@ def phase_bf16_kernels():
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
-    cases = [  # (label, timed as, B, C, input side, boxes)
-        ("serve", "serve", 64, 256, 16, "service"),
-        ("train G", "train G", STEP_BATCH, 256, 16, "train"),
-        ("train D, 15x15", "train D", STEP_BATCH, 128, 15, "train"),
-        ("padded objects", None, STEP_BATCH, 256, 16, "padded"),
+    cases = [  # (label, timed as, B, C, input side, boxes, output side)
+        ("serve", "serve", 64, 256, 16, "service", 16),
+        ("train G", "train G", STEP_BATCH, 256, 16, "train", 16),
+        ("train D, 15x15", "train D", STEP_BATCH, 128, 15, "train", 16),
+        ("padded objects", None, STEP_BATCH, 256, 16, "padded", 16),
         ("boxes partly off the canvas", None, STEP_BATCH, 256, 16,
-         "off-canvas"),
-        ("boxes wider than the canvas", None, STEP_BATCH, 256, 16, "wide"),
+         "off-canvas", 16),
+        ("boxes wider than the canvas", None, STEP_BATCH, 256, 16, "wide", 16),
         ("boxes wider than the canvas, 15x15", None, STEP_BATCH, 128, 15,
-         "wide"),
-    ]
+         "wide", 16),
+        ("37 channels, a tile of 16 and one of 5", None, 64, 37, 16, "train",
+         16),
+    ] + [(label, None, b, c, hw[0], kind, side)
+         for label, (b, _, c, hw, kind), side in K1_TILE_EDGES]
     out = {"place": {"max_abs_err": 0.0}, "grad": {"max_abs_err": 0.0}}
-    for label, timed, b, c, side, kind in cases:
+    for label, timed, b, c, side, kind, out_side in cases:
         hw = (side, side)
         bbox = torch.from_numpy(_boxes(rs, b, 3, kind)).to(dev)
         feats = torch.from_numpy(rs.randn(b, 3, c, side, side).astype(
             np.float32)).to(dev).bfloat16()
-        g = torch.from_numpy(rs.uniform(-1, 1, (b, c, 16, 16)).astype(
-            np.float32)).to(dev).bfloat16()
+        g = torch.from_numpy(rs.uniform(-1, 1, (b, c, out_side, out_side))
+                             .astype(np.float32)).to(dev).bfloat16()
         for kernel, run, plain, arg, hw_arg in (
                 ("place", k1.stn_place_multi_nchw, k1.stn_place_multi_plain,
-                 feats, (16, 16)),
+                 feats, (out_side, out_side)),
                 ("grad", k1.stn_place_multi_grad_nchw,
                  k1.stn_place_multi_grad_plain, g, hw)):
             got = run(arg, bbox, hw_arg)
@@ -1098,17 +1235,9 @@ def phase_bf16_kernels():
                 out[kernel][timed] = time_grad(arg, bbox, hw,
                                                f"K2 bf16 at the {timed} shape")
                 continue
-            ms = cuda_ms(lambda: run(arg, bbox, hw_arg))
-            plain_ms = cuda_ms(lambda: plain(arg, bbox, hw_arg))
-            bound_ms, bound_by, dense_ms = _bound(arg, bbox, (16, 16))
-            log(f"{name} bf16 at the {timed} shape {tuple(arg.shape)}, CUDA "
-                f"events, median of 50: {ms:.4f} ms; plain version "
-                f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
-                f"this run's boxes; {dense_ms:.4f} ms dense); "
-                f"{bound_ms / ms:.1%} of the bound")
-            out[kernel][timed] = {"ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                  "dense_bound_ms": dense_ms}
+            out[kernel][timed] = time_place(arg, bbox,
+                                            f"K1 bf16 at the {timed} shape")
+    check_side_limit(dev, torch.bfloat16)
     return out
 
 
@@ -1260,6 +1389,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "stn_place_multi", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:79",
+        "redesigned": "PR 9",
         **launches(0),
         "max_abs_err": place["max_abs_err"],
         **place["serve"],

@@ -18,12 +18,15 @@ result is rounded once, and the plain versions round alike. The boxes are
 float32 in either type. Their bound on the card is bytes: each input value
 they need is read once and each output written once, with a few operations
 per byte.
-K1 is one block per (batch, channel) output plane, each output value a sum
-over objects of a 2x2-tap bilinear gather. K2 is a gather too, one block
-per (batch, tile of channels) with the tile sized by :func:`grad_tile`:
-weight tables built once a block, the tile's gradient planes staged in
-shared memory, then two separable passes per object over the tap ranges
-the block derives from the weights.
+Both are one block per (batch, tile of channels), with the tile sized
+from the map sides (:func:`place_tile`, :func:`grad_tile`; 16 channels at
+the model's shapes) and every side at most :data:`MAX_SIDE`; each block
+builds its weight tables once in shared memory. K1 reads only the input
+rows that have taps (16-byte ``cp.async`` copies, every object's rows in
+flight at once), adds the values inside each object's box to the tile's
+sums in shared memory, and writes them with 16-byte stores. K2 stages the
+tile's gradient planes in shared memory, then runs two separable passes
+per object over the tap ranges the block derives from the weights.
 
 :func:`stn_place_multi_nchw` is the entry the model calls. It always goes
 through :class:`StnPlaceMulti`, so on either device its output has a
@@ -46,10 +49,15 @@ from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 
 MAX_OBJECTS = 16    # csrc/stn_place.cu:kMaxObjects
-MAX_GRAD_SIDE = 64  # csrc/stn_place.cu:kMaxSide, K2's largest map side
+MAX_SIDE = 64       # csrc/stn_place.cu:kMaxSide, K1's and K2's largest side
 GRAD_TILE = 16      # K2's channels a block where the planes fit
 GRAD_TILE_BYTES = 48 * 1024  # shared memory for a tile's planes, at most
 MAX_GRAD_SMEM = 232448 - MAX_OBJECTS * 16  # csrc/stn_place.cu:kMaxGradSmem
+PLACE_TILE = 16     # K1's channels a block where the planes fit
+PLACE_STAGES = 3    # csrc/stn_place.cu:kStages, objects staged at once
+# K1's output sums and float32 staging buffers for a tile, at most
+PLACE_TILE_BYTES = 96 * 1024
+MAX_PLACE_SMEM = 232448     # csrc/stn_place.cu:kMaxPlaceSmem
 # the element types the kernels take, and their C entries' suffixes
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -133,6 +141,45 @@ def stn_place_multi_grad_plain(grad: torch.Tensor, bbox: torch.Tensor,
 # ------------------------------------------------------------------ kernels
 
 
+def _stage_elems(tile: int, in_hw, elem_size: int) -> int:
+    """K1's staging buffer for one object, in elements: the tile's input
+    planes rounded up to 16-byte chunks, and one chunk to spare
+    (csrc/stn_place.cu:place_stage_elems)."""
+    v = 16 // elem_size
+    return -(-tile * in_hw[0] * in_hw[1] // v) * v + v
+
+
+def place_smem_bytes(n_objects: int, tile: int, in_hw, out_hw,
+                     elem_size: int) -> int:
+    """K1's dynamic shared memory for a tile of channels in elements of
+    ``elem_size`` bytes: every object's tables in 16-byte entries (each
+    output row's and column's taps, the object's span and meta), the
+    tile's output sums in float32 (rounded up to 16 bytes), a staging
+    buffer for each of up to PLACE_STAGES objects, and each object's list
+    of input rows with taps (csrc/stn_place.cu:place_smem_bytes)."""
+    (hi, _), (ho, wo) = in_hw, out_hw
+    return (16 * n_objects * (ho + wo + 2)
+            + 4 * (-(-tile * ho * wo // 4) * 4)
+            + min(n_objects, PLACE_STAGES) * _stage_elems(tile, in_hw,
+                                                          elem_size)
+            * elem_size
+            + 4 * n_objects * hi)
+
+
+def place_tile(in_hw, out_hw) -> int:
+    """K1's channels a block: PLACE_TILE, halved until the tile's output
+    sums and its PLACE_STAGES staging buffers, in float32, fit in
+    PLACE_TILE_BYTES (16 at 16x16 and 15x15, 4 at 32x32, 1 at 64x64). The
+    block's whole shared memory then stays within MAX_PLACE_SMEM for every
+    side up to MAX_SIDE, 1..MAX_OBJECTS objects and either element type."""
+    ho, wo = out_hw
+    tile = PLACE_TILE
+    while tile > 1 and 4 * tile * ho * wo + PLACE_STAGES * 4 * _stage_elems(
+            tile, in_hw, 4) > PLACE_TILE_BYTES:
+        tile //= 2
+    return tile
+
+
 def grad_smem_bytes(n_objects: int, tile: int, in_hw, out_hw) -> int:
     """K2's dynamic shared memory for a tile of channels: the tile's
     gradient planes, one object's row sums T and its output planes in
@@ -147,12 +194,18 @@ def grad_tile(in_hw, out_hw) -> int:
     """K2's channels a block: GRAD_TILE, halved until the tile's planes
     fit in GRAD_TILE_BYTES (16 at the train step's shapes, 1 at 64 a
     side). The block's whole shared memory, tables included, then stays
-    within MAX_GRAD_SMEM for every side up to MAX_GRAD_SIDE."""
+    within MAX_GRAD_SMEM for every side up to MAX_SIDE."""
     tile = GRAD_TILE
     while tile > 1 and grad_smem_bytes(0, tile, in_hw, out_hw) \
             > GRAD_TILE_BYTES:
         tile //= 2
     return tile
+
+
+def _check_sides(in_hw, out_hw, name: str) -> None:
+    if max(*in_hw, *out_hw) > MAX_SIDE:
+        raise ValueError(f"{name} takes maps of at most {MAX_SIDE} a side, "
+                         f"got {tuple(in_hw)} and {tuple(out_hw)}")
 
 
 def _check(x: torch.Tensor, bbox: torch.Tensor, n_objects: int,
@@ -219,11 +272,13 @@ def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
     b, o, c, hi, wi = features.shape
     ho, wo = (int(v) for v in out_hw)
     _check(features, bbox, o, (hi, wi, ho, wo))
+    _check_sides((hi, wi), (ho, wo), "K1")
     out = torch.empty((b, c, ho, wo), dtype=features.dtype,
                       device=features.device)
     _launch(f"stn_place_multi_{_SUFFIX[features.dtype]}", "place",
             (features.data_ptr(), bbox.data_ptr(), out.data_ptr(),
-             b, o, c, hi, wi, ho, wo), features.device)
+             b, o, c, hi, wi, ho, wo, place_tile((hi, wi), (ho, wo))),
+            features.device)
     return out
 
 
@@ -251,9 +306,7 @@ def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
     o = bbox.shape[1]
     hi, wi = (int(v) for v in in_hw)
     _check(grad, bbox, o, (hi, wi, ho, wo))
-    if max(hi, wi, ho, wo) > MAX_GRAD_SIDE:
-        raise ValueError(f"K2 takes maps of at most {MAX_GRAD_SIDE} a side, "
-                         f"got {(hi, wi)} <- {(ho, wo)}")
+    _check_sides((hi, wi), (ho, wo), "K2")
     out = torch.empty((b, o, c, hi, wi), dtype=grad.dtype,
                       device=grad.device)
     _launch(f"stn_place_multi_grad_{_SUFFIX[grad.dtype]}", "grad",

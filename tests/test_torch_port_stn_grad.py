@@ -270,14 +270,14 @@ def test_k2_box_algorithm_matches_the_plain_version(in_hw, kind):
 
 def test_k2_tile_fits_shared_memory_at_every_side():
     """The wrapper's channel tile keeps K2's shared memory within the
-    block's 227 KB for every side up to MAX_GRAD_SIDE and 1..MAX_OBJECTS
+    block's 227 KB for every side up to MAX_SIDE and 1..MAX_OBJECTS
     objects, and is 16 channels at the train step's shapes."""
     m = stn_place_cuda
     assert m.grad_tile((16, 16), (16, 16)) == 16
     assert m.grad_tile((15, 15), (16, 16)) == 16
     worst = 0
-    for side_in in range(1, m.MAX_GRAD_SIDE + 1):
-        for side_out in (1, side_in, m.MAX_GRAD_SIDE):
+    for side_in in range(1, m.MAX_SIDE + 1):
+        for side_out in (1, side_in, m.MAX_SIDE):
             for objects in (1, m.MAX_OBJECTS):
                 hw_in, hw_out = (side_in, side_in), (side_out, side_out)
                 tile = m.grad_tile(hw_in, hw_out)
