@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repository root, on a machine with a CUDA card, nvcc and the
-checkpoint runs_r5/mnist_repin/netG_final.pth. Phases, each logged with the
-elapsed time:
+checkpoint runs_r5/mnist_repin/netG_final.pth. Phases 1-15 drive the
+Multi-MNIST paths, 16-20 the CLEVR and COCO-StackGAN-1 families at the
+widths of cfg/clevr_train.yml and cfg/coco_s1_train.yml, from seeded
+weights. Phases, each logged with the elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds csrc/stn_place.cu and csrc/normconv.cu for
@@ -61,7 +63,29 @@ elapsed time:
                 float32 time, and its K1 and K2 launches per step;
  15. entry16  - the train entry for one epoch with --bf16 and one with
                 --bn_groups 2, and one 64-item request served with --bf16
-                against the card's float32 image of it.
+                against the card's float32 image of it;
+ 16. families - K1 and K2 against their plain versions, float32 and bf16,
+                at the families' G and D shapes (clevr (128,4,192,16x16),
+                (128,4,96,15x15); coco (128,3,384,16x16), (128,3,192,15x15))
+                on their train boxes, with a padded fourth object (K1 equal
+                bit for bit to the first three alone, K2 zeros), boxes
+                off the canvas, and K1 at the service's batch of 64 with
+                its boxes; their shared memory at four objects; each
+                train shape timed cold in turns and on the device alone
+                (time_place, time_grad);
+ 17. fstep    - one full-width float32 train step of each family on the
+                card against the same step on the CPU (FAMILY_STEP_BATCH),
+                held at phase 8's limits, kl_loss included for coco;
+ 18. ftime    - each family's train step at batch 128, float32 and bf16:
+                median of FAMILY_TIME_RUNS CUDA-event readings, peak
+                memory, K1 and K2 launches per step;
+ 19. fentry   - the train entry for one synthetic epoch of clevr (float32)
+                and of coco-stackgan-1 (--bf16), with K1, K2 and K4 launches;
+ 20. fserve   - each family's Stage1G card against CPU at batch 64, and its
+                service over HTTP on the card (clevr: four two-hot objects;
+                coco: text embeddings), the served PNGs against the CPU
+                generator's images of the same items and z, and a bad item
+                answered 400.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -91,7 +115,10 @@ import torch
 from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, _item_layout, _png_b64, build_service, serve)
-from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_multimnist
+from multiple_objects_gan_tpu_torch.config.config import (
+    cfg_from_file, stage1_model_config, train_settings)
+from multiple_objects_gan_tpu_torch.data.synthetic import (
+    synthetic_clevr, synthetic_coco, synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
@@ -102,6 +129,7 @@ from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import spike_normconv
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import make_train_step
+from multiple_objects_gan_tpu_torch.utils.images import to_uint8
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -117,6 +145,7 @@ STATS_ATOL = 5e-4
 MIN_GRAD_COSINE = 0.995     # per tensor, card vs CPU (PERF.md: >= 0.9984 read)
 STEP_BATCH = 128            # cfg/mnist_train.yml TRAIN.BATCH_SIZE
 LR = 2e-4
+KL_COEFF = 2.0              # cfg/coco_s1_train.yml TRAIN.COEFF.KL
 DEVICE = "cuda"
 BF16 = dataclasses.replace(MNIST, compute_dtype=torch.bfloat16)
 BF16_ULPS = 1               # a bf16 kernel against its plain version: ulps
@@ -141,6 +170,13 @@ MAX_BF16_SERVE_MEAN_DIFF = 0.05  # bf16 served image vs float32, [-1, 1]
 COLD_BYTES = 100 * 2**20    # twice the card's 50 MB L2: K1 and K2 are timed
                             # on a rotation of inputs that reads more than
                             # this before it reuses one (cold_sets)
+# the CLEVR and COCO-StackGAN stage-1 families (phases 16-20), at the
+# published widths of their train cfgs
+FAMILY_CFGS = {"clevr": os.path.join(ROOT, "cfg", "clevr_train.yml"),
+               "coco-stackgan-1": os.path.join(ROOT, "cfg",
+                                               "coco_s1_train.yml")}
+FAMILY_STEP_BATCH = STEP_BATCH  # the family steps card vs CPU (phase 17)
+FAMILY_TIME_RUNS = 20           # CUDA-event readings a family step time
 
 
 def log(msg: str) -> None:
@@ -268,7 +304,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/15 device")
+    log("phase 1/20 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -286,7 +322,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/15 build")
+    log("phase 2/20 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -331,7 +367,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/15 kernel against its plain version, on the card")
+    log("phase 3/20 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -464,7 +500,7 @@ def time_place(feats, bbox, label):
 
 
 def phase_model():
-    log("phase 4/15 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/20 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -503,24 +539,29 @@ def phase_model():
     return fwd_ms
 
 
-def _png_gray64(b64: str):
+def _png_gray64(b64: str, channels: int = 1):
     """Decode a served PNG without an imaging library: signature, IHDR of
-    a 64x64 8-bit grayscale image, IDAT rows of filter type 0."""
+    a 64x64 8-bit grayscale (or, with 3 ``channels``, RGB) image, IDAT
+    rows of filter type 0. Returns (64, 64) or (64, 64, 3) uint8."""
     raw = base64.b64decode(b64)
     check(raw[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
     length, kind = struct.unpack(">I4s", raw[8:16])
     check(kind == b"IHDR" and length == 13, "IHDR chunk")
-    check(struct.unpack(">IIBBBBB", raw[16:29]) == (64, 64, 8, 0, 0, 0, 0),
-          "IHDR: 64x64, 8-bit grayscale")
+    color_type = 0 if channels == 1 else 2
+    check(struct.unpack(">IIBBBBB", raw[16:29])
+          == (64, 64, 8, color_type, 0, 0, 0),
+          f"IHDR: 64x64, 8-bit, colour type {color_type}")
     pos, data = 33, b""
     while pos < len(raw):
         length, kind = struct.unpack(">I4s", raw[pos:pos + 8])
         if kind == b"IDAT":
             data += raw[pos + 8:pos + 8 + length]
         pos += 12 + length
-    rows = np.frombuffer(zlib.decompress(data), np.uint8).reshape(64, 65)
+    rows = np.frombuffer(zlib.decompress(data), np.uint8).reshape(
+        64, 64 * channels + 1)
     check(not rows[:, 0].any(), "PNG row filters")
-    return rows[:, 1:]
+    img = rows[:, 1:]
+    return img if channels == 1 else img.reshape(64, 64, 3)
 
 
 def _separation(u8, boxes) -> float:
@@ -535,7 +576,7 @@ def _separation(u8, boxes) -> float:
 
 
 def phase_serve():
-    log("phase 5/15 serve: the port's main path over HTTP, on the card")
+    log("phase 5/20 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -682,7 +723,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/15 grad: K2 (place backward) against its plain version, "
+    log("phase 6/20 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -789,7 +830,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/15 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/20 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -858,9 +899,10 @@ def randomize(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
-def step_once(device, data, z, cfg=MNIST, randomized=False):
+def step_once(device, data, z, cfg=MNIST, randomized=False, eps=None):
     """One train step on ``device`` from the reference init (seed 0), or
-    from the weights of tests/test_step_parity.py when ``randomized``.
+    from the weights of tests/test_step_parity.py when ``randomized``;
+    ``eps`` is the CA net's noise (coco-stackgan-1), KL x ``KL_COEFF``.
     Returns its losses, the state dicts before and after, the gradients,
     and the step's host time."""
     state = create_state(cfg, seed=0, device=device)
@@ -872,8 +914,9 @@ def step_once(device, data, z, cfg=MNIST, randomized=False):
            for n, m in nets}
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
     t = time.perf_counter()
-    metrics = make_train_step(cfg)(state, batch, None, LR, LR,
-                                   z=torch.from_numpy(z).to(device))
+    metrics = make_train_step(cfg, KL_COEFF)(
+        state, batch, None, LR, LR, z=torch.from_numpy(z).to(device),
+        eps=None if eps is None else torch.from_numpy(eps).to(device))
     metrics = {k: float(v) for k, v in metrics.items()}
     seconds = time.perf_counter() - t
     post = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
@@ -943,7 +986,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/15 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/20 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -977,16 +1020,18 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/15 steptime", runs: int = 20):
+def phase_step_time(cfg=MNIST, phase="9/20 steptime", runs: int = 20,
+                    data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
     log(f"phase {phase}: the train step at batch {STEP_BATCH} on the card, "
         f"{kind}")
     dev = torch.device(DEVICE)
     state = create_state(cfg, seed=0, device=dev)
-    data = {k: torch.from_numpy(v).to(dev)
-            for k, v in synthetic_multimnist(STEP_BATCH, seed=8).items()}
-    step = make_train_step(cfg)
+    if data is None:
+        data = synthetic_multimnist(STEP_BATCH, seed=8)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    step = make_train_step(cfg, KL_COEFF)
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(3):
         step(state, data, gen, LR, LR)
@@ -1007,7 +1052,8 @@ def phase_step_time(cfg=MNIST, phase="9/15 steptime", runs: int = 20):
     check(all(bool(torch.isfinite(v)) for v in metrics.values()),
           "non-finite losses while timing")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"train step at batch {STEP_BATCH}, full width, {kind}: {ms:.2f} ms "
+    log(f"{cfg.variant} train step at batch {STEP_BATCH}, full width, {kind}: "
+        f"{ms:.2f} ms "
         f"(CUDA events, median of {runs}; min {min(times):.2f}, max "
         f"{max(times):.2f}) = {STEP_BATCH * 1e3 / ms:.0f} images/s; peak "
         f"memory {peak:.2f} GiB; launches per step: K1 {per_step[0]:g}, K2 "
@@ -1017,36 +1063,40 @@ def phase_step_time(cfg=MNIST, phase="9/15 steptime", runs: int = 20):
             "peak_gib": peak, "launches_per_step": per_step}
 
 
-def train_entry(flags=()):
-    """cli/main.py for one synthetic epoch on the card with ``flags``;
-    returns its K1, K2 and K4 launches, held at 16, 16 (4 steps) and 0."""
-    cfg = os.path.join(ROOT, "cfg", "mnist_train.yml")
+def train_entry(flags=(), variant="multi-mnist", steps=4):
+    """cli/main.py for one synthetic epoch of ``variant`` on the card with
+    ``flags``; returns its K1, K2 and K4 launches, held at 4 a step, 4 a
+    step and 0."""
+    cfg = FAMILY_CFGS.get(variant, os.path.join(ROOT, "cfg",
+                                                "mnist_train.yml"))
     k1.reset_launch_count()
     k4.reset_launch_count()
-    hist = train_main.main(["--variant", "multi-mnist", "--cfg", cfg,
+    hist = train_main.main(["--variant", variant, "--cfg", cfg,
                             "--synthetic", "--max_epochs", "1",
                             "--manualSeed", "7", "--device", DEVICE,
                             *flags])
     torch.cuda.synchronize()
     launches = (k1.launch_count(), k1.grad_launch_count(), k4.launch_count())
-    check(len(hist) == 1 and hist[0]["steps"] == 4,
-          f"one epoch of 4 steps expected, got {hist}")
+    check(len(hist) == 1 and hist[0]["steps"] == steps,
+          f"one epoch of {steps} steps expected, got {hist}")
     losses = {k: v for k, v in hist[0].items()
               if k not in ("steps", "seconds")}
     check(all(np.isfinite(v) for v in losses.values()),
           f"non-finite losses {losses}")
-    log(f"train entry {' '.join(flags) or '(float32)'}: {hist[0]['steps']} "
+    log(f"train entry {variant} {' '.join(flags) or '(float32)'}: "
+        f"{hist[0]['steps']} "
         f"steps in {hist[0]['seconds']:.2f} s (host clock, first epoch, cuDNN "
         f"set-up included); K1 launches {launches[0]}, K2 launches "
         f"{launches[1]}, K4 launches {launches[2]}; mean losses "
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
-    check(launches == (16, 16, 0),
-          f"K1/K2/K4 launches {launches} != (16, 16, 0) for 4 steps")
+    check(launches == (4 * steps, 4 * steps, 0),
+          f"K1/K2/K4 launches {launches} != {(4 * steps, 4 * steps, 0)} for "
+          f"{steps} steps")
     return launches
 
 
 def phase_train_entry():
-    log("phase 10/15 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/20 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1145,7 +1195,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/15 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/20 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1180,7 +1230,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/15 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/20 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1242,7 +1292,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/15 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/20 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1286,7 +1336,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/15 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/20 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1345,6 +1395,340 @@ def phase_entry_bf16():
     return launches, float(diff.mean())
 
 
+# ---------------------------------------------- CLEVR and COCO-StackGAN-1
+
+
+def family_cfg(variant, dtype=None):
+    """The family's model config at the published widths of its train cfg
+    (clevr: ngf 768, ndf 48, 4 objects; coco-stackgan-1: ngf 1536, ndf 96,
+    the CA net)."""
+    return stage1_model_config(cfg_from_file(FAMILY_CFGS[variant], variant),
+                               variant, compute_dtype=dtype)
+
+
+def family_data(variant, b, seed):
+    """b items of the family's synthetic train set as the train entry
+    draws them (clevr: 2-4 objects, a padded object -1 with its pad
+    one-hots; coco: 1-3 objects), coco's with one caption embedding."""
+    if variant == "clevr":
+        return synthetic_clevr(b, seed=seed)
+    data = synthetic_coco(b, seed=seed)
+    data["text_embedding"] = data["text_embedding"][:, 0].copy()
+    return data
+
+
+def family_shapes(variant):
+    """The family's place shapes on the train step: G (O, ngf // 4, 16x16)
+    and D (O, 2 * ndf, 15x15), each onto 16x16."""
+    mcfg = family_cfg(variant)
+    return {"G": (mcfg.num_objects, mcfg.ngf // 4, (16, 16)),
+            "D": (mcfg.num_objects, 2 * mcfg.df_dim, (15, 15))}
+
+
+def _family_boxes(rs, variant, b, kind):
+    """The family's train boxes; ``padded4``: every item's fourth object
+    padded; ``off-canvas``: boxes that stick out on every side."""
+    o = family_shapes(variant)["G"][0]
+    if kind == "off-canvas":
+        return _grad_boxes(rs, b, o, "off-canvas")
+    if kind == "serve":
+        return _service_boxes(rs, b, o)
+    bbox = family_data(variant, b, int(rs.randint(1 << 30)))["bbox"]
+    if kind == "padded4":
+        bbox[:, 3] = -1.0
+    return bbox
+
+
+def _held(got, want, dtype, name, label):
+    """A kernel against its plain version: KERNEL_ATOL in float32,
+    BF16_ULPS ulps of the largest |value| in bf16. Returns the error."""
+    torch.cuda.synchronize()
+    check(got.dtype == dtype, f"{name} returned {got.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite "
+          f"({label})")
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        limit, unit = KERNEL_ATOL, f"atol {KERNEL_ATOL:g}"
+    else:
+        ulp = _ulp_bf16(want)
+        limit, unit = BF16_ULPS * ulp, (f"{err / ulp:g} bf16 ulp of the "
+                                        f"largest |value|; limit {BF16_ULPS}")
+    log(f"  {name} {label}: max |kernel - plain| = {err:.3e} ({unit})")
+    check(err <= limit, f"{name} disagrees with its plain version ({label})")
+    return err
+
+
+def phase_family_kernels():
+    log("phase 16/20 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+        "shapes against their plain versions, f32 and bf16, and timed")
+    rs = np.random.RandomState(16)
+    dev = torch.device(DEVICE)
+    for o in (3, 4):
+        for es in (4, 2):
+            for hw in ((16, 16), (15, 15)):
+                smem = k1.place_smem_bytes(o, k1.place_tile(hw, (16, 16)),
+                                           hw, (16, 16), es)
+                gsmem = k1.grad_smem_bytes(o, k1.grad_tile(hw, (16, 16)),
+                                           hw, (16, 16))
+                check(smem <= k1.MAX_PLACE_SMEM and gsmem <= k1.MAX_GRAD_SMEM,
+                      f"shared memory at {o} objects, {hw}: K1 {smem}, K2 "
+                      f"{gsmem}")
+    log(f"  shared memory at 4 objects: K1 {k1.place_smem_bytes(4, 16, (16, 16), (16, 16), 4)} "
+        f"B (f32, 16x16), K2 {k1.grad_smem_bytes(4, 16, (16, 16), (16, 16))} B; "
+        f"limits {k1.MAX_PLACE_SMEM}, {k1.MAX_GRAD_SMEM}")
+    cases = [  # (family, path, boxes, batch)
+        ("clevr", "G", "train", STEP_BATCH), ("clevr", "D", "train",
+                                              STEP_BATCH),
+        ("clevr", "G", "padded4", STEP_BATCH),
+        ("clevr", "D", "padded4", STEP_BATCH),
+        ("clevr", "G", "off-canvas", STEP_BATCH),
+        ("clevr", "G", "serve", 64),
+        ("coco-stackgan-1", "G", "train", STEP_BATCH),
+        ("coco-stackgan-1", "D", "train", STEP_BATCH),
+        ("coco-stackgan-1", "G", "off-canvas", STEP_BATCH),
+        ("coco-stackgan-1", "G", "serve", 64)]
+    out = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+           for k in ("place", "grad")}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype)[6:]
+        worst = "max_abs_err" if dtype == torch.float32 else \
+            "max_abs_err_bf16"
+        for variant, path, kind, b in cases:
+            o, c, hw = family_shapes(variant)[path]
+            bbox = torch.from_numpy(_family_boxes(rs, variant, b, kind)).to(dev)
+            feats = torch.from_numpy(rs.randn(b, o, c, *hw).astype(
+                np.float32)).to(dev).to(dtype)
+            g = torch.from_numpy(rs.uniform(-1, 1, (b, c, 16, 16)).astype(
+                np.float32)).to(dev).to(dtype)
+            label = f"{variant} {path} {kind}, {tname}"
+            got = k1.stn_place_multi_nchw(feats, bbox, (16, 16))
+            err = _held(got, k1.stn_place_multi_plain(feats, bbox, (16, 16)),
+                        dtype, "K1", f"{label} {tuple(feats.shape)}")
+            out["place"][worst] = max(out["place"][worst], err)
+            dg = k1.stn_place_multi_grad_nchw(g, bbox, hw)
+            err = _held(dg, k1.stn_place_multi_grad_plain(g, bbox, hw), dtype,
+                        "K2", f"{label} {tuple(g.shape)} -> {tuple(dg.shape)}")
+            out["grad"][worst] = max(out["grad"][worst], err)
+            if kind == "padded4":
+                three = k1.stn_place_multi_nchw(
+                    feats[:, :3].contiguous(), bbox[:, :3].contiguous(),
+                    (16, 16))
+                dg3 = k1.stn_place_multi_grad_nchw(
+                    g, bbox[:, :3].contiguous(), hw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, three), "K1: a padded fourth object "
+                      "changed the sums of the first three")
+                check(int(torch.count_nonzero(dg[:, 3])) == 0
+                      and torch.equal(dg[:, :3], dg3),
+                      "K2: a padded fourth object must get exact zeros")
+                log(f"  {label}: K1 equal bit for bit to the first three "
+                    "objects alone; K2 exact zeros for the fourth")
+            if kind != "train":
+                continue
+            key = f"{variant} {path}"
+            out["place"].setdefault(tname, {})[key] = time_place(
+                feats, bbox, f"K1 {tname} at the {key} shape")
+            out["grad"].setdefault(tname, {})[key] = time_grad(
+                g, bbox, hw, f"K2 {tname} at the {key} shape")
+    return out
+
+
+def phase_family_step():
+    log(f"phase 17/20 fstep: one full-width float32 train step of each "
+        f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
+    worst = {}
+    for variant in FAMILY_CFGS:
+        mcfg = family_cfg(variant)
+        data = family_data(variant, FAMILY_STEP_BATCH, 5)
+        rs = np.random.RandomState(6)
+        z = rs.randn(FAMILY_STEP_BATCH, mcfg.z_dim).astype(np.float32)
+        eps = rs.randn(FAMILY_STEP_BATCH, mcfg.condition_dim).astype(
+            np.float32) if mcfg.use_ca else None
+        cpu = step_once("cpu", data, z, mcfg, eps=eps)
+        card = step_once(DEVICE, data, z, mcfg, eps=eps)
+        bad, worst[variant] = step_disagreements(card, cpu)
+        w = worst[variant]
+        log(f"  {variant} (ngf {mcfg.ngf}, ndf {mcfg.df_dim}, "
+            f"{mcfg.num_objects} objects), from the reference init, batch "
+            f"{FAMILY_STEP_BATCH}: step on the CPU {cpu[4]:.1f} s "
+            f"({torch.get_num_threads()} threads), on the card {card[4]:.2f} "
+            "s (host clock, first call)")
+        for k in sorted(cpu[0]):
+            log(f"    {k}: card {card[0][k]:.6f}, CPU {cpu[0][k]:.6f}")
+        log(f"    worst card vs CPU: loss {w['loss']:.3e} (atol "
+            f"{LOSS_ATOL:g}); BatchNorm running stats {w['stats']:.3e} (atol "
+            f"{STATS_ATOL:g}); per-tensor gradient cosine "
+            f"{w['grad_cosine']:.8f} (limit {MIN_GRAD_COSINE:g})")
+        cos, mean_lr, flip = delta_readings(card, cpu)
+        log(f"    Adam deltas, worst tensor (read, not held): cosine "
+            f"{cos:.8f}, mean |difference| {mean_lr:.5f} lr, {flip:.4%} of "
+            "the elements apart by more than 0.5 lr")
+        for msg in bad:
+            log(f"    FAILED {msg}")
+        check(not bad, f"{variant} train step card vs CPU: {len(bad)} checks "
+              "failed")
+        check(("kl_loss" in card[0]) == mcfg.use_ca, "kl_loss reported under "
+              "the CA net only")
+    return worst
+
+
+def phase_family_step_time():
+    log("phase 18/20 ftime: each family's train step at batch "
+        f"{STEP_BATCH} on the card, float32 and bf16")
+    out = {}
+    for variant in FAMILY_CFGS:
+        data = family_data(variant, STEP_BATCH, 8)
+        for dtype in (None, torch.bfloat16):
+            key = f"{variant} {'bf16' if dtype else 'f32'}"
+            out[key] = phase_step_time(family_cfg(variant, dtype),
+                                       f"18/20 ftime, {key}",
+                                       FAMILY_TIME_RUNS, data)
+    return out
+
+
+def phase_family_entry():
+    log("phase 19/20 fentry: cli/main.py --synthetic --max_epochs 1 for "
+        "clevr (float32) and coco-stackgan-1 (--bf16)")
+    steps = {}
+    for variant in FAMILY_CFGS:
+        batch = train_settings(cfg_from_file(FAMILY_CFGS[variant],
+                                             variant)).batch_size
+        n = len(train_main.synthetic_set(variant, batch, 7)["image"])
+        steps[variant] = n // batch
+    return {"train_clevr": train_entry((), "clevr", steps["clevr"]),
+            "train_coco_bf16": train_entry(["--bf16"], "coco-stackgan-1",
+                                           steps["coco-stackgan-1"])}
+
+
+def _family_items(variant, rs, n):
+    """n request items: clevr 4 objects as two-hot shape + colour rows,
+    coco 1-3 objects with a text embedding of 1024 values."""
+    items = []
+    for _ in range(n):
+        k = 4 if variant == "clevr" else int(rs.randint(1, 4))
+        w, h = rs.uniform(0.2, 0.35, k), rs.uniform(0.2, 0.35, k)
+        boxes = np.stack([rs.uniform(0, 1 - w), rs.uniform(0, 1 - h), w, h],
+                         -1).round(4).tolist()
+        if variant == "clevr":
+            labels = []
+            for _ in range(k):
+                row = [0.0] * 13
+                row[int(rs.randint(3))] = 1.0
+                row[4 + int(rs.randint(8))] = 1.0
+                labels.append(row)
+            items.append({"labels": labels, "bboxes": boxes})
+        else:
+            items.append({"labels": rs.randint(0, 80, k).tolist(),
+                          "bboxes": boxes,
+                          "text_embedding": rs.randn(1024).round(5).tolist()})
+    return items
+
+
+def phase_family_serve():
+    log("phase 20/20 fserve: each family's Stage1G card against CPU, and "
+        "its service over HTTP on the card, from seeded weights")
+    launches, latency = {}, {}
+    for variant in FAMILY_CFGS:
+        mcfg = family_cfg(variant)
+        # the weights of tests/test_step_parity.py (randomize): the
+        # reference init's images are near constant
+        g_cpu = randomize(build_stage1_g(mcfg, seed=0, device="cpu"), 3)
+        g_gpu = build_stage1_g(mcfg, g_cpu.state_dict(), device=DEVICE)
+        rs = np.random.RandomState(20)
+        data = family_data(variant, 64, 21)
+        args = [torch.from_numpy(rs.randn(64, mcfg.z_dim).astype(np.float32)),
+                torch.from_numpy(data["bbox"]),
+                torch.from_numpy(data["label_onehot"])]
+        if mcfg.use_ca:
+            args.append(torch.from_numpy(data["text_embedding"]))
+        with torch.inference_mode():
+            on_gpu = g_gpu(*(a.to(DEVICE) for a in args)).cpu()
+            on_cpu = g_cpu(*args)
+            fwd_ms = cuda_ms(lambda: g_gpu(*(a.to(DEVICE) for a in args)),
+                             warmup=3, runs=20)
+        diff = float((on_gpu - on_cpu).abs().max())
+        log(f"  {variant} Stage1G (ngf {mcfg.ngf}, seeded weights) card vs "
+            f"CPU, batch 64, eval: max |diff| {diff:.3e} (atol "
+            f"{MODEL_ATOL:g}); image std {float(on_gpu.std()):.4f}; forward "
+            f"at batch 64 {fwd_ms:.3f} ms (CUDA events, median of 20)")
+        check(bool(torch.isfinite(on_gpu).all()), f"{variant}: non-finite "
+              "image values")
+        check(diff <= MODEL_ATOL, f"{variant}: card and CPU disagree: "
+              f"{diff:.3e}")
+
+        k1.reset_launch_count()
+        svc = Stage1Service(mcfg, "", seed=0, device=DEVICE)
+        svc.g.load_state_dict(g_cpu.state_dict())
+        httpd = serve(argparse.Namespace(variant=variant, host="127.0.0.1",
+                                         port=0, max_wait_ms=5.0), svc)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        port = httpd.server_address[1]
+        try:
+            items = _family_items(variant, rs, 8)
+            t = time.perf_counter()
+            status, body = _post(port, {"items": items})
+            ms = (time.perf_counter() - t) * 1e3
+            check(status == 200 and len(body["images"]) == 8,
+                  f"{variant} request: {status} {body.get('error')}")
+            served = np.stack([_png_gray64(b, 3) for b in body["images"]])
+            bad = dict(items[0])
+            if variant == "clevr":
+                bad["labels"] = bad["labels"] + [bad["labels"][0]]
+                bad["bboxes"] = bad["bboxes"] + [bad["bboxes"][0]]
+            else:
+                bad["text_embedding"] = bad["text_embedding"][:1023]
+            status_bad, body_bad = _post(port, {"items": [bad]})
+            check(status_bad == 400, f"{variant}: a bad item got "
+                  f"{status_bad}, not 400")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.batcher.close()
+            thread.join(timeout=30)
+        got = (k1.launch_count(), k1.grad_launch_count())
+        # the same items through the CPU generator, with the z the service
+        # drew (its second batch of its seeded generator, after the warm-up)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        z = [torch.randn((svc.max_batch, mcfg.z_dim), generator=gen,
+                         device=DEVICE) for _ in range(2)][1][:8].cpu()
+        lay = [_item_layout(it, mcfg.num_objects, mcfg.label_dim, rs)
+               for it in items]
+        cargs = [z, torch.from_numpy(np.stack([x[1] for x in lay])),
+                 torch.from_numpy(np.stack([x[0] for x in lay]))]
+        if mcfg.use_ca:
+            cargs.append(torch.tensor([it["text_embedding"] for it in items],
+                                      dtype=torch.float32))
+        with torch.inference_mode():
+            want = to_uint8(g_cpu(*cargs).permute(0, 2, 3, 1).numpy())
+        levels = int(np.abs(served.astype(np.int16) - want).max())
+        log(f"  {variant} service: 8 items in {ms:.1f} ms over HTTP (host "
+            f"clock, one request); the served PNGs against the CPU "
+            f"generator's images of the same items and z: max {levels} "
+            f"levels of 255 (limit 1); a bad item: 400 "
+            f"({body_bad['error']}); K1 launches {got[0]} for "
+            f"{svc.device_batches} device batches (warm-up included), K2 "
+            f"{got[1]}")
+        check(levels <= 1, f"{variant}: served images stray from the CPU's")
+        check(got[0] == svc.device_batches == 2,
+              f"{variant}: K1 launches {got[0]}, device batches "
+              f"{svc.device_batches}; 2 each expected (warm-up + request)")
+        check(got[1] == 0, f"{variant} serving launched K2")
+        launches[f"serve_{variant}"] = got
+        latency[variant] = ms
+    return launches, latency
+
+
+def _post(port, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/generate", body=json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1363,16 +1747,23 @@ def main() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/15 time16")
+    step16 = phase_step_time(BF16, "14/20 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
         f"{step32['peak_gib']:.2f} GiB): {step32['ms'] / step16['ms']:.2f}x")
     entry16, _ = phase_entry_bf16()
+    families = phase_family_kernels()
+    phase_family_step()
+    phase_family_step_time()
+    fentry = phase_family_entry()
+    fserve, _ = phase_family_serve()
     log("all phases passed")
-    by_path = {"serve": serve_launches, "train": train_launches, **entry16}
-    f32_paths, bf16_paths = ("serve", "train", "train_bn_groups_2"), (
-        "serve_bf16", "train_bf16")
+    by_path = {"serve": serve_launches, "train": train_launches, **entry16,
+               **fentry, **fserve}
+    f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
+                 "serve_clevr", "serve_coco-stackgan-1")
+    bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16")
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -1391,20 +1782,24 @@ def main() -> int:
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:79",
         "redesigned": "PR 9",
         **launches(0),
-        "max_abs_err": place["max_abs_err"],
+        "max_abs_err": max(place["max_abs_err"],
+                           families["place"]["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
         "bf16": bf16["place"],
+        "families": families["place"],
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
         "redesigned": "PR 8",
         **launches(1),
-        "max_abs_err": grad["max_abs_err"],
+        "max_abs_err": max(grad["max_abs_err"],
+                           families["grad"]["max_abs_err"]),
         **grad["G"],
         "d_shape": grad["D"],
         "bf16": bf16["grad"],
+        "families": families["grad"],
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",

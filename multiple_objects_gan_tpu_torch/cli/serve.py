@@ -1,21 +1,30 @@
 """Serving endpoint of the port: layout -> image over HTTP, on the card.
 
 The PyTorch counterpart of the JAX package's ``cli/serve.py`` for the
-Multi-MNIST Stage-1 generator: a micro-batcher coalesces concurrent
-requests into device batches of a fixed size (``MAX_BATCH``), each batch is
-one eval-mode ``Stage1G`` forward, whose object pathway places its objects
-with the CUDA kernel of ``ops/stn_place_cuda.py``.
+Stage-1 generators (multi-mnist, clevr, coco-stackgan-1): a micro-batcher
+coalesces concurrent requests into device batches of a fixed size
+(``MAX_BATCH``), each batch is one eval-mode ``Stage1G`` forward, whose
+object pathway places its objects with the CUDA kernel of
+``ops/stn_place_cuda.py``.
 
 HTTP API (stdlib http.server, threaded):
   POST /generate  {"items": [{"labels": [3], "bboxes": [[x, y, w, h]]}]}
                   -> {"images": [base64 png, ...]}
+                  a label is a class id or a label_dim-long row (clevr's
+                  two-hot shape + colour rows); coco-stackgan-1 items also
+                  carry "text_embedding", exactly 1024 values
   GET  /healthz   -> {"ok": true, ...}
   GET  /stats     -> batcher counters, device batches and K1 launches
 
 Usage:
-  python -m multiple_objects_gan_tpu_torch.cli.serve --variant multi-mnist \
-      --net_g runs_r5/mnist_repin/netG_final.pth --device cuda \
-      [--cfg cfg/mnist_eval.yml] [--port 8000] [--max_wait_ms 5] [--bf16]
+  python -m multiple_objects_gan_tpu_torch.cli.serve \
+      --variant multi-mnist|clevr|coco-stackgan-1 [--net_g G.pth] \
+      [--cfg CFG] [--device cuda] [--port 8000] [--max_wait_ms 5] [--bf16]
+
+Without ``--cfg`` multi-mnist takes its preset and clevr and
+coco-stackgan-1 the widths of the repository's ``cfg/clevr_eval.yml`` and
+``cfg/coco_s1_train.yml`` (``DEFAULT_CFGS``); without ``--net_g`` (or a
+NET_G in the cfg) the generator gets the reference's random init.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import argparse
 import base64
 import dataclasses
 import json
+import os
 import queue
 import threading
 import time
@@ -42,6 +52,14 @@ from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
 
 MAX_BATCH = 64
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+# the cfg each variant is served with when no --cfg is given: stage-1 G
+# widths (coco_s1_eval.yml is the stage-2 sampler's)
+DEFAULT_CFGS = {"multi-mnist": "",
+                "clevr": os.path.join(ROOT, "cfg", "clevr_eval.yml"),
+                "coco-stackgan-1": os.path.join(ROOT, "cfg",
+                                                "coco_s1_train.yml")}
 
 
 # ---------------------------------------------------------------------------
@@ -210,14 +228,34 @@ def _item_layout(item: dict, max_objects: int, label_dim: int,
     return labels, bbox
 
 
+def _item_text(item: dict, text_dim: int) -> np.ndarray:
+    """The text embedding of a coco-stackgan-1 request item: exactly
+    ``text_dim`` finite values, else a ValueError (a 400)."""
+    emb = item.get("text_embedding")
+    if emb is None:
+        raise ValueError(f"items need a {text_dim}-d text_embedding")
+    try:
+        row = np.asarray(emb, np.float32).reshape(-1)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"text_embedding must be {text_dim} numbers") from e
+    if row.size != text_dim:
+        raise ValueError(f"text_embedding must have {text_dim} values, got "
+                         f"{row.size}")
+    if not np.isfinite(row).all():
+        raise ValueError("text_embedding values must be finite")
+    return row
+
+
 class Stage1Service:
-    """Multi-MNIST generation at ``MAX_BATCH`` on one device.
+    """Stage-1 generation at ``MAX_BATCH`` on one device, for any of the
+    three families (JAX ``cli/serve.py:Stage1Service``).
 
     ``net_g`` is a reference-format ``.pth``; without one the generator
     gets the reference's random init from ``seed``. The generator computes
     in ``mcfg.compute_dtype`` (bf16 with ``--bf16``); the images come back
     float32 either way. z comes from a ``torch.Generator`` seeded with
-    ``seed``. The constructor runs one
+    ``seed``; under the CA net (coco-stackgan-1) each item's
+    ``text_embedding`` gives the condition c = mu. The constructor runs one
     warm-up batch, so the first request pays neither the kernel build nor
     cuDNN's first-call set-up.
     """
@@ -235,7 +273,9 @@ class Stage1Service:
         self._rs = np.random.RandomState(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.device_batches = 0
-        self.run([{}])
+        # the warm-up batch: stackgan needs a text embedding on every item
+        self.run([{"text_embedding": [0.0] * mcfg.text_dim}
+                  if mcfg.use_ca else {}])
 
     def validate(self, item: dict) -> None:
         """Raise ValueError for a malformed request item. Runs in the HTTP
@@ -243,19 +283,26 @@ class Stage1Service:
         fail the other requests coalesced into the same device batch."""
         _item_layout(item, self.mcfg.num_objects, self.mcfg.label_dim,
                      np.random.RandomState(0))
+        if self.mcfg.use_ca:
+            _item_text(item, self.mcfg.text_dim)
 
     def run(self, items: list) -> list:
         mc = self.mcfg
         b = self.max_batch
         labels = np.zeros((b, mc.num_objects, mc.label_dim), np.float32)
         bbox = np.full((b, mc.num_objects, 4), -1.0, np.float32)
+        text = np.zeros((b, mc.text_dim), np.float32) if mc.use_ca else None
         for i, item in enumerate(items):
             labels[i], bbox[i] = _item_layout(item, mc.num_objects,
                                               mc.label_dim, self._rs)
+            if text is not None:
+                text[i] = _item_text(item, mc.text_dim)
         z = torch.randn((b, mc.z_dim), generator=self._gen,
                         device=self.device)
         img = self._sample(self.g, z, torch.from_numpy(bbox).to(self.device),
-                           torch.from_numpy(labels).to(self.device))
+                           torch.from_numpy(labels).to(self.device),
+                           None if text is None
+                           else torch.from_numpy(text).to(self.device))
         imgs = img[:len(items)].permute(0, 2, 3, 1).cpu().numpy()
         self.device_batches += 1
         return [_png_b64(im) for im in imgs]
@@ -319,18 +366,22 @@ def make_handler(batcher: MicroBatcher, info: dict, validate=None,
 
 
 def build_service(args) -> Stage1Service:
-    """The service the CLI arguments name: the MNIST preset, or the model
-    config and NET_G of ``--cfg``; ``--net_g`` wins over the YAML, and
-    ``--bf16`` makes the generator compute in bf16."""
+    """The service the CLI arguments name: the model config and NET_G of
+    ``--cfg`` (or of the variant's ``DEFAULT_CFGS`` entry; the MNIST preset
+    for multi-mnist); ``--net_g`` wins over the YAML, and ``--bf16`` makes
+    the generator compute in bf16."""
     dt = torch.bfloat16 if getattr(args, "bf16", False) else None
     mcfg, net_g = dataclasses.replace(MNIST, compute_dtype=dt), args.net_g
-    if args.cfg:
+    path = args.cfg or DEFAULT_CFGS[args.variant]
+    if path:
         from multiple_objects_gan_tpu_torch.config.config import (
             cfg_from_file, stage1_model_config)
 
-        cfg = cfg_from_file(args.cfg, args.variant)
+        cfg = cfg_from_file(path, args.variant)
         mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dt)
-        net_g = net_g or cfg.NET_G
+        # a cfg's NET_G is served only when its --cfg names it: the
+        # default cfgs' NET_G are paths of the reference's own layout
+        net_g = net_g or (cfg.NET_G if args.cfg else "")
     return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
 
 
@@ -356,10 +407,11 @@ def serve(args, service: Optional[Stage1Service] = None
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--variant", required=True, choices=["multi-mnist"])
+    p.add_argument("--variant", required=True, choices=sorted(DEFAULT_CFGS))
     p.add_argument("--cfg", default="",
-                   help="reference YAML (cfg/mnist_eval.yml); default: the "
-                        "Multi-MNIST preset")
+                   help="reference YAML (cfg/mnist_eval.yml, ...); default: "
+                        "the Multi-MNIST preset, cfg/clevr_eval.yml, "
+                        "cfg/coco_s1_train.yml")
     p.add_argument("--net_g", default="",
                    help="reference-format .pth (overrides the YAML's "
                         "NET_G); default: random init from --seed")

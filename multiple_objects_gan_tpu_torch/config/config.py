@@ -1,11 +1,16 @@
-"""YAML config, the reference's cfg/*.yml key schema (Multi-MNIST only).
+"""YAML config, the reference's cfg/*.yml key schema (the stage-1 families).
 
 The port's copy of the JAX package's ``config/config.py``: the default
-tree of code/multi-mnist/miscc/config.py:9-47, the strict recursive merge
-of ``_merge_a_into_b`` and ``cfg_from_file``. The cfg files are nested
-mappings of plain scalars, which :func:`parse_yaml` reads with the
-standard library, so the port needs no PyYAML (the card's machine has
-none).
+trees of code/multi-mnist/miscc/config.py:9-47, code/clevr/miscc/
+config.py:9-45 and code/coco/stackgan/miscc/config.py:9-57, the strict
+recursive merge of ``_merge_a_into_b`` and ``cfg_from_file``. The cfg
+files are nested mappings of plain scalars, which :func:`parse_yaml` reads
+with the standard library, so the port needs no PyYAML (the card's machine
+has none).
+
+Variants are named as the CLIs name them (``multi-mnist``, ``clevr``,
+``coco-stackgan-1``); the default tree of ``coco-stackgan-1`` is the
+stackgan one, ``coco-stackgan``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +43,18 @@ class Config(dict):
                        for k, v in d.items()})
 
 
+_COMMON_TRAIN = {
+    "FLAG": True,
+    "BATCH_SIZE": 64,
+    "MAX_EPOCH": 600,
+    "SNAPSHOT_INTERVAL": 50,
+    "PRETRAINED_MODEL": "",
+    "PRETRAINED_EPOCH": 600,
+    "LR_DECAY_EPOCH": 600,
+    "DISCRIMINATOR_LR": 2e-4,
+    "GENERATOR_LR": 2e-4,
+}
+
 DEFAULTS: dict[str, dict] = {
     # code/multi-mnist/miscc/config.py:9-47
     "multi-mnist": {
@@ -54,21 +71,63 @@ DEFAULTS: dict[str, dict] = {
         "IMSIZE": 64,
         "USE_LOCAL_PATHWAY": True,
         "USE_BBOX_LAYOUT": True,
-        "TRAIN": {
-            "FLAG": True,
-            "BATCH_SIZE": 64,
-            "MAX_EPOCH": 600,
-            "SNAPSHOT_INTERVAL": 50,
-            "PRETRAINED_MODEL": "",
-            "PRETRAINED_EPOCH": 600,
-            "LR_DECAY_EPOCH": 600,
-            "DISCRIMINATOR_LR": 2e-4,
-            "GENERATOR_LR": 2e-4,
-        },
+        "TRAIN": dict(_COMMON_TRAIN),
         "GAN": {"CONDITION_DIM": 128, "DF_DIM": 64, "GF_DIM": 128,
                 "R_NUM": 4},
     },
+    # code/clevr/miscc/config.py:9-45, with USE_BBOX_LAYOUT_S1 (read by
+    # code/clevr/model.py:126, absent from the reference's defaults),
+    # False, as the JAX package sets it
+    "clevr": {
+        "DATASET_NAME": "clevr",
+        "CONFIG_NAME": "",
+        "GPU_ID": "0",
+        "CUDA": True,
+        "WORKERS": 4,
+        "NET_G": "",
+        "NET_D": "",
+        "DATA_DIR": "",
+        "VIS_COUNT": 64,
+        "Z_DIM": 100,
+        "IMSIZE": 64,
+        "USE_LOCAL_PATHWAY": True,
+        "USE_BBOX_LAYOUT": True,
+        "USE_BBOX_LAYOUT_S1": False,
+        "TRAIN": dict(_COMMON_TRAIN),
+        "GAN": {"CONDITION_DIM": 128, "DF_DIM": 64, "GF_DIM": 128,
+                "R_NUM": 4},
+    },
+    # code/coco/stackgan/miscc/config.py:9-57
+    "coco-stackgan": {
+        "DATASET_NAME": "coco",
+        "EMBEDDING_TYPE": "cnn-rnn",
+        "CONFIG_NAME": "",
+        "GPU_ID": "0",
+        "CUDA": True,
+        "WORKERS": 6,
+        "NET_G": "",
+        "NET_D": "",
+        "STAGE1_G": "",
+        "DATA_DIR": "",
+        "IMG_DIR": "",
+        "VIS_COUNT": 64,
+        "Z_DIM": 100,
+        "IMSIZE": 64,
+        "STAGE": 1,
+        "USE_LOCAL_PATHWAY": True,
+        "USE_BBOX_LAYOUT": True,
+        "TRAIN": {**_COMMON_TRAIN, "COEFF": {"KL": 2.0}},
+        "GAN": {"CONDITION_DIM": 128, "DF_DIM": 64, "GF_DIM": 128,
+                "R_NUM": 4},
+        "TEXT": {"DIMENSION": 1024},
+    },
 }
+
+# the CLIs' variant names -> default trees and model presets
+_TREES = {"multi-mnist": "multi-mnist", "clevr": "clevr",
+          "coco-stackgan-1": "coco-stackgan"}
+_PRESETS = {"multi-mnist": common.MNIST, "clevr": common.CLEVR,
+            "coco-stackgan-1": common.COCO_S1}
 
 
 def _merge(a: dict, b: dict, path: str = "") -> None:
@@ -91,10 +150,10 @@ def _merge(a: dict, b: dict, path: str = "") -> None:
 
 
 def default_config(variant: str) -> Config:
-    if variant not in DEFAULTS:
+    if variant not in _TREES:
         raise KeyError(f"unknown variant {variant!r}; "
-                       f"one of {sorted(DEFAULTS)}")
-    return Config.wrap(copy.deepcopy(DEFAULTS[variant]))
+                       f"one of {sorted(_TREES)}")
+    return Config.wrap(copy.deepcopy(DEFAULTS[_TREES[variant]]))
 
 
 _INT = re.compile(r"[-+]?[0-9]+$")
@@ -172,19 +231,51 @@ def cfg_from_file(path: str, variant: str) -> Config:
 def stage1_model_config(cfg: Config, variant: str, *,
                         compute_dtype: Optional[torch.dtype] = None,
                         bn_groups: int = 1) -> common.Stage1Config:
-    """Bridge a YAML Config to the model-family Stage1Config, with the
-    compute dtype (None: float32; or torch.bfloat16) and BatchNorm groups
-    the caller's flags give."""
-    if variant != "multi-mnist":
-        raise ValueError(f"variant {variant!r} is not ported yet; the port "
-                         "serves 'multi-mnist'")
+    """Bridge a YAML Config to the model-family Stage1Config (JAX
+    ``stage1_model_config``), with the compute dtype (None: float32; or
+    torch.bfloat16) and BatchNorm groups the caller's flags give."""
+    if variant not in _PRESETS:
+        raise ValueError(f"variant {variant!r} is not a stage-1 family; one "
+                         f"of {sorted(_PRESETS)}")
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute dtype None (float32) or bfloat16, got "
                          f"{compute_dtype}")
     if int(bn_groups) < 1:
         raise ValueError(f"bn_groups must be at least 1, got {bn_groups}")
+    kw = dict(z_dim=cfg.Z_DIM, gf_dim=cfg.GAN.GF_DIM, df_dim=cfg.GAN.DF_DIM,
+              # the clevr reference also honours USE_BBOX_LAYOUT_S1
+              # (code/clevr/model.py:126)
+              use_bbox_layout=bool(cfg.USE_BBOX_LAYOUT
+                                   or cfg.get("USE_BBOX_LAYOUT_S1", False)),
+              compute_dtype=compute_dtype, bn_groups=int(bn_groups))
     # the mnist reference fixes condition_dim at 128 whatever the YAML says
-    return dataclasses.replace(
-        common.MNIST, z_dim=cfg.Z_DIM, gf_dim=cfg.GAN.GF_DIM,
-        df_dim=cfg.GAN.DF_DIM, use_bbox_layout=bool(cfg.USE_BBOX_LAYOUT),
-        compute_dtype=compute_dtype, bn_groups=int(bn_groups))
+    if variant != "multi-mnist":
+        kw["condition_dim"] = cfg.GAN.CONDITION_DIM
+    if variant == "coco-stackgan-1":
+        kw["text_dim"] = cfg.TEXT.DIMENSION
+        kw["d_cond_dim"] = cfg.GAN.CONDITION_DIM
+    return dataclasses.replace(_PRESETS[variant], **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSettings:
+    """The TRAIN block's scalars the train loop and step read."""
+    batch_size: int
+    max_epoch: int
+    lr_decay_epoch: int
+    generator_lr: float
+    discriminator_lr: float
+    kl_coeff: float          # TRAIN.COEFF.KL; the CA families' KL weight
+
+
+def train_settings(cfg: Config) -> TrainSettings:
+    """The TRAIN block of ``cfg``. ``kl_coeff`` is TRAIN.COEFF.KL where the
+    tree has it (stackgan) and 0 elsewhere: the KL term exists only under
+    the CA net."""
+    t = cfg.TRAIN
+    return TrainSettings(
+        batch_size=int(t.BATCH_SIZE), max_epoch=int(t.MAX_EPOCH),
+        lr_decay_epoch=int(t.LR_DECAY_EPOCH),
+        generator_lr=float(t.GENERATOR_LR),
+        discriminator_lr=float(t.DISCRIMINATOR_LR),
+        kl_coeff=float(t.COEFF.KL) if "COEFF" in t else 0.0)

@@ -6,6 +6,17 @@
   ``data/datasets.py:write_synthetic_multimnist``: the same uint8 images,
   boxes and one-hot labels from the same seed, held in memory. Nothing is
   written to disk, and no imaging library is needed.
+* :func:`synthetic_clevr` is the numpy part of
+  ``data/datasets.py:write_synthetic_clevr`` with the items
+  ``ClevrDataset`` reads back from it.
+* :func:`synthetic_coco` makes the draws of ``data/coco.py:
+  write_synthetic_coco`` from the same seed, with the images drawn at
+  64x64 directly.
+
+Left for the on-disk readers (ROADMAP Queue 1, item 9): the PNG and JPEG
+round trips, clevr's random h-flip (``ClevrDataset(hflip=True)``), and
+COCO's resize to 76 with a random 64 crop and flip and the box rescale
+that goes with them (``data/coco.py:29-43,134-141``).
 """
 
 from __future__ import annotations
@@ -95,3 +106,99 @@ def synthetic_multimnist(n: int = 512, seed: int = 0,
             bboxes[i, j] = [x, y, w, h]
             labels[i, j, d] = 1.0
     return {"image": images, "bbox": bboxes, "label_onehot": labels}
+
+
+# datasets.py:CLEVR_SHAPES, CLEVR_COLORS and write_synthetic_clevr's palette
+CLEVR_SHAPES = {"cube": 0, "cylinder": 1, "sphere": 2}
+CLEVR_COLORS = {"gray": 0, "red": 1, "blue": 2, "green": 3, "brown": 4,
+                "purple": 5, "cyan": 6, "yellow": 7}
+_CLEVR_PALETTE = {"gray": (128, 128, 128), "red": (200, 30, 30),
+                  "blue": (40, 60, 200), "green": (30, 160, 60),
+                  "brown": (140, 90, 40), "purple": (130, 40, 160),
+                  "cyan": (40, 180, 190), "yellow": (210, 200, 40)}
+CLEVR_MAX_OBJECTS = 4
+
+
+def synthetic_clevr(n: int = 256, seed: int = 0, imsize: int = 64) -> dict:
+    """The CLEVR-format set of ``write_synthetic_clevr`` as ``ClevrDataset``
+    reads it without its h-flip: ``image`` (n, H, W, 3) uint8 with 2-4
+    coloured cubes, discs and capsules, ``bbox`` (n, 4, 4) float32 (x, y,
+    w, h) in [0, 1], -1 for a padded object, ``label_onehot`` (n, 4, 13)
+    float32: shape in slots 0-2, colour in slots 4-11, and a padded object
+    one-hot in slots 3 and 12 (``datasets.py:156-165``), which enter the
+    D condition."""
+    rng = np.random.RandomState(seed)
+    shapes, colors = list(CLEVR_SHAPES), list(CLEVR_COLORS)
+    o = CLEVR_MAX_OBJECTS
+    images = np.zeros((n, imsize, imsize, 3), np.uint8)
+    bboxes = np.full((n, o, 4), -1.0, np.float32)
+    labels = np.zeros((n, o, 13), np.float32)
+    labels[:, :, 3] = 1.0
+    labels[:, :, 4 + 8] = 1.0
+    for i in range(n):
+        img = images[i]
+        for j in range(rng.randint(2, 5)):
+            w = h = rng.randint(imsize // 6, imsize // 3)
+            x = rng.randint(0, imsize - w)
+            y = rng.randint(0, imsize - h)
+            shape = shapes[rng.randint(len(shapes))]
+            color = colors[rng.randint(len(colors))]
+            yy, xx = np.indices((h, w)).astype(np.float32)
+            cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+            if shape == "sphere":
+                mask = (((yy - cy) / max(cy, 1)) ** 2
+                        + ((xx - cx) / max(cx, 1)) ** 2) <= 1.0
+            elif shape == "cylinder":
+                mask = np.abs(xx - cx) <= (w * 0.3)
+            else:
+                mask = np.ones((h, w), bool)
+            img[y:y + h, x:x + w][mask] = _CLEVR_PALETTE[color]
+            bboxes[i, j] = [x / imsize, y / imsize, w / imsize, h / imsize]
+            labels[i, j] = 0.0
+            labels[i, j, CLEVR_SHAPES[shape]] = 1.0
+            labels[i, j, 4 + CLEVR_COLORS[color]] = 1.0
+    return {"image": images, "bbox": bboxes, "label_onehot": labels}
+
+
+COCO_MAX_OBJECTS = 3
+COCO_CLASSES = 81
+
+
+def synthetic_coco(n: int = 256, seed: int = 0, imsize: int = 64,
+                   n_captions: int = 5, text_dim: int = 1024) -> dict:
+    """The COCO-format set of ``write_synthetic_coco`` from the same draws:
+    ``bbox`` (n, 3, 4) float32, -1 for a padded object; ``label_onehot``
+    (n, 3, 81), a padded object one-hot in slot 80 (``coco.py:44-51``);
+    ``text_embedding`` (n, n_captions, text_dim) float32, the caption
+    embeddings; ``image`` (n, H, W, 3) uint8, the writer's dark noise at
+    the H x W nearest grid of its 96x96 draw, with each object's
+    rectangle in its label's colour painted at this size."""
+    rng = np.random.RandomState(seed)
+    o = COCO_MAX_OBJECTS
+    images = np.zeros((n, imsize, imsize, 3), np.uint8)
+    bboxes = np.full((n, o, 4), -1.0, np.float32)
+    labels = np.zeros((n, o, COCO_CLASSES), np.float32)
+    labels[:, :, COCO_CLASSES - 1] = 1.0
+    embs = np.zeros((n, n_captions, text_dim), np.float32)
+    grid = np.arange(imsize) * 96 // imsize
+    for i in range(n):
+        noise = (rng.rand(96, 96, 3) * 40).astype(np.uint8)
+        img = images[i]
+        img[:] = noise[grid][:, grid]
+        for j in range(rng.randint(1, o + 1)):
+            w, h = rng.uniform(0.2, 0.4, 2)
+            bb = np.array([rng.uniform(0, 1 - w), rng.uniform(0, 1 - h),
+                           w, h], np.float32)
+            lab = int(rng.randint(0, COCO_CLASSES - 1))
+            color = np.array([120 + 135 * ((lab * k) % 9) // 8
+                              for k in (1, 2, 3)], np.uint8)
+            x0, y0 = int(bb[0] * imsize), int(bb[1] * imsize)
+            x1 = int((bb[0] + bb[2]) * imsize)
+            y1 = int((bb[1] + bb[3]) * imsize)
+            img[y0:y1, x0:x1] = color
+            bboxes[i, j] = bb
+            labels[i, j] = 0.0
+            labels[i, j, lab] = 1.0
+        embs[i] = rng.randn(n_captions, text_dim).astype(np.float32)
+    return {"image": images, "bbox": bboxes, "label_onehot": labels,
+            "text_embedding": embs}

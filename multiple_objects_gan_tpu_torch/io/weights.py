@@ -58,12 +58,11 @@ def stage1_g_state_dict_from_jax(params: Mapping[str, Any],
                                  stats: Mapping[str, Any],
                                  mcfg) -> dict[str, torch.Tensor]:
     """JAX ``Stage1G`` (params, batch_stats) -> the port's state dict, with
-    the reference's key names. The reference's dead Multi-MNIST ``label``
-    module (model.py:137-140) has no JAX counterpart; it gets inert values
-    (zero weight, identity BatchNorm), as the JAX export writes it."""
-    if mcfg.use_ca or mcfg.use_label_embed:
-        raise NotImplementedError(
-            f"{mcfg.variant}: CA and label embedding are not ported yet")
+    the reference's key names. The label embedding and the CA net map to
+    ``label.{0,1}`` and ``ca_net.fc`` (JAX ``io/torch_export.py:99-118``).
+    The reference's dead Multi-MNIST ``label`` module (model.py:137-140)
+    has no JAX counterpart; it gets inert values (zero weight, identity
+    BatchNorm), as the JAX export writes it."""
     sd: dict[str, torch.Tensor] = {}
     sd["fc.0.weight"] = _linear(params["fc"]["Dense_0"]["kernel"])
     _bn(sd, "fc.1", params["fc_bn"], stats["fc_bn"])
@@ -84,10 +83,20 @@ def stage1_g_state_dict_from_jax(params: Mapping[str, Any],
         sd["bbox_net.encode.5.weight"] = _conv(p["Conv3x3_2"]["Conv_0"]["kernel"])
         _bn(sd, "bbox_net.encode.6", p["TorchBatchNorm_1"],
             s["TorchBatchNorm_1"])
-    e = mcfg.label_dim
-    sd["label.0.weight"] = torch.zeros((e, e))
-    _bn(sd, "label.1", {"scale": np.ones(e), "bias": np.zeros(e)},
-        {"mean": np.zeros(e), "var": np.ones(e)})
+    if mcfg.use_label_embed:
+        sd["label.0.weight"] = _linear(
+            params["label"]["Dense_0"]["Dense_0"]["kernel"])
+        _bn(sd, "label.1", params["label"]["TorchBatchNorm_0"],
+            stats["label"]["TorchBatchNorm_0"])
+    else:
+        e = mcfg.label_dim
+        sd["label.0.weight"] = torch.zeros((e, e))
+        _bn(sd, "label.1", {"scale": np.ones(e), "bias": np.zeros(e)},
+            {"mean": np.zeros(e), "var": np.ones(e)})
+    if mcfg.use_ca:
+        fc = params["ca_net"]["Dense_0"]["Dense_0"]
+        sd["ca_net.fc.weight"] = _linear(fc["kernel"])
+        sd["ca_net.fc.bias"] = _t(fc["bias"])
     return sd
 
 
@@ -121,7 +130,11 @@ def stage1_d_state_dict_from_jax(params: Mapping[str, Any],
 def load_reference_g(path: str) -> dict[str, torch.Tensor]:
     """The generator state dict of a reference-format ``.pth``: either
     ``{'epoch', 'netG', ...}`` as the reference's save_model writes it
-    (code/multi-mnist/miscc/utils.py:160-174) or a bare state dict."""
+    (code/multi-mnist/miscc/utils.py:160-174) or a bare state dict. The
+    keys are the reference STAGE1_G's for every stage-1 family (JAX
+    ``io/torch_import.py:96-110``: ``label.*`` is the live embedding of
+    clevr and stackgan and mnist's dead module, ``ca_net.fc.*`` the CA
+    net), so :func:`build_stage1_g` loads the result with strict=True."""
     ckpt = torch_load(path)
     sd = ckpt["netG"] if "netG" in ckpt else ckpt
     return {k: v for k, v in sd.items()}

@@ -1,8 +1,17 @@
 """Model-family configuration (the port's copy of the JAX package's
 ``models/common.py``).
 
-Only the Multi-MNIST preset is served by this slice of the port: it needs
-neither the conditioning-augmentation net nor a label embedding.
+The three stage-1 families differ only in configuration:
+
+  variant   img ch  objects  label  embed         CA-net  D condition
+  mnist     1       3        10     no            no      sum(one-hots), dim 10
+  clevr     3       4        13     13 -> 16      no      clamp(sum), dim 13
+  coco-s1   3       3        81     (c||81)->128  yes     mu, dim 128
+
+Sources: code/multi-mnist/model.py, code/clevr/model.py,
+code/coco/stackgan/model.py and the cfg/*.yml files. The presets keep the
+JAX package's default widths; ``config/config.py:stage1_model_config``
+sets the widths a cfg file gives.
 
 Two fields are the JAX package's trace-time knobs, made explicit:
 ``compute_dtype`` (``nn/blocks.py:set_compute_dtype``; the CLIs' ``--bf16``)
@@ -48,6 +57,23 @@ class Stage1Config:
         return (self.condition_dim // 8) * 2 * 2 if self.use_bbox_layout else 0
 
 
+    @property
+    def object_dim(self) -> int:
+        """Channels of the per-object label vectors that feed the object
+        pathway and the layout encoder: the embedding's width, or the raw
+        one-hots' where there is no embedding (mnist)."""
+        return self.condition_dim if self.use_label_embed else self.label_dim
+
+
 MNIST = Stage1Config(
     variant="mnist", img_channels=1, num_objects=3, label_dim=10,
     condition_dim=128, d_cond_dim=10)
+
+CLEVR = Stage1Config(
+    variant="clevr", img_channels=3, num_objects=4, label_dim=13,
+    condition_dim=16, use_label_embed=True, d_cond_dim=13)
+
+COCO_S1 = Stage1Config(
+    variant="coco-stackgan-1", img_channels=3, num_objects=3, label_dim=81,
+    condition_dim=128, text_dim=1024, use_label_embed=True, use_ca=True,
+    d_cond_dim=128)

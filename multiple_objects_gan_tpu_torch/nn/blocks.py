@@ -3,7 +3,8 @@
 
 The JAX package's ``TorchBatchNorm`` and ``Dense`` are :class:`BatchNorm1d`,
 :class:`BatchNorm2d` (eps 1e-5, momentum 0.1) and :class:`Linear` here; its
-``object_fold`` path is :class:`ObjectBatchNorm2d`. Its ``UpConv3x3``
+``object_fold`` path is :class:`ObjectBatchNorm2d` and
+:class:`ObjectBatchNorm1d`. Its ``UpConv3x3``
 computes nearest-2x upsample + conv3x3 as one dilated conv, a TPU layout
 choice and not a Pallas kernel, so :class:`UpBlock` is the plain upsample +
 conv.
@@ -173,25 +174,27 @@ def _check_groups(groups: int) -> int:
     return int(groups)
 
 
-class ObjectBatchNorm2d(BatchNorm2d):
-    """BatchNorm2d of an object pathway, whose batch axis folds (B, O)
-    with O minor.
+class _ObjectBatchNorm:
+    """Train-mode BatchNorm of an object pathway, whose batch axis folds
+    (B, O) with O minor.
 
     The reference runs its object pathways as a loop over objects that
-    calls the same conv and BatchNorm once per object
-    (code/multi-mnist/model.py:162-169,227-234). In train mode that gives
-    per-object statistics, and O running-stat updates per forward. This
-    module computes the same on the folded batch, as the JAX package's
-    ``TorchBatchNorm`` does under ``object_fold`` (nn/blocks.py:295-351):
-    each object's slice is normalized with its own mean and biased
-    variance, and the running buffers take the O updates in object order,
-    with the unbiased variance. With ``groups`` > 1 each contiguous chunk of
-    the B axis runs its own loop over objects, as each DataParallel replica
-    does, and the running buffers take chunk 0's; ``groups`` must divide B,
-    as the JAX package requires (object pathways always see the full
-    batch). Eval mode is :class:`BatchNorm2d`'s. The state-dict keys are
-    BatchNorm2d's.
+    calls the same module once per object (code/multi-mnist/
+    model.py:162-169,227-234; the label embedding of code/coco/stackgan/
+    model.py:201-214). In train mode that gives per-object statistics, and
+    O running-stat updates per forward. The subclasses compute the same on
+    the folded batch, as the JAX package's ``TorchBatchNorm`` does under
+    ``object_fold`` (nn/blocks.py:295-351): each object's slice is
+    normalized with its own mean and biased variance, and the running
+    buffers take the O updates in object order, with the unbiased
+    variance. With ``groups`` > 1 each contiguous chunk of the B axis runs
+    its own loop over objects, as each DataParallel replica does, and the
+    running buffers take chunk 0's; ``groups`` must divide B, as the JAX
+    package requires (object pathways always see the full batch). Eval
+    mode is the plain BatchNorm's. The state-dict keys are BatchNorm's.
     """
+
+    groups: int
 
     def __init__(self, num_features: int, n_objects: int, groups: int = 1,
                  **kwargs):
@@ -202,7 +205,7 @@ class ObjectBatchNorm2d(BatchNorm2d):
         if not self.training:
             return super().forward(x)
         o, g = self.n_objects, self.groups
-        bo, c, h, w = x.shape
+        bo, c = x.shape[:2]
         if bo % o:
             raise ValueError(f"{o} objects do not divide the folded batch "
                              f"({bo})")
@@ -211,18 +214,32 @@ class ObjectBatchNorm2d(BatchNorm2d):
             raise ValueError(f"{g} BatchNorm groups must divide the "
                              f"object-pathway batch ({b}): object pathways "
                              "always see the full batch")
-        xg = x.reshape(g, b // g, o, c, h, w)
-        var, mean = _stats(xg, (1, 4, 5))                 # (G, 1, O, C, 1, 1)
-        y = _normalize(xg, mean, var, self.weight.view(1, 1, 1, c, 1, 1),
-                       self.bias.view(1, 1, 1, c, 1, 1), self.eps)
-        n = (b // g) * h * w
+        spatial = x.shape[2:]
+        xg = x.reshape((g, b // g, o, c) + spatial)
+        dims = (1,) + tuple(range(4, xg.dim()))
+        var, mean = _stats(xg, dims)              # (G, 1, O, C, 1...)
+        per_channel = (1, 1, 1, c) + (1,) * len(spatial)
+        y = _normalize(xg, mean, var, self.weight.view(per_channel),
+                       self.bias.view(per_channel), self.eps)
+        n = (b // g) * spatial.numel()
         with torch.no_grad():
             unbiased = var[0].view(o, c) * (n / max(n - 1, 1))
             for i in range(o):
                 self.running_mean.lerp_(mean[0].view(o, c)[i], self.momentum)
                 self.running_var.lerp_(unbiased[i], self.momentum)
             self.num_batches_tracked.add_(o)
-        return y.reshape(bo, c, h, w)
+        return y.reshape(x.shape)
+
+
+class ObjectBatchNorm2d(_ObjectBatchNorm, BatchNorm2d):
+    """BatchNorm2d of an object pathway (:class:`_ObjectBatchNorm`): the
+    BatchNorms of the G and D object pathways."""
+
+
+class ObjectBatchNorm1d(_ObjectBatchNorm, BatchNorm1d):
+    """BatchNorm1d of an object pathway (:class:`_ObjectBatchNorm`): the
+    label embedding's, whose statistics are per object, not pooled over
+    B * O (the JAX ``LabelEmbed`` runs under ``object_fold``)."""
 
 
 class UpBlock(nn.Sequential):

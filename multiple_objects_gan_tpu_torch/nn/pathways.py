@@ -2,12 +2,16 @@
 ``nn/pathways.py``).
 
 Reference: BBOX_NET (code/multi-mnist/model.py:80-110), the G object
-pathway (model.py:160-169), the D object pathway (model.py:225-234) and
-D_GET_LOGITS (model.py:43-70). The reference loops over objects; here the
+pathway (model.py:160-169), the D object pathway (model.py:225-234),
+D_GET_LOGITS (model.py:43-70), the label embedding (code/clevr/
+model.py:138-141, code/coco/stackgan/model.py:200-203) and CA_NET
+(code/coco/stackgan/model.py:44-72). The reference loops over objects; here the
 objects fold into the batch, (B, O) with O minor, and one kernel launch
 places and sums them all. The fold keeps the reference's statistics:
 eval-mode BatchNorm is per sample, and in train mode the object pathways'
-BatchNorms are :class:`~multiple_objects_gan_tpu_torch.nn.blocks.ObjectBatchNorm2d`.
+BatchNorms (and the label embedding's) keep per-object statistics
+(:class:`~multiple_objects_gan_tpu_torch.nn.blocks.ObjectBatchNorm2d`,
+:class:`~multiple_objects_gan_tpu_torch.nn.blocks.ObjectBatchNorm1d`).
 Every module takes the model config's ``compute_dtype`` for its convs and
 ``bn_groups`` for its BatchNorms (``nn/blocks.py``).
 """
@@ -20,11 +24,66 @@ import torch
 from torch import nn
 
 from multiple_objects_gan_tpu_torch.nn.blocks import (
-    BatchNorm2d, Conv2d, Conv3x3, ObjectBatchNorm2d, UpBlock)
+    BatchNorm2d, Conv2d, Conv3x3, Linear, ObjectBatchNorm1d,
+    ObjectBatchNorm2d, UpBlock)
 from multiple_objects_gan_tpu_torch.ops.stn import (
     stn_extract_multi_nchw, stn_place_const_multi)
 from multiple_objects_gan_tpu_torch.ops.stn_place_cuda import (
     stn_place_multi_nchw)
+
+
+class LabelEmbed(nn.Sequential):
+    """The per-object label embedding (JAX ``LabelEmbed``): Linear without
+    bias, BatchNorm1d, ReLU; keys ``label.0`` and ``label.1``.
+
+    labels (B, O, in_dim) -> (B, O, features). In train mode its BatchNorm
+    takes per-object statistics with O running updates a forward
+    (:class:`ObjectBatchNorm1d`), as the reference's per-object loop does
+    (code/coco/stackgan/model.py:201-214) and as the JAX body computes
+    under ``object_fold``; its docstring's "BN pools stats over B*O"
+    (nn/pathways.py:53-54 of the JAX package) is not what its code does.
+    """
+
+    def __init__(self, in_dim: int, features: int, n_objects: int,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
+        super().__init__(
+            Linear(in_dim, features, bias=False, compute_dtype=compute_dtype),
+            ObjectBatchNorm1d(features, n_objects, groups=bn_groups),
+            nn.ReLU(True))
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        b, o, d = labels.shape
+        x = super().forward(labels.reshape(b * o, d))
+        return x.reshape(b, o, -1)
+
+
+class CANet(nn.Module):
+    """Conditioning augmentation (JAX ``CANet``, non-GLU form;
+    code/coco/stackgan/model.py:44-72): ``fc`` (text_dim -> 2 * c_dim, with
+    bias) + ReLU, split into mu and logvar, c = mu + eps * exp(logvar / 2).
+    Key ``ca_net.fc``.
+
+    ``forward(text (B, text_dim), eps (B, c_dim) or None)`` returns
+    (c, mu, logvar). Without ``eps`` (eval) c = mu, as the JAX package's
+    sampling without a CA rng. The caller draws ``eps`` (the train step
+    from its generator, or replays it); it is cast to mu's dtype, so under
+    a bf16 compute dtype c is bf16, as in the JAX package, while the KL
+    takes mu and logvar in float32 (``losses/gan.py:kl_loss``).
+    """
+
+    def __init__(self, text_dim: int, c_dim: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.c_dim = c_dim
+        self.fc = Linear(text_dim, 2 * c_dim, compute_dtype=compute_dtype)
+
+    def forward(self, text: torch.Tensor, eps: Optional[torch.Tensor] = None):
+        x = torch.relu(self.fc(text))
+        mu, logvar = x[:, :self.c_dim], x[:, self.c_dim:]
+        if eps is None:
+            return mu, mu, logvar
+        return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar), mu, logvar
 
 
 class LayoutEncoder(nn.Module):
@@ -32,7 +91,9 @@ class LayoutEncoder(nn.Module):
     canvas, encode with three stride-2 conv3x3 (the first without BN) and
     flatten in CHW order.
 
-    labels (B, O, label_dim), bbox (B, O, 4) -> (B, (c_dim // 8) * 2 * 2).
+    labels (B, O, label_dim), bbox (B, O, 4) -> (B, (c_dim // 8) * 2 * 2);
+    ``label_dim`` is the width of the vectors pasted: the one-hots for
+    mnist, the embedded labels (CONDITION_DIM) for clevr and stackgan.
     """
 
     def __init__(self, label_dim: int, c_dim: int,

@@ -8,7 +8,13 @@ epochs, computed from the epoch index. Each epoch visits the set in an
 order shuffled from ``seed + epoch`` in batches of ``batch_size``, the
 last partial batch dropped, as the JAX ``Loader`` does. The whole set
 lives on the device, so a step moves no data from the host. One line per
-epoch gives the mean of each loss over its steps.
+epoch gives the mean of each loss over its steps (``kl_loss`` among them
+under the CA net).
+
+A set with caption embeddings (``text_embedding`` (n, captions, dim), the
+COCO set) gives each item one of its captions each epoch, drawn from a
+numpy RandomState seeded with ``seed`` and carried across epochs, as the
+JAX COCO reader draws one per item visit (``data/coco.py:102-103``).
 """
 
 from __future__ import annotations
@@ -27,10 +33,13 @@ def run_epochs(state: GANTrainState, data: dict, step_fn: Callable,
                lr_d: float, n_epochs: int, lr_decay_epochs: int = 0,
                seed: int = 0) -> list[dict]:
     """Train ``n_epochs`` epochs over ``data`` (arrays or tensors keyed
-    ``image``, ``bbox``, ``label_onehot``). Returns one dict of mean
+    ``image``, ``bbox``, ``label_onehot`` and, for the CA family,
+    ``text_embedding`` with a caption axis). Returns one dict of mean
     losses (floats) per epoch, with its step count and wall time."""
     device = next(state.g.parameters()).device
     tensors = {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+    captions = tensors.pop("text_embedding", None)
+    caption_rng = np.random.RandomState(seed)
     n = tensors["image"].shape[0]
     n_batches = n // batch_size
     if n_batches == 0:
@@ -43,6 +52,11 @@ def run_epochs(state: GANTrainState, data: dict, step_fn: Callable,
         order = np.arange(n)
         np.random.RandomState(seed + epoch).shuffle(order)
         order = torch.from_numpy(order).to(device)
+        if captions is not None:
+            pick = caption_rng.randint(captions.shape[1], size=n)
+            tensors["text_embedding"] = captions[
+                torch.arange(n, device=device),
+                torch.from_numpy(pick).to(device)]
         sums: dict = {}
         for i in range(n_batches):
             idx = order[i * batch_size:(i + 1) * batch_size]
