@@ -7,7 +7,10 @@ Run from the repository root, on a machine with a CUDA card, nvcc and the
 checkpoint runs_r5/mnist_repin/netG_final.pth. Phases 1-15 drive the
 Multi-MNIST paths, 16-20 the CLEVR and COCO-StackGAN-1 families at the
 widths of cfg/clevr_train.yml and cfg/coco_s1_train.yml, from seeded
-weights. Phases, each logged with the elapsed time:
+weights, and 21-24 the host side of stage 1: data on disk, checkpoints
+and resume, and sampling. The train entries' data and runs go to a
+temporary directory, removed at the end. Phases, each logged with the
+elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds csrc/stn_place.cu and csrc/normconv.cu for
@@ -85,7 +88,30 @@ weights. Phases, each logged with the elapsed time:
                 service over HTTP on the card (clevr: four two-hot objects;
                 coco: text embeddings), the served PNGs against the CPU
                 generator's images of the same items and z, and a bad item
-                answered 400.
+                answered 400;
+ 21. probe    - read only: whether this machine has jpeglib.h and png.h on
+                the C compiler's include path, libjpeg and libpng shared
+                objects (native/loader.cpp's needs) and nvjpeg under the
+                CUDA toolkit, printed as one JSON line;
+ 22. disk     - the reader's decode times; the train entry from disk
+                (--synthetic writes the set, then reads it back): clevr for
+                one epoch with its flips, and its set held on the card for
+                two; mnist for 2 epochs, resumed in place to 3, two
+                straight 3-epoch runs, two resumes from the first straight
+                run's epoch-1 checkpoint (one held against it: the first
+                step of the resumed epoch, where both runs hold the same
+                bits, and the parameters after it), and the same resume
+                without the generator's state, and without the Adam
+                states, each of which must stray; the card's drift between
+                runs from one state, printed; every artifact of a run; the
+                same set in memory;
+                a full-width checkpoint saved and restored, timed;
+ 23. batch9   - K1 at the sampler's batch of 9 (one layout, 9 z) against
+                its plain version, f32 and bf16, padded objects too, timed;
+ 24. sample   - cli/main.py with TRAIN.FLAG False: 25 grids from the
+                trained mnist .pth on a synthetic test split, and 25 from
+                phase 22's clevr run directory, timed; the first grid of
+                each against the CPU's from the same weights.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -98,13 +124,16 @@ import argparse
 import base64
 import concurrent.futures
 import dataclasses
+import glob
 import http.client
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zlib
@@ -113,12 +142,18 @@ import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch.cli import main as train_main
+from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, _item_layout, _png_b64, build_service, serve)
 from multiple_objects_gan_tpu_torch.config.config import (
     cfg_from_file, stage1_model_config, train_settings)
+from multiple_objects_gan_tpu_torch.data.datasets import (
+    ClevrDataset, MemoryLoader, MultiMnistDataset, write_synthetic_clevr,
+    write_synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.data.png import read_png, resize_bilinear
 from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_clevr, synthetic_coco, synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
@@ -127,9 +162,11 @@ from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import spike_normconv
+from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import make_train_step
-from multiple_objects_gan_tpu_torch.utils.images import to_uint8
+from multiple_objects_gan_tpu_torch.utils.images import (
+    PNG_SIGNATURE, png_chunk, to_uint8)
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -304,7 +341,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/20 device")
+    log("phase 1/24 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -322,7 +359,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/20 build")
+    log("phase 2/24 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -367,7 +404,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/20 kernel against its plain version, on the card")
+    log("phase 3/24 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -500,7 +537,7 @@ def time_place(feats, bbox, label):
 
 
 def phase_model():
-    log("phase 4/20 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/24 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -576,7 +613,7 @@ def _separation(u8, boxes) -> float:
 
 
 def phase_serve():
-    log("phase 5/20 serve: the port's main path over HTTP, on the card")
+    log("phase 5/24 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -723,7 +760,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/20 grad: K2 (place backward) against its plain version, "
+    log("phase 6/24 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -830,7 +867,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/20 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/24 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -986,7 +1023,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/20 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/24 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1020,7 +1057,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/20 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/24 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1065,18 +1102,22 @@ def phase_step_time(cfg=MNIST, phase="9/20 steptime", runs: int = 20,
 
 def train_entry(flags=(), variant="multi-mnist", steps=4):
     """cli/main.py for one synthetic epoch of ``variant`` on the card with
-    ``flags``; returns its K1, K2 and K4 launches, held at 4 a step, 4 a
-    step and 0."""
+    ``flags``, its data and output in the work directory; returns its K1,
+    K2 and K4 launches, held at 4 a step and 1 for the epoch grid, 4 a
+    step, and 0."""
     cfg = FAMILY_CFGS.get(variant, os.path.join(ROOT, "cfg",
                                                 "mnist_train.yml"))
+    out = os.path.join(WORK, "entry", variant + "".join(flags))
     k1.reset_launch_count()
     k4.reset_launch_count()
     hist = train_main.main(["--variant", variant, "--cfg", cfg,
                             "--synthetic", "--max_epochs", "1",
                             "--manualSeed", "7", "--device", DEVICE,
-                            *flags])
+                            "--data_dir", os.path.join(WORK, "data", variant),
+                            "--output_dir", out, *flags])
     torch.cuda.synchronize()
     launches = (k1.launch_count(), k1.grad_launch_count(), k4.launch_count())
+    shutil.rmtree(out)
     check(len(hist) == 1 and hist[0]["steps"] == steps,
           f"one epoch of {steps} steps expected, got {hist}")
     losses = {k: v for k, v in hist[0].items()
@@ -1089,14 +1130,14 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
         f"set-up included); K1 launches {launches[0]}, K2 launches "
         f"{launches[1]}, K4 launches {launches[2]}; mean losses "
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())))
-    check(launches == (4 * steps, 4 * steps, 0),
-          f"K1/K2/K4 launches {launches} != {(4 * steps, 4 * steps, 0)} for "
-          f"{steps} steps")
+    want = (4 * steps + 1, 4 * steps, 0)
+    check(launches == want, f"K1/K2/K4 launches {launches} != {want} for "
+          f"{steps} steps and one epoch grid")
     return launches
 
 
 def phase_train_entry():
-    log("phase 10/20 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/24 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1195,7 +1236,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/20 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/24 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1230,7 +1271,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/20 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/24 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1292,7 +1333,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/20 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/24 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1336,7 +1377,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/20 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/24 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1459,7 +1500,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/20 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/24 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1534,7 +1575,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/20 fstep: one full-width float32 train step of each "
+    log(f"phase 17/24 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1573,7 +1614,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/20 ftime: each family's train step at batch "
+    log("phase 18/24 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1581,20 +1622,19 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/20 ftime, {key}",
+                                       f"18/24 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/20 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/24 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
         batch = train_settings(cfg_from_file(FAMILY_CFGS[variant],
                                              variant)).batch_size
-        n = len(train_main.synthetic_set(variant, batch, 7)["image"])
-        steps[variant] = n // batch
+        steps[variant] = train_main.synthetic_items(variant, batch) // batch
     return {"train_clevr": train_entry((), "clevr", steps["clevr"]),
             "train_coco_bf16": train_entry(["--bf16"], "coco-stackgan-1",
                                            steps["coco-stackgan-1"])}
@@ -1625,7 +1665,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/20 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/24 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1719,6 +1759,594 @@ def phase_family_serve():
     return launches, latency
 
 
+# ------------------------------------------ the host side of stage 1
+
+
+# a resume from a run's epoch-1 checkpoint against that run's own epoch 2,
+# on the card. Both runs enter the resumed epoch with the same bits, so the
+# losses of its first step are held tight (an H100 read them equal). After
+# the epoch's 4 steps the parameters are held by their distance over the
+# norm and per-tensor cosines: cuDNN's default backward algorithms are not
+# deterministic, and two 3-step runs from one state differ in 47 of 50
+# tensors, in none with cudnn.deterministic (_drift_source; the train path
+# leaves it off). There the held resume read 1.2e-4 of the norm and a
+# cosine of 0.99996; the resume without the generator's state 2.3e-2 at
+# the first step, then 4.7e-3 and 0.923; without the Adam states 5.2,
+# 7.4e-3 and 0.721 (PERF.md §6). The epoch's mean losses are printed, not
+# held: the drift moved the held resume's by 3.3e-5 to 5.2e-4 in five card
+# runs and by more than 1e-3 in one. The CPU tests hold the resume bit for
+# bit (tests/test_torch_port_checkpoint.py).
+RESUME_FIRST_STEP_ATOL = 1e-4
+MAX_RESUME_DIST = 1e-3
+MIN_RESUME_COSINE = 0.999
+SAMPLE_GRIDS = 25
+SAMPLE_LEVELS = 1           # a card grid against the CPU's, levels of 255
+MNIST_TRAIN = os.path.join(ROOT, "cfg", "mnist_train.yml")
+EVAL_CFGS = {"multi-mnist": os.path.join(ROOT, "cfg", "mnist_eval.yml"),
+             "clevr": os.path.join(ROOT, "cfg", "clevr_eval.yml")}
+DECODE_ITEMS = train_main.SYNTHETIC_ITEMS["multi-mnist"]  # the entry's set
+CLEVR_HW = (320, 480)       # a published CLEVR image: 480x320 RGBA
+WORK = ""                   # main()'s temporary directory: data, runs
+
+
+def filtered_png(pixels: np.ndarray, ctype: int, filters,
+                 palette=None) -> bytes:
+    """(H, W, C) uint8 samples -> an 8-bit PNG of colour type ``ctype``
+    whose row y is written with row filter ``filters[y % len(filters)]``
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); ``palette`` (n, 3) uint8
+    for colour type 3."""
+    h, w, c = pixels.shape
+    x = pixels.reshape(h, w * c).astype(np.int32)
+    up = np.vstack([np.zeros((1, w * c), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int32), x[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int32), up[:, :-c]])
+    pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+    pc = np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = (np.zeros_like(x), left, up, (left + up) >> 1, paeth)
+    rows = b"".join(
+        bytes([f]) + ((x[y] - preds[f][y]) % 256).astype(np.uint8).tobytes()
+        for y, f in ((y, filters[y % len(filters)]) for y in range(h)))
+    body = png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                          0))
+    if palette is not None:
+        body += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (PNG_SIGNATURE + body + png_chunk(b"IDAT", zlib.compress(rows))
+            + png_chunk(b"IEND", b""))
+
+
+def phase_probe():
+    log("phase 21/24 probe: the image decoders this machine has, read only "
+        "(nothing is built or installed)")
+    cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
+    dirs = []
+    if cc:
+        err = subprocess.run([cc, "-E", "-Wp,-v", "-x", "c", os.devnull],
+                             capture_output=True, text=True,
+                             timeout=60).stderr
+        inside = False
+        for line in err.splitlines():
+            if line.startswith("#include <...> search starts here"):
+                inside = True
+            elif line.startswith("End of search list"):
+                break
+            elif inside:
+                dirs.append(line.strip().split(" (")[0])
+    headers = {h: [os.path.join(d, h) for d in dirs
+                   if os.path.isfile(os.path.join(d, h))]
+               for h in ("jpeglib.h", "png.h")}
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        cache = subprocess.run([ldconfig, "-p"], capture_output=True,
+                               text=True, timeout=60).stdout
+    except OSError:
+        cache = ""
+    libs = {name: sorted({line.split("=>")[-1].strip()
+                          for line in cache.splitlines()
+                          if line.strip().startswith(name)})
+            for name in ("libjpeg.so", "libpng", "libnvjpeg.so")}
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvjpeg = sorted(glob.glob(os.path.join(cuda_home, "lib64",
+                                           "libnvjpeg.so*"))
+                    + glob.glob(os.path.join(cuda_home, "targets", "*",
+                                             "lib", "libnvjpeg.so*")))
+    found = {"compiler": cc, "include_dirs": dirs, "headers": headers,
+             "shared_objects": libs, "cuda_home": cuda_home,
+             "libnvjpeg_under_cuda": nvjpeg,
+             "nvjpeg_h": os.path.isfile(os.path.join(cuda_home, "include",
+                                                     "nvjpeg.h"))}
+    print(json.dumps({"decoder_probe": found}), flush=True)
+    loader_cpp = bool(cc and all(headers.values()) and libs["libjpeg.so"]
+                      and libs["libpng"])
+    log(f"  native/loader.cpp (jpeglib.h, png.h, libjpeg, libpng): "
+        f"{'all found' if loader_cpp else 'not all found'}; nvjpeg under "
+        f"{cuda_home}: {'found' if nvjpeg else 'not found'}")
+    return found
+
+
+def _decode_times():
+    """The port's reader on this host: 512 synthetic 64x64 Multi-MNIST
+    PNGs (the port's writer, row filter 0) decoded into the reader's RAM
+    cache, and one 480x320 RGBA image (a published CLEVR image's size)
+    written with row filter 0 and with Paeth on every row, decoded to RGB
+    and resized to 64x64."""
+    d = os.path.join(WORK, "decode")
+    write_synthetic_multimnist(d, n=DECODE_ITEMS, seed=7)
+    t = time.perf_counter()
+    ds = MultiMnistDataset(d)
+    mnist_s = time.perf_counter() - t
+    check(ds.get_batch(np.arange(4))["image"].shape == (4, 64, 64, 1),
+          "decoded Multi-MNIST batch shape")
+    rs = np.random.RandomState(21)
+    yy, xx = np.mgrid[0:CLEVR_HW[0], 0:CLEVR_HW[1]]
+    rgba = np.stack([(xx + yy) % 256, (2 * xx) % 256, (3 * yy) % 256,
+                     np.full_like(xx, 255)], -1)
+    rgba = np.clip(rgba + rs.randint(-8, 9, rgba.shape), 0, 255).astype(
+        np.uint8)
+    out = {"mnist_512_s": mnist_s}
+    for name, filters in (("none", [0]), ("paeth", [4])):
+        path = os.path.join(d, f"clevr_{name}.png")
+        with open(path, "wb") as f:
+            f.write(filtered_png(rgba, 6, filters))
+        t = time.perf_counter()
+        rgb = read_png(path, "RGB")
+        out[f"clevr_{name}_s"] = time.perf_counter() - t
+        check(np.array_equal(rgb, rgba[..., :3]),
+              f"480x320 RGBA ({name}) decodes to its RGB samples")
+    t = time.perf_counter()
+    small = resize_bilinear(rgb, (64, 64))
+    out["resize_s"] = time.perf_counter() - t
+    check(small.shape == (64, 64, 3), "resize to 64x64")
+    log(f"  decode (host clock, this machine's CPU): {DECODE_ITEMS} "
+        f"Multi-MNIST 64x64 PNGs into the RAM cache {mnist_s * 1e3:.1f} ms "
+        f"({mnist_s * 1e6 / DECODE_ITEMS:.1f} us an image); one 480x320 "
+        f"RGBA PNG: filter 0 {out['clevr_none_s'] * 1e3:.1f} ms, Paeth on "
+        f"every row {out['clevr_paeth_s'] * 1e3:.1f} ms; its resize to "
+        f"64x64 {out['resize_s'] * 1e3:.1f} ms")
+    return out
+
+
+def _entry(name, argv):
+    """cli/main.py with ``argv`` on the card: (history, (K1, K2) launches,
+    host seconds), the counts set to 0 just before and read just after."""
+    k1.reset_launch_count()
+    t = time.perf_counter()
+    hist = train_main.main([*argv, "--device", DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = (k1.launch_count(), k1.grad_launch_count())
+    log(f"  {name}: {seconds:.2f} s (host clock, the whole entry); K1 "
+        f"launches {launches[0]}, K2 launches {launches[1]}")
+    return hist, launches, seconds
+
+
+def _artifacts(out, epochs, cfg_file):
+    want = [os.path.join("logs", "metrics.jsonl"), "run_flags.json",
+            os.path.basename(cfg_file),
+            os.path.join("src_snapshot", "csrc", "stn_place.cu"),
+            os.path.join("src_snapshot", "train", "loop.py"),
+            os.path.join("images", "real_samples.png")]
+    want += [os.path.join("images", f"fake_samples_epoch_{e:03d}.png")
+             for e in epochs]
+    want += [os.path.join("models", str(e), "state.pth") for e in epochs]
+    missing = [w for w in want if not os.path.isfile(os.path.join(out, w))]
+    check(not missing, f"{out}: missing {missing}")
+    grid = read_png(os.path.join(out, "images",
+                                 f"fake_samples_epoch_{epochs[-1]:03d}.png"),
+                    "RGB")
+    check(grid.shape == (8 * 66 + 2, 8 * 66 + 2, 3),
+          f"epoch grid of 64 tiles: {grid.shape}")
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    check(all(np.isfinite(v) for r in records for k, v in r.items()
+              if k not in ("step", "time")), "non-finite logged scalars")
+    return records
+
+
+def _logged(run, step):
+    """The losses ``run`` logged at global ``step``."""
+    with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    found = [r for r in records if r["step"] == step]
+    check(len(found) == 1, f"{run}: {len(found)} records of step {step}")
+    return {k: v for k, v in found[0].items() if k not in ("step", "time")}
+
+
+def _gap(run, ref, hist, hist_ref, epoch=2):
+    """Two runs at ``epoch``: the largest difference of the losses logged
+    at the epoch's first step and of the epoch's mean losses, the lowest
+    per-tensor cosine of G's and D's parameters (and its tensor), the
+    parameters' distance over the reference's norm, the largest BatchNorm
+    buffer difference, and both step counts."""
+    a = CheckpointManager(os.path.join(run, "models")).load(epoch)[0]
+    b = CheckpointManager(os.path.join(ref, "models")).load(epoch)[0]
+    first = a["step"] - hist["steps"]
+    la, lb = _logged(run, first), _logged(ref, first)
+    cos, buf, dist, norm = {}, 0.0, 0.0, 0.0
+    for net in ("g", "d"):
+        for k, v in a[net].items():
+            if not v.is_floating_point():
+                continue
+            w = b[net][k]
+            if "running_" in k:
+                buf = max(buf, float((v - w).abs().max()))
+                continue
+            cos[f"{net}.{k}"] = _cosine(v, w)
+            dist += float((v.double() - w.double()).square().sum())
+            norm += float(w.double().square().sum())
+    worst = min(cos, key=cos.get)
+    return {"first_step": max(abs(la[k] - lb[k]) for k in lb),
+            "loss": max(abs(hist[k] - hist_ref[k]) for k in hist_ref
+                        if k not in ("steps", "seconds")),
+            "min_cosine": cos[worst], "worst_tensor": worst,
+            "rel_dist": (dist / norm) ** 0.5, "buffers": buf,
+            "steps": (a["step"], b["step"])}
+
+
+def _fmt_gap(g):
+    return (f"first step's losses max |diff| {g['first_step']:.3e}, the "
+            f"epoch's mean losses {g['loss']:.3e}, lowest parameter cosine "
+            f"{g['min_cosine']:.8f} ({g['worst_tensor']}), parameter "
+            f"distance {g['rel_dist']:.3e} of the norm, BatchNorm buffers "
+            f"max |diff| {g['buffers']:.3e}, steps {g['steps']}")
+
+
+def _resume_copy(run, epoch, out):
+    """``out`` holding ``run``'s checkpoint of ``epoch`` and its run
+    record alone: the state of a run cut after that epoch."""
+    shutil.copytree(os.path.join(run, "models", str(epoch)),
+                    os.path.join(out, "models", str(epoch)))
+    shutil.copy(os.path.join(run, "run_flags.json"), out)
+
+
+def _drift_source(mcfg):
+    """Two 3-step runs from one full-width state, once with cuDNN's
+    default algorithms and once with ``cudnn.deterministic`` (in this
+    probe only: the train path leaves it off): how many of G's and D's
+    parameter tensors differ between the two runs. Read, not held."""
+    data = {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in synthetic_multimnist(STEP_BATCH, seed=8).items()}
+    step = make_train_step(mcfg)
+
+    def params():
+        state = create_state(mcfg, seed=0, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        for _ in range(3):
+            step(state, data, gen, LR, LR)
+        return [*state.g.parameters(), *state.d.parameters()]
+
+    differ = {}
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            a, b = params(), params()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        differ[deterministic] = sum(int(not torch.equal(x, y))
+                                    for x, y in zip(a, b))
+    log(f"  drift's source: two 3-step runs from one state differ in "
+        f"{differ[False]} of {len(a)} parameter tensors with cuDNN's "
+        f"default algorithms, in {differ[True]} with cudnn.deterministic")
+    return {"default": differ[False], "cudnn_deterministic": differ[True],
+            "tensors": len(a)}
+
+
+def _time_checkpoint(mcfg):
+    """Save and restore of a full-width state (G, D, both Adams after one
+    step, the generator) on the card: seconds, bytes, and the round trip
+    held bit for bit."""
+    state = create_state(mcfg, seed=3, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    data = {k: torch.from_numpy(v[:STEP_BATCH]).to(DEVICE)
+            for k, v in synthetic_multimnist(STEP_BATCH, seed=3).items()}
+    make_train_step(mcfg)(state, data, gen, LR, LR)
+    mgr = CheckpointManager(os.path.join(WORK, "ckpt"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = mgr.save(0, state, gen)
+    save_s = time.perf_counter() - t
+    back = create_state(mcfg, seed=4, device=DEVICE)
+    gen2 = torch.Generator(device=DEVICE).manual_seed(4)
+    t = time.perf_counter()
+    mgr.restore(back, gen2)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    same = all(torch.equal(x, y) for x, y in zip(
+        [*state.g.state_dict().values(), *state.d.state_dict().values()],
+        [*back.g.state_dict().values(), *back.d.state_dict().values()]))
+    same = same and back.step == state.step and torch.equal(
+        gen.get_state(), gen2.get_state()) and all(
+        torch.equal(x["exp_avg_sq"], y["exp_avg_sq"]) for x, y in zip(
+            state.g_opt.state_dict()["state"].values(),
+            back.g_opt.state_dict()["state"].values()))
+    size = os.path.getsize(path)
+    log(f"  checkpoint of the full-width mnist state: {size / 2**20:.1f} MiB; "
+        f"save {save_s * 1e3:.0f} ms, restore {restore_s * 1e3:.0f} ms (host "
+        f"clock, to and from this machine's disk); round trip bit for bit: "
+        f"{same}")
+    check(same, "checkpoint round trip differs")
+    shutil.rmtree(os.path.join(WORK, "ckpt"))
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": size}
+
+
+def phase_train_disk():
+    log("phase 22/24 disk: the train entries from disk (cli/main.py "
+        "--synthetic: the set written, then read back): clevr 1 epoch with "
+        "flips, and its set in memory; mnist 2 epochs resumed in place to "
+        "3, two straight 3-epoch runs, two resumes from the first's "
+        "epoch-1 checkpoint and two controls (no generator state, no Adam "
+        "states); the same set in memory; a full-width checkpoint timed")
+    decode = _decode_times()
+    runs = {name: os.path.join(WORK, "runs", name)
+            for name in ("clevr", "clevr_memory", "mnist", "straight",
+                         "straight2", "resumed", "resumed2", "control",
+                         "control_adam", "memory")}
+    launches = {}
+    cdata = os.path.join(WORK, "disk", "clevr")
+    hist_c, launches["train_clevr_disk"], _ = _entry(
+        "clevr from disk, 1 epoch",
+        ["--variant", "clevr", "--cfg", FAMILY_CFGS["clevr"], "--data_dir",
+         cdata, "--synthetic", "--manualSeed", "7", "--max_epochs", "1",
+         "--output_dir", runs["clevr"]])
+    ccfg = cfg_from_file(FAMILY_CFGS["clevr"], "clevr")
+    cbatch = train_settings(ccfg).batch_size
+    citems = train_main.synthetic_items("clevr", cbatch)
+    csteps = citems // cbatch
+    check(launches["train_clevr_disk"] == (4 * csteps + 1, 4 * csteps),
+          f"clevr K1/K2 launches {launches['train_clevr_disk']}")
+    _artifacts(runs["clevr"], [0], FAMILY_CFGS["clevr"])
+    check(all(np.isfinite(v) for v in hist_c[0].values()), "clevr losses")
+    flips, plain = ClevrDataset(cdata, seed=7), ClevrDataset(cdata,
+                                                             hflip=False)
+    flipped = sum(int(not np.array_equal(flips[i]["image"],
+                                         plain[i]["image"]))
+                  for i in range(64))
+    log(f"  clevr reader: {flipped} of the first 64 items flipped "
+        f"(ClevrDataset(hflip=True) from RandomState(7))")
+    check(0 < flipped < 64, "the clevr reader's h-flip")
+    k1.reset_launch_count()
+    _, hist_cm = train_loop.train(
+        ccfg, stage1_model_config(ccfg, "clevr"),
+        MemoryLoader(synthetic_clevr(citems, seed=7), cbatch, seed=7,
+                     device=DEVICE),
+        runs["clevr_memory"], device=DEVICE, seed=7, max_epochs=2)
+    torch.cuda.synchronize()
+    launches["train_clevr_memory"] = (k1.launch_count(),
+                                      k1.grad_launch_count())
+    check(launches["train_clevr_memory"]
+          == (2 * (4 * csteps + 1), 2 * 4 * csteps),
+          f"clevr in-memory K1/K2 launches {launches['train_clevr_memory']}")
+    clevr_s = {"disk": [h["seconds"] for h in hist_c],
+               "memory": [h["seconds"] for h in hist_cm]}
+    log(f"  clevr epoch times (host clock, {csteps} steps of {cbatch}, "
+        f"grids and checkpoints excluded): from disk (decoded every visit, "
+        f"flips) {', '.join(f'{t:.3f}' for t in clevr_s['disk'])} s; the "
+        f"same set held on the card, no flips "
+        f"{', '.join(f'{t:.3f}' for t in clevr_s['memory'])} s")
+
+    cfg = cfg_from_file(MNIST_TRAIN, "multi-mnist")
+    mcfg = stage1_model_config(cfg, "multi-mnist")
+    batch = train_settings(cfg).batch_size
+    steps = DECODE_ITEMS // batch
+    mdata = os.path.join(WORK, "disk", "mnist")
+    mnist = ["--variant", "multi-mnist", "--cfg", MNIST_TRAIN, "--data_dir",
+             mdata, "--synthetic", "--manualSeed", "7",
+             "--snapshot_interval", "1"]
+
+    def run(name, path, epochs, resume=False):
+        out = runs[name]
+        hist, launches[path], _ = _entry(
+            name, [*mnist, "--output_dir", out, "--max_epochs", str(epochs),
+                   *(["--resume", out] if resume else [])])
+        done = len(hist)
+        want = (done * (4 * steps + 1), done * 4 * steps)
+        check(launches[path] == want, f"{path}: K1/K2 launches "
+              f"{launches[path]} != {want} (4 a step each, and K1 once an "
+              "epoch grid)")
+        return hist
+
+    hist_m2 = run("mnist", "train_disk", 2)
+    hist_r = run("mnist", "resume", 3, resume=True)
+    hist_s = run("straight", "train_disk_straight", 3)
+    hist_s2 = run("straight2", "train_disk_straight2", 3)
+    check(len(hist_r) == 1 and len(hist_s) == 3, "resume ran one epoch")
+    records = _artifacts(runs["mnist"], [0, 1, 2], MNIST_TRAIN)
+    check([r["step"] for r in records] == [0, steps, 2 * steps],
+          f"logged steps {[r['step'] for r in records]}")
+    _resume_copy(runs["straight"], 1, runs["resumed"])
+    hist_x = run("resumed", "resume_from_straight", 3, resume=True)
+    _resume_copy(runs["straight"], 1, runs["resumed2"])
+    hist_x2 = run("resumed2", "resume_from_straight2", 3, resume=True)
+    # the controls: the same resume with the generator's state, or both
+    # Adam states, left out; each must fail the held checks
+    restore = CheckpointManager.restore
+
+    def without_adam(self, state, generator=None, epoch=None):
+        fresh = state.g_opt.state_dict(), state.d_opt.state_dict()
+        epoch = restore(self, state, generator, epoch)
+        state.g_opt.load_state_dict(fresh[0])
+        state.d_opt.load_state_dict(fresh[1])
+        return epoch
+
+    hist_ctl = {}
+    for name, cut in (("control", lambda self, state, generator=None,
+                       epoch=None: restore(self, state, None, epoch)),
+                      ("control_adam", without_adam)):
+        CheckpointManager.restore = cut
+        try:
+            _resume_copy(runs["straight"], 1, runs[name])
+            hist_ctl[name] = run(name, f"resume_{name}", 3, resume=True)
+        finally:
+            CheckpointManager.restore = restore
+    gaps = {"in place, 2 + 1 epochs": _gap(runs["mnist"], runs["straight"],
+                                           hist_r[0], hist_s[2]),
+            "from the straight run's epoch 1": _gap(
+                runs["resumed"], runs["straight"], hist_x[0], hist_s[2]),
+            "control, generator state left out": _gap(
+                runs["control"], runs["straight"], hist_ctl["control"][0],
+                hist_s[2]),
+            "control, Adam states left out": _gap(
+                runs["control_adam"], runs["straight"],
+                hist_ctl["control_adam"][0], hist_s[2])}
+    for name, g in gaps.items():
+        log(f"  resumed ({name}) against the straight run after epoch 2: "
+            + _fmt_gap(g))
+    # the card's drift with nothing cut: the same runs from the same state
+    drift = {"two uninterrupted runs after epoch 1 (8 steps)": _gap(
+                 runs["mnist"], runs["straight"], hist_m2[1], hist_s[1],
+                 epoch=1),
+             "two uninterrupted runs after epoch 2 (12 steps)": _gap(
+                 runs["straight2"], runs["straight"], hist_s2[2], hist_s[2]),
+             "two resumes from one epoch-1 checkpoint (4 steps)": _gap(
+                 runs["resumed2"], runs["resumed"], hist_x2[0], hist_x[0])}
+    for name, g in drift.items():
+        log(f"  drift, {name}: " + _fmt_gap(g))
+    drift["source"] = _drift_source(mcfg)
+    held = gaps["from the straight run's epoch 1"]
+    log(f"  held: the resume from the straight run's epoch 1: its first "
+        f"step's losses (limit {RESUME_FIRST_STEP_ATOL:g}), then parameter "
+        f"distance (limit {MAX_RESUME_DIST:g} of the norm) and per-tensor "
+        f"cosines (limit {MIN_RESUME_COSINE}); each control must fail all "
+        f"three")
+    check(held["steps"] == (3 * steps, 3 * steps), f"steps {held['steps']}")
+
+    def strays(g):
+        return (g["first_step"] > RESUME_FIRST_STEP_ATOL,
+                g["rel_dist"] > MAX_RESUME_DIST,
+                g["min_cosine"] <= MIN_RESUME_COSINE)
+
+    check(strays(held) == (False, False, False),
+          f"the resume strays (first step, distance, cosine): "
+          f"{strays(held)}")
+    for name in ("generator state", "Adam states"):
+        check(all(strays(gaps[f"control, {name} left out"])),
+              f"a resume with its {name} left out passes a held check "
+              f"(first step, distance, cosine strayed: "
+              f"{strays(gaps[f'control, {name} left out'])}): it is blind")
+
+    k1.reset_launch_count()
+    _, hist_m = train_loop.train(
+        cfg, mcfg, MemoryLoader(synthetic_multimnist(DECODE_ITEMS, seed=7),
+                                batch, seed=7, device=DEVICE),
+        runs["memory"], device=DEVICE, seed=7, max_epochs=3)
+    torch.cuda.synchronize()
+    launches["train_memory"] = (k1.launch_count(), k1.grad_launch_count())
+    check(launches["train_memory"] == (3 * (4 * steps + 1), 3 * 4 * steps),
+          f"in-memory K1/K2 launches {launches['train_memory']}")
+    epoch_s = {"disk": [h["seconds"] for h in hist_s],
+               "memory": [h["seconds"] for h in hist_m]}
+    log(f"  epoch times (host clock, {steps} steps of {batch}, grids and "
+        f"checkpoints excluded): from disk "
+        f"{', '.join(f'{t:.3f}' for t in epoch_s['disk'])} s; the same set "
+        f"in memory {', '.join(f'{t:.3f}' for t in epoch_s['memory'])} s "
+        f"(first epochs include cuDNN's set-up)")
+    ckpt = _time_checkpoint(mcfg)
+    for name in runs:
+        if name != "clevr":
+            shutil.rmtree(runs[name])
+    return {"launches": launches, "decode": decode, "checkpoint": ckpt,
+            "epoch_s": epoch_s, "clevr_epoch_s": clevr_s, "resume": gaps,
+            "drift": drift, "clevr_run": runs["clevr"], "clevr_data": cdata}
+
+
+def phase_k1_batch9():
+    log("phase 23/24 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+        "z) against its plain version, f32 and bf16, and timed")
+    rs = np.random.RandomState(23)
+    dev = torch.device(DEVICE)
+    cases = [("multi-mnist", 3, MNIST.ngf // 4, _service_boxes(rs, 1, 3)),
+             ("clevr", 4, family_shapes("clevr")["G"][1],
+              family_data("clevr", 1, 23)["bbox"]),
+             ("clevr padded4", 4, family_shapes("clevr")["G"][1],
+              _family_boxes(rs, "clevr", 1, "padded4"))]
+    out = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "rows": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = "max_abs_err" if dtype == torch.float32 else \
+            "max_abs_err_bf16"
+        for name, o, c, box in cases:
+            bbox = torch.from_numpy(np.repeat(box, 9, axis=0)).to(dev)
+            feats = torch.from_numpy(rs.randn(9, o, c, 16, 16).astype(
+                np.float32)).to(dev).to(dtype)
+            got = k1.stn_place_multi_nchw(feats, bbox, (16, 16))
+            want = k1.stn_place_multi_plain(feats, bbox, (16, 16))
+            label = f"{name} (9,{o},{c},16,16) {str(dtype)[6:]}"
+            out[worst] = max(out[worst],
+                             _held(got, want, dtype, "K1", label))
+            if "padded" not in name:
+                row = time_place(feats, bbox, f"K1 batch 9 {name}")
+                out["rows"].append({"case": label, **{
+                    k: row[k] for k in ("ms", "plain_ms", "graph_ms",
+                                        "bound_ms", "bound_by")}})
+    return out
+
+
+def _eval_cfg(variant, net_g):
+    """A copy of the variant's eval cfg in the work directory with NET_G
+    set to ``net_g``."""
+    with open(EVAL_CFGS[variant]) as f:
+        lines = [f"NET_G: '{net_g}'" if line.startswith("NET_G:") else line
+                 for line in f.read().splitlines()]
+    path = os.path.join(WORK, f"{variant}_eval.yml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_sample(clevr_run, clevr_data):
+    log(f"phase 24/24 sample: cli/main.py with TRAIN.FLAG False, "
+        f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
+        f"on a synthetic test split written by the port, clevr from phase "
+        f"22's output directory; a grid against the CPU's")
+    data = {"multi-mnist": os.path.join(WORK, "disk", "mnist_test"),
+            "clevr": clevr_data}
+    write_synthetic_multimnist(data["multi-mnist"], n=64, split="test",
+                               seed=7)
+    write_synthetic_clevr(data["clevr"], n=64, split="test", seed=7)
+    launches, seconds = {}, {}
+    for variant, net_g, path in (("multi-mnist", CKPT, "sample"),
+                                 ("clevr", clevr_run, "sample_clevr")):
+        cfg_file = _eval_cfg(variant, net_g)
+        out = os.path.join(WORK, "samples", variant)
+        _, launches[path], seconds[variant] = _entry(
+            f"{variant} sampling", ["--variant", variant, "--cfg", cfg_file,
+                                    "--data_dir", data[variant],
+                                    "--output_dir", out, "--manualSeed",
+                                    "7"])
+        check(launches[path] == (SAMPLE_GRIDS, 0),
+              f"{variant} sampling K1/K2 launches {launches[path]}; "
+              f"{SAMPLE_GRIDS} and 0 expected (one G forward a grid)")
+        grids = [read_png(os.path.join(out, "samples", f"sample_{s:03d}.png"),
+                          "RGB") for s in range(SAMPLE_GRIDS)]
+        check(all(g.shape == (2 * 66 + 2, 10 * 66 + 2, 3) for g in grids),
+              f"{variant}: {SAMPLE_GRIDS} grids of 2 x 10 tiles")
+        # the first grid again on the CPU, from the same weights
+        cfg = cfg_from_file(cfg_file, variant)
+        cfg.DATA_DIR = data[variant]
+        mcfg = stage1_model_config(cfg, variant)
+        sd = (load_reference_g(net_g) if variant == "multi-mnist" else
+              CheckpointManager(os.path.join(net_g, "models")).load()[0]["g"])
+        ref = sample_stage1(
+            argparse.Namespace(), cfg, mcfg, os.path.join(out, "cpu"),
+            variant, 7, num_samples=1,
+            g=build_stage1_g(mcfg, sd, device="cpu"), device="cpu")
+        cpu = read_png(os.path.join(ref, "sample_000.png"), "RGB")
+        row = slice(0, 66 + 2)
+        levels = int(np.abs(grids[0][row].astype(np.int16)
+                            - cpu[row]).max())
+        fakes = grids[0][2:66, 68:].astype(np.float32)
+        log(f"  {variant}: {SAMPLE_GRIDS} grids in {seconds[variant]:.2f} s "
+            f"({seconds[variant] / SAMPLE_GRIDS * 1e3:.1f} ms a grid, host "
+            f"clock, G load and test split included); grid 0's first row "
+            f"against the CPU's: max {levels} levels of 255 (limit "
+            f"{SAMPLE_LEVELS}); fake tiles' pixel std {fakes.std():.1f}")
+        check(levels <= SAMPLE_LEVELS, f"{variant}: card and CPU grids "
+              "disagree")
+        check(fakes.std() > 1.0, f"{variant}: constant fakes")
+    return {"launches": launches, "seconds": seconds}
+
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -1734,6 +2362,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 1
+    global WORK
+    WORK = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
+def run_phases() -> int:
     name = phase_device()
     phase_build()
     place = phase_kernel()
@@ -1747,7 +2384,7 @@ def main() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/20 time16")
+    step16 = phase_step_time(BF16, "14/24 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -1758,11 +2395,17 @@ def main() -> int:
     phase_family_step_time()
     fentry = phase_family_entry()
     fserve, _ = phase_family_serve()
+    phase_probe()
+    disk = phase_train_disk()
+    batch9 = phase_k1_batch9()
+    sampled = phase_sample(disk["clevr_run"], disk["clevr_data"])
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
-               **fentry, **fserve}
+               **fentry, **fserve, **disk["launches"],
+               **sampled["launches"]}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
-                 "serve_clevr", "serve_coco-stackgan-1")
+                 "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
+                 *sampled["launches"])
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16")
 
     def launches(i):
@@ -1783,12 +2426,14 @@ def main() -> int:
         "redesigned": "PR 9",
         **launches(0),
         "max_abs_err": max(place["max_abs_err"],
-                           families["place"]["max_abs_err"]),
+                           families["place"]["max_abs_err"],
+                           batch9["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
         "bf16": bf16["place"],
         "families": families["place"],
+        "batch9": batch9,
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

@@ -1,66 +1,87 @@
-"""Train Stage 1 with the PyTorch port (the port's counterpart of the JAX
-package's ``cli/main.py``, for the three stage-1 families).
+"""Train or sample Stage 1 with the PyTorch port (the port's counterpart of
+the JAX package's ``cli/main.py``, for the three stage-1 families).
 
     python -m multiple_objects_gan_tpu_torch.cli.main \\
-        --variant multi-mnist|clevr|coco-stackgan-1 --cfg CFG --synthetic \\
-        [--max_epochs N] [--manualSeed N] [--device cuda|cpu] [--bf16] \\
-        [--bn_groups G]
+        --variant multi-mnist|clevr|coco-stackgan-1 --cfg CFG \\
+        [--data_dir D] [--output_dir O] [--synthetic] [--resume RUN_DIR] \\
+        [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
+        [--device cuda|cpu] [--bf16] [--bn_groups G] \\
+        [--num_objects N] [--bbox_scale S]
 
-``--synthetic`` trains on the synthetic set the JAX CLI writes, built in
-memory from the seed, at the JAX CLI's sizes: 512 Multi-MNIST items
-(``cli/main.py:277``), 256 CLEVR items (``:304``) and max(2 * batch, 64)
-COCO items (``:336``). With the published cfg files (batch 128:
-``cfg/mnist_train.yml``, ``cfg/clevr_train.yml``, ``cfg/coco_s1_train.yml``)
-that is 4, 2 and 2 steps an epoch at full width. The port has no on-disk
-dataset reader yet. The run is on the card unless ``--device cpu`` is
-given; without a card it raises. It prints one line per epoch with the
-mean losses. ``--bf16`` and ``--bn_groups`` are the JAX CLI's flags (its
-``cli/main.py:55-64``), carried into the model config. The JAX CLI's
-``run_flags.json`` record and its resume check wait for the port's
-checkpoints and output directory.
+``TRAIN.FLAG`` in the cfg picks training or sampling, as in the reference
+(code/multi-mnist/main.py:27-95). Training reads Multi-MNIST and CLEVR
+from ``DATA_DIR`` (``--data_dir`` overrides it); with ``--synthetic`` a
+missing train split is first written there, at the JAX CLI's sizes
+(``synthetic_items``). COCO-StackGAN-1 has no on-disk reader yet: with
+``--synthetic`` it trains on a synthetic set held on the device. A run leaves, under ``--output_dir`` (default
+``output/<DATASET>_<time>``), ``run_flags.json``, a copy of the cfg, the
+port's sources (``src_snapshot/``), ``logs/metrics.jsonl``, epoch grids in
+``images/`` and checkpoints in ``models/<epoch>/``. ``--resume RUN_DIR``
+continues from that run's latest checkpoint; cfg ``NET_G``/``NET_D``
+``.pth`` files warm-start G and D; a resume without ``--manualSeed``
+takes the seed of the resumed run's ``run_flags.json``, so its shuffles
+and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
+samples 25 grids from ``NET_G`` (``cli/sample.py``). The run is on the
+card unless ``--device cpu`` is given; without a card it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import json
+import os
 import random
+import shutil
+import subprocess
 import sys
+import warnings
 
 import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch import resolve_device
+from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.config.config import (
     cfg_from_file, stage1_model_config, train_settings)
-from multiple_objects_gan_tpu_torch.data.synthetic import (
-    synthetic_clevr, synthetic_coco, synthetic_multimnist)
-from multiple_objects_gan_tpu_torch.train.loop import run_epochs
-from multiple_objects_gan_tpu_torch.train.state import create_state
-from multiple_objects_gan_tpu_torch.train.step import make_train_step
+from multiple_objects_gan_tpu_torch.data.datasets import (
+    MNIST_VARIANT, ClevrDataset, Loader, MemoryLoader, MultiMnistDataset,
+    write_synthetic_clevr, write_synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_coco
+from multiple_objects_gan_tpu_torch.train.loop import train
 
 VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1")
+PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's sources that define a run, copied into src_snapshot/
+SNAPSHOT_DIRS = ("cli", "config", "models", "train", "losses", "nn", "ops",
+                 "data", "csrc")
+# the items of a --synthetic train set (JAX cli/main.py:248-256,274-284)
+SYNTHETIC_ITEMS = {"multi-mnist": 512, "clevr": 256}
 
 
-def synthetic_set(variant: str, batch_size: int, seed: int,
-                  imsize: int = 64) -> dict:
-    """The variant's synthetic train split, in memory, at the JAX CLI's
-    size (``cli/main.py:277,304,336``)."""
-    if variant == "multi-mnist":
-        return synthetic_multimnist(512, seed=seed, imsize=imsize)
-    if variant == "clevr":
-        return synthetic_clevr(256, seed=seed, imsize=imsize)
-    # at least 2 full batches, else the drop-last loop is empty
-    return synthetic_coco(max(2 * batch_size, 64), seed=seed, imsize=imsize)
+def synthetic_items(variant: str, batch: int) -> int:
+    """The items of ``variant``'s --synthetic train set: the on-disk sizes,
+    and for COCO at least 2 full batches (else the drop-last loop is
+    empty)."""
+    return SYNTHETIC_ITEMS.get(variant, max(2 * batch, 64))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--variant", required=True, choices=VARIANTS)
     p.add_argument("--cfg", dest="cfg_file", required=True)
+    p.add_argument("--data_dir", default="", help="override cfg DATA_DIR")
+    p.add_argument("--output_dir", default="")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on the variant's synthetic set, in memory")
+                   help="write a synthetic train split to DATA_DIR when it "
+                        "is missing (COCO: train on one in memory)")
+    p.add_argument("--resume", default="",
+                   help="output dir of a previous run to resume from")
     p.add_argument("--max_epochs", type=int, default=None,
                    help="stop after this many epochs (default TRAIN.MAX_EPOCH)")
+    p.add_argument("--snapshot_interval", type=int, default=None,
+                   help="override TRAIN.SNAPSHOT_INTERVAL (the last epoch "
+                        "is always checkpointed)")
     p.add_argument("--manualSeed", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
@@ -73,21 +94,149 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "whole batch (default), G > 1 = per-replica "
                         "DataParallel statistics over G contiguous batch "
                         "chunks, as a G-GPU reference run computes them")
+    p.add_argument("--num_objects", type=int, default=None,
+                   help="sampling: truncate or extend each layout's objects "
+                        "(ref trainer.py:219-243)")
+    p.add_argument("--bbox_scale", type=float, default=None,
+                   help="sampling: scale every box's w and h (ref "
+                        "trainer.py:245-253)")
     return p.parse_args(argv)
 
 
+def check_resume_flags(resume_dir: str, **current) -> list:
+    """Warn for each knob that differs from the resumed run's
+    ``run_flags.json`` (a resumed run that forgets ``--bf16`` or
+    ``--bn_groups`` silently changes its training); returns their keys."""
+    path = os.path.join(resume_dir, "run_flags.json")
+    if not os.path.isfile(path):
+        return []
+    with open(path) as f:
+        prev = json.load(f)
+    mismatched = []
+    for key, cur in current.items():
+        if key in prev and prev[key] != cur:
+            mismatched.append(key)
+            warnings.warn(
+                f"--resume: {key} differs from the original run "
+                f"({prev[key]!r} -> {cur!r}); training dynamics will change "
+                "mid-run; pass the original flag unless this is intended",
+                UserWarning)
+    return mismatched
+
+
+def record_run_flags(output_dir: str, resume: str | None, **flags) -> str:
+    """Check the knobs against the resumed run, then record them in
+    ``<output_dir>/run_flags.json`` with the git sha of the code. An
+    in-place resume (``--resume`` = ``--output_dir``) keeps the original
+    record, so later resumes still compare against the run's origin.
+    Returns the record's path."""
+    if resume:
+        check_resume_flags(resume, **{k: flags[k] for k in (
+            "bn_groups", "bf16", "manualSeed") if k in flags})
+    path = os.path.join(output_dir, "run_flags.json")
+    in_place = bool(resume and os.path.isfile(path) and os.path.isdir(resume)
+                    and os.path.samefile(resume, output_dir))
+    if not in_place:
+        sha = _git_sha()
+        if sha:
+            flags = dict(flags, git_sha=sha)
+        with open(path, "w") as f:
+            json.dump(flags, f)
+    return path
+
+
+def resumed_seed(resume_dir: str):
+    """The ``manualSeed`` of the run in ``resume_dir`` (its
+    ``run_flags.json``), or None when it has no record."""
+    path = os.path.join(resume_dir, "run_flags.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f).get("manualSeed")
+
+
+def _git_sha() -> str:
+    """HEAD of the repository holding the port, with ``-dirty`` when its
+    tracked files have changes; '' outside a git checkout."""
+    repo = os.path.dirname(PKG_ROOT)
+    try:
+        sha = subprocess.run(
+            ["git", "-C", repo, "rev-parse", "HEAD"], capture_output=True,
+            text=True, timeout=10, check=True).stdout.strip()
+        dirty = subprocess.run(
+            ["git", "-C", repo, "status", "--porcelain",
+             "--untracked-files=no", "--", ".", ":(exclude)PROGRESS.jsonl"],
+            capture_output=True, text=True, timeout=10,
+            check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return sha + ("-dirty" if dirty else "")
+
+
+def train_loader(args, cfg, variant: str, seed: int, device):
+    """The variant's train loader: Multi-MNIST and CLEVR from DATA_DIR
+    (written there first with ``--synthetic`` when missing), COCO from a
+    synthetic set held on the device."""
+    batch = train_settings(cfg).batch_size
+    imsize = int(cfg.IMSIZE)
+    if variant == "coco-stackgan-1":
+        if not args.synthetic:
+            sys.exit("the port has no on-disk COCO reader yet; pass "
+                     "--synthetic")
+        data = synthetic_coco(synthetic_items(variant, batch), seed=seed,
+                              imsize=imsize)
+        return MemoryLoader(data, batch, seed=seed, device=device)
+    marker = os.path.join(cfg.DATA_DIR, "train",
+                          MNIST_VARIANT if variant == "multi-mnist"
+                          else "scenes")
+    if not os.path.isdir(marker):
+        if not args.synthetic:
+            sys.exit(f"dataset not found at {marker} (pass --synthetic to "
+                     "generate one)")
+        write = (write_synthetic_multimnist if variant == "multi-mnist"
+                 else write_synthetic_clevr)
+        write(cfg.DATA_DIR, n=synthetic_items(variant, batch),
+              split="train", seed=seed, imsize=imsize)
+    if variant == "multi-mnist":
+        ds = MultiMnistDataset(cfg.DATA_DIR, split="train", imsize=imsize)
+    else:
+        ds = ClevrDataset(cfg.DATA_DIR, split="train", imsize=imsize,
+                          seed=seed)
+    return Loader(ds, batch, seed=seed)
+
+
+def snapshot_sources(output_dir: str) -> None:
+    """Copy the port's sources that define the run into
+    ``<output_dir>/src_snapshot`` (code/multi-mnist/main.py:71-76)."""
+    snap = os.path.join(output_dir, "src_snapshot")
+    for rel in SNAPSHOT_DIRS:
+        src = os.path.join(PKG_ROOT, rel)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(snap, rel), dirs_exist_ok=True,
+                            ignore=shutil.ignore_patterns("__pycache__"))
+
+
 def main(argv=None) -> list[dict]:
-    """Run the training the arguments ask for; returns the per-epoch mean
-    losses of :func:`~multiple_objects_gan_tpu_torch.train.loop.run_epochs`."""
+    """Run what the arguments ask for. Training returns the per-epoch mean
+    losses of :func:`~multiple_objects_gan_tpu_torch.train.loop.run_epochs`;
+    sampling returns an empty list."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = cfg_from_file(args.cfg_file, args.variant)
-    if not cfg.TRAIN.FLAG:
-        raise SystemExit("TRAIN.FLAG is False: sampling is not ported yet")
-    if not args.synthetic:
-        raise SystemExit(f"the port has no on-disk {args.variant} reader "
-                         "yet; pass --synthetic")
+    if args.data_dir:
+        cfg.DATA_DIR = args.data_dir
+    if args.snapshot_interval is not None:
+        cfg.TRAIN.SNAPSHOT_INTERVAL = args.snapshot_interval
     seed = args.manualSeed
+    if seed is None and args.resume:
+        seed = resumed_seed(args.resume)
+        if seed is None:
+            warnings.warn(f"--resume: {args.resume} records no manualSeed; "
+                          "the resumed epochs shuffle with a new seed",
+                          UserWarning)
+        else:
+            print(f"seed {seed} from {args.resume}/run_flags.json",
+                  flush=True)
     if seed is None:
         seed = random.randint(1, 10000)
     random.seed(seed)
@@ -98,23 +247,38 @@ def main(argv=None) -> list[dict]:
         cfg, args.variant,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         bn_groups=args.bn_groups)
-    train = train_settings(cfg)
-    n_epochs = train.max_epoch if args.max_epochs is None else args.max_epochs
-    state = create_state(mcfg, seed=seed, device=device)
-    data = synthetic_set(args.variant, train.batch_size, seed, cfg.IMSIZE)
-    n_items = len(data["image"])
-    generator = torch.Generator(device=device).manual_seed(seed)
-    kl = f", KL x {train.kl_coeff:g}" if mcfg.use_ca else ""
+    if not cfg.TRAIN.FLAG and args.variant not in ("multi-mnist", "clevr"):
+        sys.exit(f"sampling {args.variant} is not ported yet")
+    loader = (train_loader(args, cfg, args.variant, seed, device)
+              if cfg.TRAIN.FLAG else None)
+    now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    output_dir = args.output_dir or os.path.join(
+        "output", f"{cfg.DATASET_NAME}_{now}")
+    os.makedirs(output_dir, exist_ok=True)
+    record_run_flags(output_dir, args.resume, bn_groups=args.bn_groups,
+                     bf16=bool(args.bf16), variant=args.variant,
+                     manualSeed=seed)
+    cfg_copy = os.path.join(output_dir, os.path.basename(args.cfg_file))
+    if not (os.path.exists(cfg_copy)
+            and os.path.samefile(args.cfg_file, cfg_copy)):
+        shutil.copyfile(args.cfg_file, cfg_copy)
+
+    if not cfg.TRAIN.FLAG:
+        sample_stage1(args, cfg, mcfg, output_dir, args.variant, seed,
+                      device=device)
+        return []
+    if not args.resume:
+        snapshot_sources(output_dir)
+    kl = f", KL x {train_settings(cfg).kl_coeff:g}" if mcfg.use_ca else ""
     print(f"{args.variant} stage 1 on {device}: ngf {mcfg.ngf}, ndf "
-          f"{mcfg.df_dim}, {mcfg.num_objects} objects, batch "
-          f"{train.batch_size}, {n_items} synthetic items, {n_epochs} "
-          f"epochs, seed {seed}, {'bf16' if args.bf16 else 'float32'}, "
-          f"BatchNorm groups {mcfg.bn_groups}{kl}", flush=True)
-    return run_epochs(state, data, make_train_step(mcfg, train.kl_coeff),
-                      generator, batch_size=train.batch_size,
-                      lr_g=train.generator_lr, lr_d=train.discriminator_lr,
-                      n_epochs=n_epochs, lr_decay_epochs=train.lr_decay_epoch,
-                      seed=seed)
+          f"{mcfg.df_dim}, {mcfg.num_objects} objects, batch {loader.bs}, "
+          f"{len(loader)} steps an epoch, seed {seed}, "
+          f"{'bf16' if args.bf16 else 'float32'}, BatchNorm groups "
+          f"{mcfg.bn_groups}{kl}; output {output_dir}", flush=True)
+    _, history = train(cfg, mcfg, loader, output_dir, device=device,
+                       seed=seed, max_epochs=args.max_epochs,
+                       resume_dir=args.resume or None)
+    return history
 
 
 if __name__ == "__main__":

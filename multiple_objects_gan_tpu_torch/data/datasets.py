@@ -1,0 +1,250 @@
+"""The on-disk Multi-MNIST and CLEVR sets, their writers and the batch
+loaders (the port's copy of the JAX package's ``data/datasets.py``).
+
+Formats, as the reference's pipelines read them:
+
+* Multi-MNIST (code/multi-mnist/miscc/datasets.py:25-86):
+  ``<data_dir>/<split>/normal/{filenames,bboxes,labels}.pickle`` and
+  ``imgs/*.png``; the labels are per-object one-hot rows (3, 10).
+* CLEVR (code/clevr/miscc/datasets.py:44-145): ``<data_dir>/<split>/
+  images/*.png`` and ``scenes/*.json``; boxes over the image size, padded
+  with -1 to 4 objects; shape and colour one-hots; a random h-flip mirrors
+  the box x (x' = 1 - x - w).
+
+Images are decoded by the port's own PNG reader (``data/png.py``) to uint8
+and travel as uint8; the model's normalise to [-1, 1] runs on the device
+(``utils/images.py:as_model_image``). :class:`Loader` is the JAX package's
+shuffled, drop-last batcher with a prefetch thread; :class:`MemoryLoader`
+batches a set held on the device in the same order (the COCO set, which
+has no on-disk reader yet). The JAX loader's multi-host ``shard`` and its
+native-decoder ``workers`` are not ported (ROADMAP Queue 1, items 14, 9b).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from multiple_objects_gan_tpu_torch.data.png import read_png, resize_bilinear
+from multiple_objects_gan_tpu_torch.data.synthetic import (
+    clevr_item, clevr_scenes, synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.io.pycompat import load_pickle
+from multiple_objects_gan_tpu_torch.utils.images import png_bytes
+
+MNIST_VARIANT = "normal"    # the reference's Multi-MNIST set directory
+PREFETCH = 2                # batches the Loader's thread assembles ahead
+
+
+def _load_image(path: str, channels: int, imsize: int | None = None
+                ) -> np.ndarray:
+    """A PNG as uint8 (H, W, channels), resized to imsize x imsize with
+    PIL's bilinear filter when given and different."""
+    img = read_png(path, "L" if channels == 1 else "RGB")
+    if imsize is not None and img.shape[:2] != (imsize, imsize):
+        img = resize_bilinear(img, (imsize, imsize))
+    return img[..., None] if channels == 1 else img
+
+
+class MultiMnistDataset:
+    """Multi-MNIST pickles and image directory (reference format). The
+    whole split is decoded once, at imsize, and batches are slices of it
+    (64x64 gray is 4 KB an image)."""
+
+    max_objects = 3
+    label_dim = 10
+    channels = 1
+
+    def __init__(self, data_dir: str, split: str = "train", imsize: int = 64):
+        self.split_dir = os.path.join(data_dir, split, MNIST_VARIANT)
+        self.img_dir = os.path.join(self.split_dir, "imgs")
+        self.imsize = imsize
+        self.filenames = load_pickle(
+            os.path.join(self.split_dir, "filenames.pickle"))
+        self.bboxes = np.array(
+            load_pickle(os.path.join(self.split_dir, "bboxes.pickle")),
+            dtype=np.float32)
+        self.labels = np.array(
+            load_pickle(os.path.join(self.split_dir, "labels.pickle")),
+            dtype=np.float32)
+        self._cache = np.stack([self._image(i) for i in range(len(self))])
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def _image(self, idx: int) -> np.ndarray:
+        name = str(self.filenames[idx]).split("/")[-1]
+        return _load_image(os.path.join(self.img_dir, name), self.channels,
+                           self.imsize)
+
+    def __getitem__(self, idx: int) -> dict:
+        return {"image": self._cache[idx], "bbox": self.bboxes[idx],
+                "label_onehot": self.labels[idx]}
+
+    def get_batch(self, idxs) -> dict:
+        return {"image": self._cache[idxs], "bbox": self.bboxes[idxs],
+                "label_onehot": self.labels[idxs]}
+
+
+class ClevrDataset:
+    """CLEVR images and ``scenes/*.json`` (reference format). The h-flip
+    draws one ``rand()`` a visit from ``RandomState(seed)``, in the order
+    the items are visited, before the resize to imsize."""
+
+    max_objects = 4
+    label_dim = 13
+    channels = 3
+
+    def __init__(self, data_dir: str, split: str = "train",
+                 imsize: int = 64, hflip: bool = True, seed: int = 0):
+        self.img_dir = os.path.join(data_dir, split, "images")
+        scene_dir = os.path.join(data_dir, split, "scenes")
+        self.imsize = imsize
+        self.hflip = hflip
+        self._rng = np.random.RandomState(seed)
+        self.scenes = sorted(
+            os.path.join(scene_dir, f) for f in os.listdir(scene_dir)
+            if f.endswith(".json"))
+
+    def __len__(self) -> int:
+        return len(self.scenes)
+
+    def __getitem__(self, idx: int) -> dict:
+        with open(self.scenes[idx]) as f:
+            scene = json.load(f)
+        img = _load_image(
+            os.path.join(self.img_dir, scene["image_filename"]), 3)
+        bbox, label = clevr_item(scene["objects"], img.shape[:2])
+        if self.hflip and self._rng.rand() < 0.5:
+            img = img[:, ::-1].copy()
+            valid = bbox[:, 0] >= 0
+            bbox[valid, 0] = 1.0 - bbox[valid, 0] - bbox[valid, 2]
+        if img.shape[:2] != (self.imsize, self.imsize):
+            img = resize_bilinear(img, (self.imsize, self.imsize))
+        return {"image": img, "bbox": bbox, "label_onehot": label}
+
+
+class Loader:
+    """Shuffled (``seed + epoch``), drop-last batches of numpy arrays,
+    assembled by a prefetch thread ``PREFETCH`` batches ahead. An error in
+    the thread is raised in the consumer."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0):
+        self.ds = dataset
+        self.bs = batch_size
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.ds) // self.bs
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
+        order = np.arange(len(self.ds))
+        np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        n_batches = len(self)
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        get_batch = getattr(self.ds, "get_batch", None)
+
+        def worker():
+            try:
+                for b in range(n_batches):
+                    idxs = order[b * self.bs:(b + 1) * self.bs]
+                    if get_batch is not None:
+                        batch = get_batch(idxs)
+                    else:
+                        items = [self.ds[int(i)] for i in idxs]
+                        batch = {k: np.stack([it[k] for it in items])
+                                 for k in items[0]}
+                    q.put(batch)
+                q.put(None)
+            except Exception as e:  # noqa: BLE001 - raised in the consumer
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            batch = q.get()
+            if batch is None:
+                return
+            if isinstance(batch, Exception):
+                raise batch
+            yield batch
+
+
+class MemoryLoader:
+    """A set held on ``device`` (arrays keyed ``image``, ``bbox``,
+    ``label_onehot`` and, for COCO, ``text_embedding`` (n, captions, dim)),
+    batched in :class:`Loader`'s order. Each epoch gives every item one of
+    its captions, drawn from ``RandomState(seed)`` carried across epochs,
+    as the JAX COCO reader draws one a visit (``data/coco.py:102-103``)."""
+
+    def __init__(self, data: dict, batch_size: int, seed: int = 0,
+                 device="cpu"):
+        self.tensors = {k: torch.as_tensor(v).to(device)
+                        for k, v in data.items()}
+        self.captions = self.tensors.pop("text_embedding", None)
+        self._caption_rng = np.random.RandomState(seed)
+        self.n = self.tensors["image"].shape[0]
+        self.bs = batch_size
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.n // self.bs
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
+        device = self.tensors["image"].device
+        order = np.arange(self.n)
+        np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        order = torch.from_numpy(order).to(device)
+        tensors = dict(self.tensors)
+        if self.captions is not None:
+            pick = self._caption_rng.randint(self.captions.shape[1],
+                                             size=self.n)
+            tensors["text_embedding"] = self.captions[
+                torch.arange(self.n, device=device),
+                torch.from_numpy(pick).to(device)]
+        for i in range(len(self)):
+            idx = order[i * self.bs:(i + 1) * self.bs]
+            yield {k: v.index_select(0, idx) for k, v in tensors.items()}
+
+
+def write_synthetic_multimnist(data_dir: str, n: int = 256,
+                               split: str = "train", seed: int = 0,
+                               imsize: int = 64) -> None:
+    """The JAX ``write_synthetic_multimnist`` set (the draws of
+    ``data/synthetic.py:synthetic_multimnist``): ``<split>/normal/imgs/
+    synthetic_NNNNN.png`` and the three pickles."""
+    data = synthetic_multimnist(n, seed=seed, imsize=imsize)
+    split_dir = os.path.join(data_dir, split, MNIST_VARIANT)
+    img_dir = os.path.join(split_dir, "imgs")
+    os.makedirs(img_dir, exist_ok=True)
+    filenames = [f"synthetic_{i:05d}.png" for i in range(n)]
+    for name, img in zip(filenames, data["image"]):
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(png_bytes(img))
+    for key, value in (("filenames", filenames), ("bboxes", data["bbox"]),
+                       ("labels", data["label_onehot"])):
+        with open(os.path.join(split_dir, f"{key}.pickle"), "wb") as f:
+            pickle.dump(value, f)
+
+
+def write_synthetic_clevr(data_dir: str, n: int = 128, split: str = "train",
+                          seed: int = 0, imsize: int = 64) -> None:
+    """The JAX ``write_synthetic_clevr`` set (the draws of
+    ``data/synthetic.py:clevr_scenes``): ``<split>/images/CLEVR_<split>_
+    NNNNNN.png`` and a ``scenes/*.json`` for each."""
+    img_dir = os.path.join(data_dir, split, "images")
+    scene_dir = os.path.join(data_dir, split, "scenes")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(scene_dir, exist_ok=True)
+    for i, (img, objects) in enumerate(clevr_scenes(n, seed, imsize)):
+        name = f"CLEVR_{split}_{i:06d}.png"
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(png_bytes(img))
+        with open(os.path.join(scene_dir, name.replace(".png", ".json")),
+                  "w") as f:
+            json.dump({"image_filename": name, "objects": objects}, f)

@@ -4,19 +4,20 @@
   batch of any stage-1 variant, the batch ``bench.py`` times.
 * :func:`synthetic_multimnist` is the numpy part of
   ``data/datasets.py:write_synthetic_multimnist``: the same uint8 images,
-  boxes and one-hot labels from the same seed, held in memory. Nothing is
-  written to disk, and no imaging library is needed.
-* :func:`synthetic_clevr` is the numpy part of
-  ``data/datasets.py:write_synthetic_clevr`` with the items
-  ``ClevrDataset`` reads back from it.
+  boxes and one-hot labels from the same seed, held in memory.
+* :func:`clevr_scenes` makes the draws of
+  ``data/datasets.py:write_synthetic_clevr``, and :func:`synthetic_clevr`
+  holds in memory the items ``ClevrDataset`` reads back from it without
+  its h-flip.
 * :func:`synthetic_coco` makes the draws of ``data/coco.py:
   write_synthetic_coco`` from the same seed, with the images drawn at
   64x64 directly.
 
-Left for the on-disk readers (ROADMAP Queue 1, item 9): the PNG and JPEG
-round trips, clevr's random h-flip (``ClevrDataset(hflip=True)``), and
-COCO's resize to 76 with a random 64 crop and flip and the box rescale
-that goes with them (``data/coco.py:29-43,134-141``).
+The port's ``data/datasets.py`` writes the Multi-MNIST and CLEVR sets to
+disk and reads them back. Left for COCO's on-disk reader (ROADMAP Queue 1,
+item 9b): the JPEG round trip, and COCO's resize to 76 with a random 64
+crop and flip and the box rescale that goes with them
+(``data/coco.py:29-43,134-141``).
 """
 
 from __future__ import annotations
@@ -119,25 +120,17 @@ _CLEVR_PALETTE = {"gray": (128, 128, 128), "red": (200, 30, 30),
 CLEVR_MAX_OBJECTS = 4
 
 
-def synthetic_clevr(n: int = 256, seed: int = 0, imsize: int = 64) -> dict:
-    """The CLEVR-format set of ``write_synthetic_clevr`` as ``ClevrDataset``
-    reads it without its h-flip: ``image`` (n, H, W, 3) uint8 with 2-4
-    coloured cubes, discs and capsules, ``bbox`` (n, 4, 4) float32 (x, y,
-    w, h) in [0, 1], -1 for a padded object, ``label_onehot`` (n, 4, 13)
-    float32: shape in slots 0-2, colour in slots 4-11, and a padded object
-    one-hot in slots 3 and 12 (``datasets.py:156-165``), which enter the
-    D condition."""
+def clevr_scenes(n: int = 256, seed: int = 0, imsize: int = 64):
+    """The draws of ``write_synthetic_clevr``, in its order: per item the
+    uint8 image (H, W, 3) with 2-4 coloured cubes, discs and capsules and
+    its scene's objects, ``{"bbox": [x, y, w, h] in pixels, "shape",
+    "color"}``."""
     rng = np.random.RandomState(seed)
     shapes, colors = list(CLEVR_SHAPES), list(CLEVR_COLORS)
-    o = CLEVR_MAX_OBJECTS
-    images = np.zeros((n, imsize, imsize, 3), np.uint8)
-    bboxes = np.full((n, o, 4), -1.0, np.float32)
-    labels = np.zeros((n, o, 13), np.float32)
-    labels[:, :, 3] = 1.0
-    labels[:, :, 4 + 8] = 1.0
-    for i in range(n):
-        img = images[i]
-        for j in range(rng.randint(2, 5)):
+    for _ in range(n):
+        img = np.zeros((imsize, imsize, 3), np.uint8)
+        objects = []
+        for _ in range(rng.randint(2, 5)):
             w = h = rng.randint(imsize // 6, imsize // 3)
             x = rng.randint(0, imsize - w)
             y = rng.randint(0, imsize - h)
@@ -153,11 +146,46 @@ def synthetic_clevr(n: int = 256, seed: int = 0, imsize: int = 64) -> dict:
             else:
                 mask = np.ones((h, w), bool)
             img[y:y + h, x:x + w][mask] = _CLEVR_PALETTE[color]
-            bboxes[i, j] = [x / imsize, y / imsize, w / imsize, h / imsize]
-            labels[i, j] = 0.0
-            labels[i, j, CLEVR_SHAPES[shape]] = 1.0
-            labels[i, j, 4 + CLEVR_COLORS[color]] = 1.0
-    return {"image": images, "bbox": bboxes, "label_onehot": labels}
+            objects.append({"bbox": [float(x), float(y), float(w), float(h)],
+                            "shape": shape, "color": color})
+        yield img, objects
+
+
+def clevr_item(objects: list, hw: tuple[int, int]
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """A scene's objects -> (bbox (4, 4) float32 (x, y, w, h) over the
+    image's size (H, W), -1 for a padded object; label_onehot (4, 13)
+    float32: shape in slots 0-2, colour in slots 4-11, and a padded object
+    one-hot in slots 3 and 12 (``datasets.py:156-165``), which enter the
+    D condition)."""
+    h, w = hw
+    o = CLEVR_MAX_OBJECTS
+    bbox = np.full((o, 4), -1.0, np.float32)
+    label = np.zeros((o, 13), np.float32)
+    label[:, 3] = 1.0
+    label[:, 4 + 8] = 1.0
+    for i, obj in enumerate(objects[:o]):
+        x, y, bw, bh = obj["bbox"]
+        bbox[i] = [x / w, y / h, bw / w, bh / h]
+        label[i] = 0.0
+        label[i, CLEVR_SHAPES[obj["shape"]]] = 1.0
+        label[i, 4 + CLEVR_COLORS[obj["color"]]] = 1.0
+    return bbox, label
+
+
+def synthetic_clevr(n: int = 256, seed: int = 0, imsize: int = 64) -> dict:
+    """The CLEVR-format set of ``write_synthetic_clevr`` as ``ClevrDataset``
+    reads it without its h-flip: ``image`` (n, H, W, 3) uint8, ``bbox``
+    (n, 4, 4) and ``label_onehot`` (n, 4, 13) float32 (:func:`clevr_item`).
+    """
+    images, bboxes, labels = [], [], []
+    for img, objects in clevr_scenes(n, seed, imsize):
+        bbox, label = clevr_item(objects, img.shape[:2])
+        images.append(img)
+        bboxes.append(bbox)
+        labels.append(label)
+    return {"image": np.stack(images), "bbox": np.stack(bboxes),
+            "label_onehot": np.stack(labels)}
 
 
 COCO_MAX_OBJECTS = 3

@@ -17,6 +17,7 @@ package's ``io/torch_export.py:export_stage1_g/export_stage1_d`` and
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -127,6 +128,13 @@ def stage1_d_state_dict_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def _reference_state_dict(path: str, key: str) -> dict[str, torch.Tensor]:
+    """``ckpt[key]`` of a reference-format ``.pth``, or the file itself
+    when it is a bare state dict."""
+    ckpt = torch_load(path)
+    return dict(ckpt[key] if key in ckpt else ckpt)
+
+
 def load_reference_g(path: str) -> dict[str, torch.Tensor]:
     """The generator state dict of a reference-format ``.pth``: either
     ``{'epoch', 'netG', ...}`` as the reference's save_model writes it
@@ -135,9 +143,30 @@ def load_reference_g(path: str) -> dict[str, torch.Tensor]:
     ``io/torch_import.py:96-110``: ``label.*`` is the live embedding of
     clevr and stackgan and mnist's dead module, ``ca_net.fc.*`` the CA
     net), so :func:`build_stage1_g` loads the result with strict=True."""
-    ckpt = torch_load(path)
-    sd = ckpt["netG"] if "netG" in ckpt else ckpt
-    return {k: v for k, v in sd.items()}
+    return _reference_state_dict(path, "netG")
+
+
+def load_reference_d(path: str) -> dict[str, torch.Tensor]:
+    """The discriminator state dict of a reference-format ``.pth``: a bare
+    state dict, as the reference saves netD (code/multi-mnist/miscc/
+    utils.py:165-168), or ``{'netD': ...}``. The keys are STAGE1_D's and
+    D_GET_LOGITS's (JAX ``io/torch_import.py:import_stage1_d``), so
+    :func:`build_stage1_d` loads the result with strict=True."""
+    return _reference_state_dict(path, "netD")
+
+
+def warm_start(state, net_g: str = "", net_d: str = "") -> list[str]:
+    """The reference's NET_G/NET_D warm start (load_network_stageI,
+    code/multi-mnist/trainer.py:59-68; JAX ``train/loop.py:150-160``):
+    each path that ends in ``.pth`` and exists is loaded into ``state.g``
+    or ``state.d`` with strict=True. Returns the paths loaded."""
+    loaded = []
+    for path, module, load in ((net_g, state.g, load_reference_g),
+                               (net_d, state.d, load_reference_d)):
+        if path and str(path).endswith(".pth") and os.path.exists(path):
+            module.load_state_dict(load(path), strict=True)
+            loaded.append(path)
+    return loaded
 
 
 def reference_init_(model: nn.Module, seed: int) -> None:

@@ -1,75 +1,174 @@
-"""The epoch loop of Stage-1 training (port of the JAX
-``train/loop.py:run_epochs``, without snapshots, image grids, checkpoints
-or the 500-step log).
+"""Stage-1 training: the epoch loop and the run around it (the port's copy
+of the JAX package's ``train/loop.py``).
 
-It keeps the reference's learning-rate rule (code/multi-mnist/
-trainer.py:105-111): both rates are halved every ``lr_decay_epochs``
-epochs, computed from the epoch index. Each epoch visits the set in an
-order shuffled from ``seed + epoch`` in batches of ``batch_size``, the
-last partial batch dropped, as the JAX ``Loader`` does. The whole set
-lives on the device, so a step moves no data from the host. One line per
-epoch gives the mean of each loss over its steps (``kl_loss`` among them
-under the CA net).
+Parity target: GANTrainer.train (code/multi-mnist/trainer.py:75-206):
 
-A set with caption embeddings (``text_embedding`` (n, captions, dim), the
-COCO set) gives each item one of its captions each epoch, drawn from a
-numpy RandomState seeded with ``seed`` and carried across epochs, as the
-JAX COCO reader draws one per item visit (``data/coco.py:102-103``).
+* both learning rates are halved every ``lr_decay_epochs`` epochs,
+  computed from the epoch index, so a resumed run lands where a fresh run
+  would be (trainer.py:105-111);
+* scalars at the first step of every epoch and every ``LOG_EVERY`` steps
+  within it, keyed by the global step (``utils/logging.py``);
+* one line an epoch, with the mean of each loss over its steps;
+* after each epoch, the eval-mode generator's batch-64 grid on the last
+  batch's layouts (``images/fake_samples_epoch_NNN.png``), and the real
+  images of that batch once, at the first epoch
+  (``images/real_samples.png``);
+* a checkpoint every ``snapshot_every`` epochs and always after the last
+  (``io/checkpoint.py``, newest five kept).
+
+Batches come from a loader (``data/datasets.py``: ``Loader`` for the sets
+on disk, ``MemoryLoader`` for a set held on the device). A batch of numpy
+arrays is copied to the device from pinned memory as uint8 and normalised
+there by the step (``utils/images.py:as_model_image``); the loader's
+prefetch thread keeps the reading off the step's path.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from multiple_objects_gan_tpu_torch.train.state import GANTrainState
+from multiple_objects_gan_tpu_torch.config.config import train_settings
+from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
+from multiple_objects_gan_tpu_torch.io.weights import warm_start
+from multiple_objects_gan_tpu_torch.models.common import Stage1Config
+from multiple_objects_gan_tpu_torch.train.state import (
+    GANTrainState, create_state)
+from multiple_objects_gan_tpu_torch.train.step import (
+    make_sample_fn, make_train_step)
+from multiple_objects_gan_tpu_torch.utils.images import save_grid
+from multiple_objects_gan_tpu_torch.utils.logging import MetricWriter
+
+GRID_BATCH = 64          # the epoch grid's batch (JAX train/loop.py:189)
+LOG_EVERY = 500          # steps between scalar records within an epoch
 
 
-def run_epochs(state: GANTrainState, data: dict, step_fn: Callable,
-               generator: torch.Generator, *, batch_size: int, lr_g: float,
-               lr_d: float, n_epochs: int, lr_decay_epochs: int = 0,
-               seed: int = 0) -> list[dict]:
-    """Train ``n_epochs`` epochs over ``data`` (arrays or tensors keyed
-    ``image``, ``bbox``, ``label_onehot`` and, for the CA family,
-    ``text_embedding`` with a caption axis). Returns one dict of mean
+def to_device(batch: dict, device: torch.device) -> dict:
+    """A loader's batch on ``device``: numpy arrays go through pinned
+    memory to the card; tensors already there stay."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        if t.device != device:
+            if device.type == "cuda":
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def run_epochs(state: GANTrainState, loader, step_fn: Callable,
+               generator: Optional[torch.Generator], *, lr_g: float,
+               lr_d: float, n_epochs: int, start_epoch: int = 0,
+               lr_decay_epochs: int = 0, snapshot_every: int = 0,
+               ckpt: Optional[CheckpointManager] = None,
+               writer: Optional[MetricWriter] = None,
+               epoch_end_fn: Optional[Callable] = None) -> list[dict]:
+    """Train epochs ``start_epoch`` .. ``n_epochs - 1`` over
+    ``loader.epoch(epoch)``. ``step_fn(state, batch, generator, lr_g,
+    lr_d) -> metrics`` updates ``state`` in place; ``epoch_end_fn(state,
+    last_batch, epoch)`` runs after each epoch. Returns one dict of mean
     losses (floats) per epoch, with its step count and wall time."""
-    device = next(state.g.parameters()).device
-    tensors = {k: torch.as_tensor(v).to(device) for k, v in data.items()}
-    captions = tensors.pop("text_embedding", None)
-    caption_rng = np.random.RandomState(seed)
-    n = tensors["image"].shape[0]
-    n_batches = n // batch_size
-    if n_batches == 0:
-        raise ValueError(f"{n} items make no batch of {batch_size}: no "
+    if len(loader) == 0:
+        raise ValueError(f"the loader makes no batch of {loader.bs}: no "
                          "training would run")
+    device = next(state.g.parameters()).device
     history = []
-    for epoch in range(n_epochs):
+    for epoch in range(start_epoch, n_epochs):
         t0 = time.perf_counter()
         f = 0.5 ** (epoch // lr_decay_epochs) if lr_decay_epochs else 1.0
-        order = np.arange(n)
-        np.random.RandomState(seed + epoch).shuffle(order)
-        order = torch.from_numpy(order).to(device)
-        if captions is not None:
-            pick = caption_rng.randint(captions.shape[1], size=n)
-            tensors["text_embedding"] = captions[
-                torch.arange(n, device=device),
-                torch.from_numpy(pick).to(device)]
         sums: dict = {}
-        for i in range(n_batches):
-            idx = order[i * batch_size:(i + 1) * batch_size]
-            batch = {k: v.index_select(0, idx) for k, v in tensors.items()}
+        last_batch, n_steps = None, 0
+        for i, batch in enumerate(loader.epoch(epoch)):
+            batch = to_device(batch, device)
+            step = state.step
             metrics = step_fn(state, batch, generator, lr_g * f, lr_d * f)
+            if writer is not None and i % LOG_EVERY == 0:
+                writer.scalars(step, {k: float(v)
+                                      for k, v in metrics.items()})
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
-        means = {k: float(v) / n_batches for k, v in sums.items()}
-        means["steps"] = n_batches
+            last_batch, n_steps = batch, n_steps + 1
+        means = {k: float(v) / n_steps for k, v in sums.items()}
+        means["steps"] = n_steps
         means["seconds"] = time.perf_counter() - t0
         history.append(means)
         print(f"[{epoch}/{n_epochs}] "
               + " ".join(f"{k}={means[k]:.4f}" for k in sorted(sums))
-              + f" lr_g={lr_g * f:g} lr_d={lr_d * f:g} steps={n_batches}"
+              + f" lr_g={lr_g * f:g} lr_d={lr_d * f:g} steps={n_steps}"
               f" time={means['seconds']:.1f}s", flush=True)
+        if epoch_end_fn is not None:
+            epoch_end_fn(state, last_batch, epoch)
+        if ckpt is not None and snapshot_every and (
+                (epoch + 1) % snapshot_every == 0 or epoch == n_epochs - 1):
+            ckpt.save(epoch, state, generator)
     return history
+
+
+def grid_noise(seed: int, epoch: int, b: int, z_dim: int,
+               device: torch.device) -> torch.Tensor:
+    """The epoch grid's z: its own draw from (seed, epoch), as the JAX
+    loop folds the epoch into its key, so a grid neither moves the step's
+    generator nor differs between a resumed and an uninterrupted run."""
+    z = np.random.RandomState([seed, epoch]).standard_normal((b, z_dim))
+    return torch.from_numpy(z.astype(np.float32)).to(device)
+
+
+def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
+          seed: int = 0, max_epochs: Optional[int] = None,
+          resume_dir: Optional[str] = None
+          ) -> tuple[GANTrainState, list[dict]]:
+    """The whole stage-1 run of JAX ``train/loop.py:train``: the state from
+    the seed, warm-started from cfg ``NET_G``/``NET_D`` ``.pth`` files,
+    then restored from ``resume_dir``'s latest checkpoint when there is one
+    (training continues at the epoch after it); logs, grids and checkpoints
+    under ``output_dir``. Returns the final state and the per-epoch
+    history."""
+    device = torch.device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    img_dir = os.path.join(output_dir, "images")
+    settings = train_settings(cfg)
+    state = create_state(mcfg, seed=seed, device=device)
+    for path in warm_start(state, cfg.get("NET_G", ""), cfg.get("NET_D", "")):
+        print(f"Load from: {path}", flush=True)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    start_epoch = 0
+    if resume_dir:
+        prev = CheckpointManager(os.path.join(resume_dir, "models"))
+        if prev.latest_epoch() is not None:
+            start_epoch = prev.restore(state, generator) + 1
+            print(f"resumed from {resume_dir} at epoch {start_epoch}",
+                  flush=True)
+    n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)
+    sample = make_sample_fn(mcfg)
+
+    def epoch_grids(state, last_batch, epoch):
+        b = min(GRID_BATCH, last_batch["image"].shape[0])
+        text = last_batch.get("text_embedding")
+        fake = sample(state.g, grid_noise(seed, epoch, b, mcfg.z_dim, device),
+                      last_batch["bbox"][:b], last_batch["label_onehot"][:b],
+                      None if text is None else text[:b])
+        save_grid(fake.permute(0, 2, 3, 1).cpu().numpy(),
+                  os.path.join(img_dir, f"fake_samples_epoch_{epoch:03d}.png"))
+        if epoch == start_epoch:
+            save_grid(last_batch["image"][:b].cpu().numpy(),
+                      os.path.join(img_dir, "real_samples.png"))
+
+    writer = MetricWriter(os.path.join(output_dir, "logs"))
+    try:
+        history = run_epochs(
+            state, loader, make_train_step(mcfg, settings.kl_coeff),
+            generator, lr_g=settings.generator_lr,
+            lr_d=settings.discriminator_lr, n_epochs=n_epochs,
+            start_epoch=start_epoch, lr_decay_epochs=settings.lr_decay_epoch,
+            snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
+            ckpt=CheckpointManager(os.path.join(output_dir, "models")),
+            writer=writer, epoch_end_fn=epoch_grids)
+    finally:
+        writer.close()
+    return state, history

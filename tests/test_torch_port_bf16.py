@@ -371,7 +371,9 @@ def test_train_cli_bf16_and_bn_groups_on_the_cpu(tmp_path, capsys):
     hist = port_main.main(["--variant", "multi-mnist", "--cfg", str(yml),
                            "--synthetic", "--max_epochs", "1",
                            "--manualSeed", "3", "--device", "cpu", "--bf16",
-                           "--bn_groups", "2"])
+                           "--bn_groups", "2", "--data_dir",
+                           str(tmp_path / "data"), "--output_dir",
+                           str(tmp_path / "out")])
     assert len(hist) == 1 and hist[0]["steps"] == 4
     assert all(np.isfinite(hist[0][k]) for k in ("d_loss", "g_loss"))
     assert "bf16, BatchNorm groups 2" in capsys.readouterr().out

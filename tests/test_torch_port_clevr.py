@@ -434,7 +434,9 @@ def check_cli_epoch(tmp_path, variant, steps, flags=()):
     assert (mcfg.gf_dim, mcfg.df_dim) == (8, 8)
     hist = port_main.main(["--variant", variant, "--cfg", cfg, "--synthetic",
                            "--max_epochs", "1", "--manualSeed", "3",
-                           "--device", "cpu", *flags])
+                           "--device", "cpu", "--data_dir",
+                           str(tmp_path / "data"), "--output_dir",
+                           str(tmp_path / "out"), *flags])
     assert len(hist) == 1 and hist[0]["steps"] == steps
     for k in ("d_loss", "d_loss_real", "d_loss_wrong", "d_loss_fake",
               "g_loss", "g_loss_total"):

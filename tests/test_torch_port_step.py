@@ -60,6 +60,7 @@ from multiple_objects_gan_tpu_torch.io.weights import (
 from multiple_objects_gan_tpu_torch.losses import gan
 from multiple_objects_gan_tpu_torch.models import common
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
+from multiple_objects_gan_tpu_torch.data.datasets import MemoryLoader
 from multiple_objects_gan_tpu_torch.train.loop import run_epochs
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import make_train_step
@@ -410,8 +411,8 @@ def test_run_epochs_halves_the_rates_and_shuffles_like_the_jax_loader():
             "label_onehot": np.arange(n, dtype=np.float32).reshape(
                 n, 1, 1).repeat(3, 1).repeat(10, 2)}
     state = create_state(PCFG, device="cpu")
-    hist = run_epochs(state, data, step_fn, None, batch_size=5, lr_g=4.0,
-                      lr_d=2.0, n_epochs=3, lr_decay_epochs=2, seed=9)
+    hist = run_epochs(state, MemoryLoader(data, 5, seed=9), step_fn, None,
+                      lr_g=4.0, lr_d=2.0, n_epochs=3, lr_decay_epochs=2)
     assert [h["steps"] for h in hist] == [2, 2, 2]
     assert [s[:2] for s in seen] == [(4.0, 2.0)] * 4 + [(2.0, 1.0)] * 2
     for epoch in range(3):
@@ -429,11 +430,16 @@ def _tiny_cfg(tmp_path, batch):
     return str(yml)
 
 
+def _run_dirs(tmp_path):
+    return ["--data_dir", str(tmp_path / "data"), "--output_dir",
+            str(tmp_path / "out")]
+
+
 def test_cli_main_trains_one_synthetic_epoch_on_the_cpu(tmp_path, capsys):
     hist = port_main.main(["--variant", "multi-mnist", "--cfg",
                            _tiny_cfg(tmp_path, 128), "--synthetic",
                            "--max_epochs", "1", "--manualSeed", "3",
-                           "--device", "cpu"])
+                           "--device", "cpu", *_run_dirs(tmp_path)])
     assert len(hist) == 1 and hist[0]["steps"] == 512 // 128
     for k in ("d_loss", "d_loss_real", "d_loss_wrong", "d_loss_fake",
               "g_loss"):
@@ -446,7 +452,8 @@ def test_cli_main_refuses_without_synthetic_or_card(tmp_path, monkeypatch):
     cfg = _tiny_cfg(tmp_path, 8)
     with pytest.raises(SystemExit, match="--synthetic"):
         port_main.main(["--variant", "multi-mnist", "--cfg", cfg,
-                        "--device", "cpu"])
+                        "--device", "cpu", *_run_dirs(tmp_path)])
+    assert not (tmp_path / "out").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_main.main(["--variant", "multi-mnist", "--cfg", cfg,
