@@ -7,8 +7,9 @@ Run from the repository root, on a machine with a CUDA card, nvcc and the
 checkpoint runs_r5/mnist_repin/netG_final.pth. Phases 1-15 drive the
 Multi-MNIST paths, 16-20 the CLEVR and COCO-StackGAN-1 families at the
 widths of cfg/clevr_train.yml and cfg/coco_s1_train.yml, from seeded
-weights, and 21-24 the host side of stage 1: data on disk, checkpoints
-and resume, and sampling. The train entries' data and runs go to a
+weights, 21-24 the host side of stage 1: data on disk, checkpoints
+and resume, and sampling, and 25-29 COCO StackGAN stage 2 at the widths
+of cfg/coco_s2_train.yml, from seeded weights. The train entries' data and runs go to a
 temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
 
@@ -111,7 +112,30 @@ elapsed time:
  24. sample   - cli/main.py with TRAIN.FLAG False: 25 grids from the
                 trained mnist .pth on a synthetic test split, and 25 from
                 phase 22's clevr run directory, timed; the first grid of
-                each against the CPU's from the same weights.
+                each against the CPU's from the same weights;
+ 25. s2kernels - K1 and K2 at the stage-2 places, batch 40, float32 and
+                bf16: G2's (40,3,192,64,64) onto 64x64 (channel tiles of 1)
+                and D2's (40,3,192,30,30) onto 32x32 (K1's tile 4), boxes
+                inside the canvas with the last object padded (K1 equal bit
+                for bit to the other objects alone, K2 zeros for it), held
+                against the plain versions and timed cold in turns and on
+                the device alone beside the bound;
+ 26. s2step   - one full-width float32 stage-2 step (frozen G1, G2, D2)
+                from the reference init on the card against the same step
+                on the CPU at batch S2_STEP_BATCH: from fresh Adams read
+                against the CPU in float32 and float64, and from warm
+                Adams (an update linear in the gradient) held at phase 8's
+                limits; the frozen G1 bit-identical after every one;
+ 27. s2time   - the stage-2 step at batch 40, float32 and bf16: median of
+                CUDA events, images/s, peak memory, K1 and K2 launches a
+                step (5 and 4), the frozen G1's share;
+ 28. s2entry  - cli/main.py --variant coco-stackgan-2 --synthetic for one
+                epoch on the card, STAGE1_G a reference-format .pth the
+                phase writes, its artifacts, and a resume to epoch 2;
+ 29. s2serve  - G1 + G2 eval card against CPU at batch 4, and
+                Stage2Service over HTTP: 256px PNGs against the CPU's
+                images of the same items and draws, a bboxes_s2 override,
+                a length mismatch answered 400, then a 1-item request.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -144,27 +168,34 @@ import torch
 from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.cli.serve import (
-    Stage1Service, _item_layout, _png_b64, build_service, serve)
+    Stage1Service, Stage2Service, _item_boxes_s2, _item_layout, _png_b64,
+    build_service, serve)
+from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
-    cfg_from_file, stage1_model_config, train_settings)
+    cfg_from_file, stage1_model_config, stage2_model_config, train_settings)
 from multiple_objects_gan_tpu_torch.data.datasets import (
     ClevrDataset, MemoryLoader, MultiMnistDataset, write_synthetic_clevr,
     write_synthetic_multimnist)
-from multiple_objects_gan_tpu_torch.data.png import read_png, resize_bilinear
+from multiple_objects_gan_tpu_torch.data.png import (
+    decode_png, read_png, resize_bilinear)
 from multiple_objects_gan_tpu_torch.data.synthetic import (
-    synthetic_clevr, synthetic_coco, synthetic_multimnist)
+    synthetic_clevr, synthetic_coco, synthetic_coco_stage2,
+    synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
+from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import spike_normconv
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
-from multiple_objects_gan_tpu_torch.train.state import create_state
-from multiple_objects_gan_tpu_torch.train.step import make_train_step
+from multiple_objects_gan_tpu_torch.train.state import (
+    create_state, create_state_stage2)
+from multiple_objects_gan_tpu_torch.train.step import (
+    frozen_forward, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
     PNG_SIGNATURE, png_chunk, to_uint8)
 
@@ -341,7 +372,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/24 device")
+    log("phase 1/29 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -359,7 +390,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/24 build")
+    log("phase 2/29 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -404,7 +435,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/24 kernel against its plain version, on the card")
+    log("phase 3/29 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -467,7 +498,8 @@ def phase_kernel():
     for path, key in (("serve", "service 16"), ("train G", "train 16"),
                       ("train D", "train 15")):
         feats, bbox = timed[key]
-        out[path] = time_place(feats, bbox, f"K1 at the {path} shape")
+        out[path] = time_place(feats, bbox, (16, 16),
+                               f"K1 at the {path} shape")
     return out
 
 
@@ -497,20 +529,21 @@ def check_side_limit(dev, dtype):
     check(k1.launch_count() == before, "a refused call launched K1")
 
 
-def time_place(feats, bbox, label):
-    """K1 and its plain version timed cold in turns (plain, kernel, kernel,
-    plain), each reading a run of 50 calls (:func:`run_ms`) on a rotation
-    of input copies that finds every call's inputs in device memory
-    (:func:`cold_sets`), beside the bound for this run's boxes and the rate
-    it implies."""
-    bound_ms, bound_by, dense_ms, read = _bound(feats, bbox, (16, 16))
+def time_place(feats, bbox, out_hw, label):
+    """K1 and its plain version onto an ``out_hw`` canvas, timed cold in
+    turns (plain, kernel, kernel, plain), each reading a run of 50 calls
+    (:func:`run_ms`) on a rotation of input copies that finds every call's
+    inputs in device memory (:func:`cold_sets`), beside the bound for this
+    run's boxes and the rate it implies."""
+    out_hw = tuple(out_hw)
+    bound_ms, bound_by, dense_ms, read = _bound(feats, bbox, out_hw)
     sets = cold_sets((feats, bbox), read)
 
     def kernel(f, bb):
-        return k1.stn_place_multi_nchw(f, bb, (16, 16))
+        return k1.stn_place_multi_nchw(f, bb, out_hw)
 
     def plain(f, bb):
-        return k1.stn_place_multi_plain(f, bb, (16, 16))
+        return k1.stn_place_multi_plain(f, bb, out_hw)
 
     t = in_turns([("plain", plain), ("kernel", kernel), ("kernel", kernel),
                   ("plain", plain)], sets=sets)
@@ -518,7 +551,7 @@ def time_place(feats, bbox, label):
     dev_ms = graph_ms(kernel, sets)
     gbps = bound_ms / ms * HBM_BYTES_PER_S / 1e9 if bound_by == "bytes" \
         else float("nan")
-    log(f"{label} {tuple(feats.shape)} -> (16, 16) {str(feats.dtype)[6:]}, "
+    log(f"{label} {tuple(feats.shape)} -> {out_hw} {str(feats.dtype)[6:]}, "
         f"cold in turns (plain, K1, K1, plain; CUDA events around 50 calls "
         f"back to back each, rotating over {len(sets)} copies of the "
         f"inputs): K1 {t['kernel'][0]:.4f}, {t['kernel'][1]:.4f} ms; plain "
@@ -537,7 +570,7 @@ def time_place(feats, bbox, label):
 
 
 def phase_model():
-    log("phase 4/24 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/29 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -613,7 +646,7 @@ def _separation(u8, boxes) -> float:
 
 
 def phase_serve():
-    log("phase 5/24 serve: the port's main path over HTTP, on the card")
+    log("phase 5/29 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -760,7 +793,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/24 grad: K2 (place backward) against its plain version, "
+    log("phase 6/29 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -867,7 +900,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/24 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/29 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1023,7 +1056,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/24 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/29 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1057,7 +1090,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/24 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/29 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1137,7 +1170,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/24 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/29 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1236,7 +1269,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/24 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/29 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1271,7 +1304,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/24 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/29 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1326,14 +1359,14 @@ def phase_bf16_kernels():
                 out[kernel][timed] = time_grad(arg, bbox, hw,
                                                f"K2 bf16 at the {timed} shape")
                 continue
-            out[kernel][timed] = time_place(arg, bbox,
+            out[kernel][timed] = time_place(arg, bbox, (16, 16),
                                             f"K1 bf16 at the {timed} shape")
     check_side_limit(dev, torch.bfloat16)
     return out
 
 
 def phase_step_bf16():
-    log(f"phase 13/24 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/29 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1377,7 +1410,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/24 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/29 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1500,7 +1533,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/24 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/29 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1568,14 +1601,14 @@ def phase_family_kernels():
                 continue
             key = f"{variant} {path}"
             out["place"].setdefault(tname, {})[key] = time_place(
-                feats, bbox, f"K1 {tname} at the {key} shape")
+                feats, bbox, (16, 16), f"K1 {tname} at the {key} shape")
             out["grad"].setdefault(tname, {})[key] = time_grad(
                 g, bbox, hw, f"K2 {tname} at the {key} shape")
     return out
 
 
 def phase_family_step():
-    log(f"phase 17/24 fstep: one full-width float32 train step of each "
+    log(f"phase 17/29 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1614,7 +1647,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/24 ftime: each family's train step at batch "
+    log("phase 18/29 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1622,13 +1655,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/24 ftime, {key}",
+                                       f"18/29 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/24 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/29 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1665,7 +1698,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/24 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/29 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1817,7 +1850,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/24 probe: the image decoders this machine has, read only "
+    log("phase 21/29 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2071,7 +2104,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/24 disk: the train entries from disk (cli/main.py "
+    log("phase 22/29 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2251,7 +2284,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/24 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/29 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2274,7 +2307,7 @@ def phase_k1_batch9():
             out[worst] = max(out[worst],
                              _held(got, want, dtype, "K1", label))
             if "padded" not in name:
-                row = time_place(feats, bbox, f"K1 batch 9 {name}")
+                row = time_place(feats, bbox, (16, 16), f"K1 batch 9 {name}")
                 out["rows"].append({"case": label, **{
                     k: row[k] for k in ("ms", "plain_ms", "graph_ms",
                                         "bound_ms", "bound_by")}})
@@ -2294,7 +2327,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/24 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/29 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2346,6 +2379,519 @@ def phase_sample(clevr_run, clevr_data):
     return {"launches": launches, "seconds": seconds}
 
 
+# ------------------------------------------------------ COCO StackGAN stage 2
+
+
+S2_CFG = os.path.join(ROOT, "cfg", "coco_s2_train.yml")
+S2_BATCH = 40               # cfg/coco_s2_train.yml TRAIN.BATCH_SIZE
+S2_STEP_BATCH = 4           # the stage-2 step card vs CPU (phase 26): the
+                            # CPU's full-width step at 4 takes seconds
+S2_TIME_RUNS = 10           # CUDA-event readings a stage-2 step time
+S2_SERVE_BATCH = 4          # G1 + G2 eval forwards card vs CPU (phase 29)
+S2_LAUNCHES = (5, 4)        # K1 (G1, G2, D x 3) and K2 (D x 3, G2) a step
+
+
+def stage2_cfgs(dtype=None):
+    """The frozen stage-1 G's and stage 2's configs at the published
+    widths of cfg/coco_s2_train.yml (G1 ngf 1536; G2 gf 192, D2 df 96,
+    R_NUM 2)."""
+    return stage2_model_config(cfg_from_file(S2_CFG, "coco-stackgan-2"),
+                               compute_dtype=dtype)
+
+
+def stage2_data(b, seed):
+    """b items of the stage-2 synthetic train set (256px, 1-3 objects,
+    stage-2 boxes the stage-1 ones), each with one caption embedding."""
+    data = synthetic_coco_stage2(b, seed=seed)
+    data["text_embedding"] = data["text_embedding"][:, 0].copy()
+    return data
+
+
+def _stage2_boxes(rs, b, o):
+    """Boxes inside the canvas, 0.2-0.45 a side, the last object of every
+    item padded (-1)."""
+    w, h = rs.uniform(0.2, 0.45, (b, o)), rs.uniform(0.2, 0.45, (b, o))
+    bbox = np.stack([rs.uniform(0, 1 - w), rs.uniform(0, 1 - h), w, h],
+                    -1).astype(np.float32)
+    bbox[:, -1] = -1.0
+    return bbox
+
+
+def stage2_shapes():
+    """The stage-2 places: G2's (O, gf, 64x64) onto 64x64 and D2's
+    (O, 2 * df, 30x30) onto 32x32."""
+    _, s2 = stage2_cfgs()
+    o = s2.num_objects
+    return {"G2": (o, s2.gf_dim, (64, 64), (64, 64)),
+            "D2": (o, 2 * s2.df_dim, (30, 30), (32, 32))}
+
+
+def phase_stage2_kernels():
+    log(f"phase 25/29 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+        f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
+    rs = np.random.RandomState(25)
+    dev = torch.device(DEVICE)
+    shapes = stage2_shapes()
+    for path, (o, c, hw, out_hw) in shapes.items():
+        for es in (4, 2):
+            smem = k1.place_smem_bytes(o, k1.place_tile(hw, out_hw), hw,
+                                       out_hw, es)
+            gsmem = k1.grad_smem_bytes(o, k1.grad_tile(hw, out_hw), hw,
+                                       out_hw)
+            check(smem <= k1.MAX_PLACE_SMEM and gsmem <= k1.MAX_GRAD_SMEM,
+                  f"shared memory at {path}: K1 {smem}, K2 {gsmem}")
+        log(f"  {path} {hw} -> {out_hw}: K1 tile {k1.place_tile(hw, out_hw)}"
+            f", {k1.place_smem_bytes(o, k1.place_tile(hw, out_hw), hw, out_hw, 4)}"
+            f" B of shared memory (f32); K2 tile {k1.grad_tile(hw, out_hw)}, "
+            f"{k1.grad_smem_bytes(o, k1.grad_tile(hw, out_hw), hw, out_hw)} B")
+    out = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+           for k in ("place", "grad")}
+    under_half = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype)[6:]
+        worst = "max_abs_err" if dtype == torch.float32 else \
+            "max_abs_err_bf16"
+        for path, (o, c, hw, out_hw) in shapes.items():
+            b = S2_BATCH
+            bbox = torch.from_numpy(_stage2_boxes(rs, b, o)).to(dev)
+            feats = torch.from_numpy(rs.randn(b, o, c, *hw).astype(
+                np.float32)).to(dev).to(dtype)
+            g = torch.from_numpy(rs.uniform(-1, 1, (b, c) + out_hw).astype(
+                np.float32)).to(dev).to(dtype)
+            label = f"{path} {tname}"
+            got = k1.stn_place_multi_nchw(feats, bbox, out_hw)
+            err = _held(got, k1.stn_place_multi_plain(feats, bbox, out_hw),
+                        dtype, "K1", f"{label} {tuple(feats.shape)} -> "
+                        f"{out_hw}")
+            out["place"][worst] = max(out["place"][worst], err)
+            dg = k1.stn_place_multi_grad_nchw(g, bbox, hw)
+            err = _held(dg, k1.stn_place_multi_grad_plain(g, bbox, hw),
+                        dtype, "K2", f"{label} {tuple(g.shape)} -> "
+                        f"{tuple(dg.shape)}")
+            out["grad"][worst] = max(out["grad"][worst], err)
+            first = k1.stn_place_multi_nchw(
+                feats[:, :o - 1].contiguous(),
+                bbox[:, :o - 1].contiguous(), out_hw)
+            dg_first = k1.stn_place_multi_grad_nchw(
+                g, bbox[:, :o - 1].contiguous(), hw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, first), f"K1 {label}: the padded object "
+                  "changed the sums of the others")
+            check(int(torch.count_nonzero(dg[:, -1])) == 0
+                  and torch.equal(dg[:, :o - 1], dg_first),
+                  f"K2 {label}: the padded object must get exact zeros")
+            log(f"  {label}: K1 equal bit for bit to the unpadded objects "
+                "alone; K2 exact zeros for the padded one")
+            rows = {"place": time_place(feats, bbox, out_hw,
+                                        f"K1 {tname} at the {path} shape"),
+                    "grad": time_grad(g, bbox, hw,
+                                      f"K2 {tname} at the {path} shape")}
+            for kernel, row in rows.items():
+                row["launches_per_step"] = (
+                    S2_LAUNCHES[0 if kernel == "place" else 1])
+                out[kernel].setdefault(tname, {})[path] = row
+                if row["graph_share_of_bound"] < 0.5:
+                    under_half.append(
+                        f"{'K1' if kernel == 'place' else 'K2'} {label}: "
+                        f"{row['graph_share_of_bound']:.1%} of the bound on "
+                        f"the device alone, {row['share_of_bound']:.1%} "
+                        "cold in turns")
+    for line in under_half:
+        log(f"  under half of its bound: {line}")
+    out["under_half_of_bound"] = under_half
+    return out
+
+
+ADAM_WARM_COUNT = 10        # the warm Adam state of phase 26's held step
+
+
+def warm_adam(state):
+    """Both Adams at step ADAM_WARM_COUNT with first moments 0 and second
+    moments 1: the update is then about 0.05 lr * g, linear in the
+    gradient, where a fresh Adam's first update is lr * sign(g)
+    (tests/test_torch_port_stage2_step.py:_warm_adam)."""
+    for opt in (state.g_opt, state.d_opt):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                opt.state[p] = {"step": torch.tensor(float(ADAM_WARM_COUNT)),
+                                "exp_avg": torch.zeros_like(p),
+                                "exp_avg_sq": torch.ones_like(p)}
+
+
+def he_randomize(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Activation-preserving weights drawn on the CPU from ``seed``: conv
+    and linear weights N(0, 2 / fan_in), biases N(0, 0.1), BatchNorm
+    weights U(0.5, 1.5), biases N(0, 0.1), running means N(0, 0.2) and
+    variances U(0.5, 1.5) (tests/test_torch_port_stage2_step.py)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+                m.running_mean.copy_(
+                    0.2 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(
+                    0.5 + torch.rand(m.running_var.shape, generator=g))
+            elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * (2.0 / fan_in) ** 0.5)
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+    return module
+
+
+def step2_once(device, data, z, eps1, eps2, warm=False,
+               dtype=torch.float32):
+    """One full-width stage-2 step on ``device`` from the reference init
+    (G1 and G2 from seed 0, D2 from seed 1) with the noise given, in
+    ``dtype`` (float32, or float64 on the CPU as the exact reference),
+    from fresh Adams or, ``warm``, from :func:`warm_adam`. Returns its
+    losses, G2's and D2's state dicts before and after, their gradients
+    (float32), the step's host time, and whether the frozen G1 kept every
+    parameter and buffer bit for bit without a gradient."""
+    s1, s2 = stage2_cfgs()
+    g1 = build_stage1_g(s1, seed=0, device=device).to(dtype)
+    state = create_state_stage2(s2, seed=0, device=device)
+    state.g.to(dtype)
+    state.d.to(dtype)
+    if warm:
+        warm_adam(state)
+    nets = (("G", state.g), ("D", state.d))
+    pre = {n: {k: v.detach().float().cpu().clone()
+               for k, v in m.state_dict().items()} for n, m in nets}
+    g1_pre = {k: v.detach().clone() for k, v in g1.state_dict().items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    for k in ("label_onehot", "text_embedding"):
+        batch[k] = batch[k].to(dtype)
+    batch["image"] = batch["image"].to(dtype) / 127.5 - 1.0
+    t = time.perf_counter()
+    metrics = make_stage2_train_step(s2, s1, g1, KL_COEFF)(
+        state, batch, None, LR, LR,
+        *(torch.from_numpy(a).to(device).to(dtype) for a in (z, eps1, eps2)))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t
+    post = {n: {k: v.detach().float().cpu()
+                for k, v in m.state_dict().items()} for n, m in nets}
+    grads = {n: {k: (torch.zeros(p.shape) if p.grad is None
+                     else p.grad.detach().float().cpu())
+                 for k, p in m.named_parameters()} for n, m in nets}
+    g1_same = all(torch.equal(v, g1_pre[k])
+                  for k, v in g1.state_dict().items()) and all(
+        p.grad is None for p in g1.parameters())
+    return metrics, pre, post, grads, seconds, g1_same
+
+
+def _step_lines(label, card, cpu):
+    """Log two results of :func:`step2_once`: losses, the worst readings
+    of :func:`step_disagreements` and the Adam deltas. Returns the
+    disagreements and worst readings."""
+    bad, worst = step_disagreements(card[:5], cpu[:5])
+    cos, mean_lr, flip = delta_readings(card[:5], cpu[:5])
+    log(f"  {label}: " + "; ".join(
+        f"{k} {card[0][k]:.6f} / {cpu[0][k]:.6f}" for k in sorted(cpu[0])))
+    log(f"    worst: loss {worst['loss']:.3e} (atol {LOSS_ATOL:g}; "
+        f"{worst['loss_rel']:.2e} of the loss); BatchNorm running stats "
+        f"{worst['stats']:.3e} (atol {STATS_ATOL:g}); per-tensor gradient "
+        f"cosine {worst['grad_cosine']:.8f} (limit {MIN_GRAD_COSINE:g}); "
+        f"Adam deltas: cosine {cos:.8f}, mean |difference| {mean_lr:.5f} "
+        f"lr, {flip:.4%} of the elements apart by more than 0.5 lr")
+    return bad, worst
+
+
+def phase_stage2_step():
+    log(f"phase 26/29 s2step: one full-width stage-2 step, batch "
+        f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
+        "reference init")
+    s1, s2 = stage2_cfgs()
+    data = stage2_data(S2_STEP_BATCH, 5)
+    rs = np.random.RandomState(6)
+    z = rs.randn(S2_STEP_BATCH, s1.z_dim).astype(np.float32)
+    eps1 = rs.randn(S2_STEP_BATCH, s1.condition_dim).astype(np.float32)
+    eps2 = rs.randn(S2_STEP_BATCH, s2.condition_dim).astype(np.float32)
+    args = (data, z, eps1, eps2)
+    # From fresh Adams the first update is lr * sign(g): float32 noise
+    # flips the sign of D2's near-zero gradients, and the G2 gradient,
+    # taken through the updated D2, carries that on. Read against the
+    # same step in float64 on the CPU, not held (PERF.md §6).
+    exact = step2_once("cpu", *args, dtype=torch.float64)
+    fresh = {dev: step2_once(dev, *args) for dev in ("cpu", DEVICE)}
+    log(f"  G2 gf {s2.gf_dim}, D2 df {s2.df_dim}, frozen G1 ngf {s1.ngf}; "
+        f"step on the CPU {fresh['cpu'][4]:.1f} s ({torch.get_num_threads()}"
+        f" threads; float64 {exact[4]:.1f} s), on the card "
+        f"{fresh[DEVICE][4]:.2f} s (host clock, first call)")
+    log("  from fresh Adams, read and not held:")
+    _step_lines("card f32 against CPU f32", fresh[DEVICE], fresh["cpu"])
+    _step_lines("CPU f32 against CPU f64", fresh["cpu"], exact)
+    _step_lines("card f32 against CPU f64", fresh[DEVICE], exact)
+    # held: the same step from warm Adams, whose update is linear in the
+    # gradient
+    cpu = step2_once("cpu", *args, warm=True)
+    card = step2_once(DEVICE, *args, warm=True)
+    log(f"  from warm Adams (step {ADAM_WARM_COUNT}, moments 0 and 1), "
+        "held:")
+    bad, worst = _step_lines("card f32 against CPU f32", card, cpu)
+    runs = (exact, *fresh.values(), cpu, card)
+    log(f"    frozen G1 bit-identical after the step, no gradient: "
+        f"{[r[5] for r in runs]}")
+    for msg in bad:
+        log(f"    FAILED {msg}")
+    check(not bad, f"stage-2 step card vs CPU: {len(bad)} checks failed")
+    check(all(r[5] for r in runs), "the frozen G1 changed in the step")
+    check(abs(card[0]["g_loss_total"] - card[0]["g_loss"]
+              - KL_COEFF * card[0]["kl_loss"]) < 1e-4,
+          "the KL enters the G loss x KL_COEFF")
+    return worst
+
+
+def phase_stage2_step_time():
+    log(f"phase 27/29 s2time: the stage-2 step at batch {S2_BATCH} on the "
+        "card, float32 and bf16")
+    dev = torch.device(DEVICE)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in stage2_data(S2_BATCH, 8).items()}
+    out = {}
+    for dtype in (None, torch.bfloat16):
+        kind = "bf16" if dtype else "f32"
+        s1, s2 = stage2_cfgs(dtype)
+        g1 = build_stage1_g(s1, seed=0, device=dev)
+        state = create_state_stage2(s2, seed=0, device=dev)
+        step = make_stage2_train_step(s2, s1, g1, KL_COEFF)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(3):
+            step(state, data, gen, LR, LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.reset_launch_count()
+        times = []
+        for _ in range(S2_TIME_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(state, data, gen, LR, LR)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        per_step = (k1.launch_count() / S2_TIME_RUNS,
+                    k1.grad_launch_count() / S2_TIME_RUNS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times)
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+              "non-finite stage-2 losses while timing")
+        args = (torch.randn((S2_BATCH, s1.z_dim), generator=gen, device=dev),
+                data["bbox"], data["label_onehot"], data["text_embedding"],
+                torch.randn((S2_BATCH, s1.condition_dim), generator=gen,
+                            device=dev))
+        g1_ms = cuda_ms(lambda: frozen_forward(g1, *args), warmup=2,
+                        runs=S2_TIME_RUNS)
+        log(f"coco-stackgan-2 step at batch {S2_BATCH}, full width, {kind}"
+            f"{'' if dtype else ' (TF32 off)'}: {ms:.2f} ms (CUDA events, "
+            f"median of {S2_TIME_RUNS}; min {min(times):.2f}, max "
+            f"{max(times):.2f}) = {S2_BATCH * 1e3 / ms:.1f} images/s; peak "
+            f"memory {peak:.2f} GiB; launches per step: K1 {per_step[0]:g}, "
+            f"K2 {per_step[1]:g}; the frozen G1's forward alone {g1_ms:.2f} "
+            f"ms (CUDA events, median of {S2_TIME_RUNS}), {g1_ms / ms:.1%} "
+            "of the step")
+        check(per_step == S2_LAUNCHES, f"stage-2 K1/K2 launches per step "
+              f"{per_step} != {S2_LAUNCHES}")
+        out[kind] = {"ms": ms, "images_per_s": S2_BATCH * 1e3 / ms,
+                     "peak_gib": peak, "launches_per_step": per_step,
+                     "g1_ms": g1_ms}
+        del g1, state, step
+        torch.cuda.empty_cache()
+    log(f"stage-2 step bf16 {out['bf16']['ms']:.2f} ms beside float32 "
+        f"{out['f32']['ms']:.2f} ms: {out['f32']['ms'] / out['bf16']['ms']:.2f}"
+        "x")
+    return out
+
+
+def _stage2_cfg_file(stage1_g):
+    """A copy of cfg/coco_s2_train.yml in the work directory with STAGE1_G
+    set to ``stage1_g``."""
+    with open(S2_CFG) as f:
+        lines = [f"STAGE1_G: '{stage1_g}'" if line.startswith("STAGE1_G:")
+                 else line for line in f.read().splitlines()]
+    path = os.path.join(WORK, "coco_s2_train.yml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_stage2_entry():
+    log("phase 28/29 s2entry: cli/main.py --variant coco-stackgan-2 "
+        "--synthetic for one epoch on the card, float32, STAGE1_G a "
+        "reference-format .pth; then a resume to epoch 2")
+    s1, _ = stage2_cfgs()
+    stage1_g = os.path.join(WORK, "stage1_netG.pth")
+    torch.save({"netG": build_stage1_g(s1, seed=0, device="cpu")
+                .state_dict()}, stage1_g)
+    g1 = build_stage1_g(s1, load_reference_g(stage1_g), device="cpu")
+    log(f"  {os.path.basename(stage1_g)}: a seeded Stage1G (ngf {s1.ngf}, "
+        f"{sum(p.numel() for p in g1.parameters())} parameters) in "
+        "{'netG': ...}, loaded back strict=True")
+    cfg_file = _stage2_cfg_file(stage1_g)
+    out = os.path.join(WORK, "entry", "coco-stackgan-2")
+    batch = train_settings(cfg_from_file(cfg_file,
+                                         "coco-stackgan-2")).batch_size
+    steps = train_main.synthetic_items("coco-stackgan-2", batch) // batch
+    want = (S2_LAUNCHES[0] * steps + 2, S2_LAUNCHES[1] * steps, 0)
+    launches = {}
+    for key, epochs, extra in (("train_coco_stage2", 1, []),
+                               ("train_coco_stage2_resume", 2,
+                                ["--resume", out])):
+        k4.reset_launch_count()
+        hist, got, _ = _entry(
+            f"coco-stackgan-2, epochs to {epochs}",
+            ["--variant", "coco-stackgan-2", "--cfg", cfg_file, "--synthetic",
+             "--max_epochs", str(epochs), "--manualSeed", "7",
+             "--output_dir", out, *extra])
+        launches[key] = (*got, k4.launch_count())
+        check(len(hist) == 1 and hist[0]["steps"] == steps,
+              f"one epoch of {steps} steps expected, got {hist}")
+        losses = {k: v for k, v in hist[0].items()
+                  if k not in ("steps", "seconds")}
+        check(all(np.isfinite(v) for v in losses.values()) and
+              losses["kl_loss"] > 0, f"stage-2 losses {losses}")
+        log(f"  epoch {epochs - 1}: {steps} steps in {hist[0]['seconds']:.2f}"
+            " s (host clock, cuDNN set-up included in the first); mean "
+            "losses " + ", ".join(f"{k} {v:.4f}"
+                                  for k, v in sorted(losses.items())))
+        check(launches[key] == want, f"K1/K2/K4 launches {launches[key]} != "
+              f"{want} for {steps} steps and one epoch grid (G1 and G2)")
+    want_files = [os.path.join("logs", "metrics.jsonl"), "run_flags.json",
+                  os.path.basename(cfg_file),
+                  os.path.join("src_snapshot", "cli", "stage2_runner.py"),
+                  os.path.join("images", "real_samples.png")]
+    for e in (0, 1):
+        want_files += [os.path.join("models", str(e), "state.pth"),
+                       os.path.join("images",
+                                    f"fake_samples_epoch_{e:03d}.png")]
+    missing = [w for w in want_files if not os.path.exists(
+        os.path.join(out, w))]
+    check(not missing, f"{out}: missing {missing}")
+    grid = read_png(os.path.join(out, "images", "fake_samples_epoch_001.png"),
+                    "RGB")
+    check(grid.shape == (4 * 258 + 2, 4 * 258 + 2, 3),
+          f"epoch grid of 16 256px tiles, 4 a row: {grid.shape}")
+    check(CheckpointManager(os.path.join(out, "models")).load()[0]["step"]
+          == 2 * steps, "the resumed run's checkpoint step")
+    log(f"  artifacts: {', '.join(want_files)}; the epoch grid "
+        f"{grid.shape[1]}x{grid.shape[0]} (4 x 4 tiles of 256px)")
+    shutil.rmtree(out)
+    return launches
+
+
+def _png_rgb(b64):
+    """A served PNG decoded without an imaging library: (H, W, 3) uint8."""
+    pixels, ctype, _ = decode_png(base64.b64decode(b64))
+    check(ctype == 2, f"PNG colour type {ctype}, RGB expected")
+    return pixels
+
+
+def phase_stage2_serve():
+    log(f"phase 29/29 s2serve: G1 + G2 eval forwards at batch "
+        f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
+        "over HTTP on the card")
+    s1, s2 = stage2_cfgs()
+    # He-scale weights (he_randomize): the reference init's images are
+    # near constant, and tests/test_step_parity.py's N(0, 0.05) weights
+    # (randomize) grow G2's eval activations layer by layer until tanh's
+    # zero crossings amplify float32 rounding (a card-CPU gap of 3.6e-2)
+    g1_cpu = he_randomize(build_stage1_g(s1, seed=0, device="cpu"), 3)
+    g2_cpu = he_randomize(build_stage2_g(s2, seed=0, device="cpu"), 4)
+    g1_gpu = build_stage1_g(s1, g1_cpu.state_dict(), device=DEVICE)
+    g2_gpu = build_stage2_g(s2, g2_cpu.state_dict(), device=DEVICE)
+    data = stage2_data(S2_SERVE_BATCH, 29)
+    rs = np.random.RandomState(29)
+    z = torch.from_numpy(rs.randn(S2_SERVE_BATCH, s1.z_dim).astype(
+        np.float32))
+    batch = {k: torch.from_numpy(v) for k, v in data.items()}
+    on_cpu = stage2_images(g1_cpu, g2_cpu, z, batch)
+    on_gpu = stage2_images(g1_gpu, g2_gpu, z.to(DEVICE), {
+        k: v.to(DEVICE) for k, v in batch.items()}).cpu()
+    diff = float((on_gpu - on_cpu).abs().max())
+    log(f"  G1 (ngf {s1.ngf}) + G2 (gf {s2.gf_dim}), seeded weights, eval, "
+        f"batch {S2_SERVE_BATCH}: {tuple(on_gpu.shape)}, max |card - CPU| "
+        f"{diff:.3e} (atol {MODEL_ATOL:g}); image std "
+        f"{float(on_gpu.std()):.4f}")
+    check(bool(torch.isfinite(on_gpu).all()), "stage 2: non-finite images")
+    check(diff <= MODEL_ATOL, f"stage 2 card and CPU disagree: {diff:.3e}")
+
+    k1.reset_launch_count()
+    svc = Stage2Service(s1, s2, seed=0, device=DEVICE)
+    svc.g1.load_state_dict(g1_cpu.state_dict())
+    svc.g2.load_state_dict(g2_cpu.state_dict())
+    httpd = serve(argparse.Namespace(variant="coco-stackgan-2",
+                                     host="127.0.0.1", port=0,
+                                     max_wait_ms=5.0), svc)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    try:
+        items = _family_items("coco-stackgan-1", rs, 6)
+        items[1]["bboxes_s2"] = [[0.1, 0.1, 0.5, 0.5]] * len(
+            items[1]["bboxes"])
+        t = time.perf_counter()
+        status, body = _post(port, {"items": items})
+        ms = (time.perf_counter() - t) * 1e3
+        check(status == 200 and len(body["images"]) == len(items),
+              f"stage-2 request: {status} {body.get('error')}")
+        served = np.stack([_png_rgb(b) for b in body["images"]])
+        check(served.shape == (len(items), 256, 256, 3),
+              f"served {served.shape}, 256px RGB expected")
+        bad = dict(items[0], bboxes_s2=items[0]["bboxes"] + [[0.1, 0.1, 0.2,
+                                                              0.2]])
+        status_bad, body_bad = _post(port, {"items": [bad]})
+        check(status_bad == 400, f"a bboxes_s2 length mismatch got "
+              f"{status_bad}, not 400")
+        t = time.perf_counter()
+        status_one, body_one = _post(port, {"items": items[:1]})
+        one_ms = (time.perf_counter() - t) * 1e3
+        check(status_one == 200 and _png_rgb(body_one["images"][0]).shape
+              == (256, 256, 3), f"a 1-item request: {status_one}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.close()
+        thread.join(timeout=30)
+    got = (k1.launch_count(), k1.grad_launch_count())
+    # the same items through the CPU generators, with the z and CA eps the
+    # service drew (its second batch of its seeded generator)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    draws = [(torch.randn((svc.max_batch, s1.z_dim), generator=gen,
+                          device=DEVICE),
+              torch.randn((svc.max_batch, s1.condition_dim), generator=gen,
+                          device=DEVICE)) for _ in range(2)]
+    n = len(items)
+    z, eps = (t[:n].cpu() for t in draws[1])
+    lay = [_item_layout(it, s1.num_objects, s1.label_dim, rs) for it in items]
+    bbox = np.stack([x[1] for x in lay])
+    cbatch = {"bbox": torch.from_numpy(bbox),
+              "bbox_s2": torch.from_numpy(np.stack([
+                  _item_boxes_s2(it, bb) for it, bb in zip(items, bbox)])),
+              "label_onehot": torch.from_numpy(np.stack([x[0] for x in lay])),
+              "text_embedding": torch.tensor([it["text_embedding"]
+                                              for it in items],
+                                             dtype=torch.float32)}
+    want = to_uint8(stage2_images(g1_cpu, g2_cpu, z, cbatch, eps).permute(
+        0, 2, 3, 1).numpy())
+    levels = int(np.abs(served.astype(np.int16) - want).max())
+    log(f"  Stage2Service: {n} items (one with its own bboxes_s2) in "
+        f"{ms:.1f} ms over HTTP, 1 item in {one_ms:.1f} ms (host clock, one "
+        f"request each, device batch {svc.max_batch}); 256px RGB PNGs; the "
+        f"{n} items against the CPU generators' "
+        f"images of the same items, z and CA eps: max {levels} levels of 255 "
+        f"(limit 1); a bboxes_s2 length mismatch: 400 ({body_bad['error']});"
+        f" K1 launches {got[0]} for {svc.device_batches} device batches "
+        f"(warm-up included; G1 and G2 each), K2 {got[1]}")
+    check(levels <= 1, "stage-2 served images stray from the CPU's")
+    check(got == (2 * svc.device_batches, 0) and svc.device_batches == 3,
+          f"stage-2 serving K1/K2 launches {got}, device batches "
+          f"{svc.device_batches}; (6, 0) and 3 expected")
+    return {"serve_coco-stackgan-2": got}, ms
+
+
 
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
@@ -2384,7 +2930,7 @@ def run_phases() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/24 time16")
+    step16 = phase_step_time(BF16, "14/29 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -2399,13 +2945,18 @@ def run_phases() -> int:
     disk = phase_train_disk()
     batch9 = phase_k1_batch9()
     sampled = phase_sample(disk["clevr_run"], disk["clevr_data"])
+    s2_kernels = phase_stage2_kernels()
+    phase_stage2_step()
+    s2_time = phase_stage2_step_time()
+    s2_entry = phase_stage2_entry()
+    s2_serve, _ = phase_stage2_serve()
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
-               **sampled["launches"]}
+               **sampled["launches"], **s2_entry, **s2_serve}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
-                 *sampled["launches"])
+                 *sampled["launches"], *s2_entry, *s2_serve)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16")
 
     def launches(i):
@@ -2427,24 +2978,32 @@ def run_phases() -> int:
         **launches(0),
         "max_abs_err": max(place["max_abs_err"],
                            families["place"]["max_abs_err"],
-                           batch9["max_abs_err"]),
+                           batch9["max_abs_err"],
+                           s2_kernels["place"]["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
         "bf16": bf16["place"],
         "families": families["place"],
         "batch9": batch9,
+        "stage2": {**s2_kernels["place"],
+                   "step_launches": {k: v["launches_per_step"][0]
+                                     for k, v in s2_time.items()}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
         "redesigned": "PR 8",
         **launches(1),
         "max_abs_err": max(grad["max_abs_err"],
-                           families["grad"]["max_abs_err"]),
+                           families["grad"]["max_abs_err"],
+                           s2_kernels["grad"]["max_abs_err"]),
         **grad["G"],
         "d_shape": grad["D"],
         "bf16": bf16["grad"],
         "families": families["grad"],
+        "stage2": {**s2_kernels["grad"],
+                   "step_launches": {k: v["launches_per_step"][1]
+                                     for k, v in s2_time.items()}},
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",

@@ -1,8 +1,10 @@
-"""Train or sample Stage 1 with the PyTorch port (the port's counterpart of
-the JAX package's ``cli/main.py``, for the three stage-1 families).
+"""Train or sample with the PyTorch port (the port's counterpart of the JAX
+package's ``cli/main.py``, for the three stage-1 families and COCO
+StackGAN stage 2).
 
     python -m multiple_objects_gan_tpu_torch.cli.main \\
-        --variant multi-mnist|clevr|coco-stackgan-1 --cfg CFG \\
+        --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2 \\
+        --cfg CFG \\
         [--data_dir D] [--output_dir O] [--synthetic] [--resume RUN_DIR] \\
         [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
         [--device cuda|cpu] [--bf16] [--bn_groups G] \\
@@ -12,8 +14,11 @@ the JAX package's ``cli/main.py``, for the three stage-1 families).
 (code/multi-mnist/main.py:27-95). Training reads Multi-MNIST and CLEVR
 from ``DATA_DIR`` (``--data_dir`` overrides it); with ``--synthetic`` a
 missing train split is first written there, at the JAX CLI's sizes
-(``synthetic_items``). COCO-StackGAN-1 has no on-disk reader yet: with
-``--synthetic`` it trains on a synthetic set held on the device. A run leaves, under ``--output_dir`` (default
+(``synthetic_items``). COCO has no on-disk reader yet: with ``--synthetic``
+both stages train on a synthetic set held on the device (stage 2's at
+256px, its stage-2 boxes the stage-1 ones), stage 2 through
+``cli/stage2_runner.py`` with the frozen stage-1 G of cfg ``STAGE1_G``. A
+run leaves, under ``--output_dir`` (default
 ``output/<DATASET>_<time>``), ``run_flags.json``, a copy of the cfg, the
 port's sources (``src_snapshot/``), ``logs/metrics.jsonl``, epoch grids in
 ``images/`` and checkpoints in ``models/<epoch>/``. ``--resume RUN_DIR``
@@ -21,8 +26,9 @@ continues from that run's latest checkpoint; cfg ``NET_G``/``NET_D``
 ``.pth`` files warm-start G and D; a resume without ``--manualSeed``
 takes the seed of the resumed run's ``run_flags.json``, so its shuffles
 and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
-samples 25 grids from ``NET_G`` (``cli/sample.py``). The run is on the
-card unless ``--device cpu`` is given; without a card it raises.
+samples 25 grids from ``NET_G`` (``cli/sample.py``; not yet for COCO).
+The run is on the card unless ``--device cpu`` is given; without a card it
+raises.
 """
 
 from __future__ import annotations
@@ -42,15 +48,17 @@ import torch
 
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
+from multiple_objects_gan_tpu_torch.cli.stage2_runner import run_stage2
 from multiple_objects_gan_tpu_torch.config.config import (
-    cfg_from_file, stage1_model_config, train_settings)
+    cfg_from_file, stage1_model_config, stage2_model_config, train_settings)
 from multiple_objects_gan_tpu_torch.data.datasets import (
     MNIST_VARIANT, ClevrDataset, Loader, MemoryLoader, MultiMnistDataset,
     write_synthetic_clevr, write_synthetic_multimnist)
-from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_coco
+from multiple_objects_gan_tpu_torch.data.synthetic import (
+    synthetic_coco, synthetic_coco_stage2)
 from multiple_objects_gan_tpu_torch.train.loop import train
 
-VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1")
+VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2")
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's sources that define a run, copied into src_snapshot/
 SNAPSHOT_DIRS = ("cli", "config", "models", "train", "losses", "nn", "ops",
@@ -176,15 +184,17 @@ def _git_sha() -> str:
 def train_loader(args, cfg, variant: str, seed: int, device):
     """The variant's train loader: Multi-MNIST and CLEVR from DATA_DIR
     (written there first with ``--synthetic`` when missing), COCO from a
-    synthetic set held on the device."""
+    synthetic set held on the device (stage 2's with its stage-2 boxes)."""
     batch = train_settings(cfg).batch_size
     imsize = int(cfg.IMSIZE)
-    if variant == "coco-stackgan-1":
+    if variant.startswith("coco-stackgan"):
         if not args.synthetic:
             sys.exit("the port has no on-disk COCO reader yet; pass "
                      "--synthetic")
-        data = synthetic_coco(synthetic_items(variant, batch), seed=seed,
-                              imsize=imsize)
+        make = (synthetic_coco_stage2 if variant == "coco-stackgan-2"
+                else synthetic_coco)
+        data = make(synthetic_items(variant, batch), seed=seed,
+                    imsize=imsize)
         return MemoryLoader(data, batch, seed=seed, device=device)
     marker = os.path.join(cfg.DATA_DIR, "train",
                           MNIST_VARIANT if variant == "multi-mnist"
@@ -243,10 +253,14 @@ def main(argv=None) -> list[dict]:
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    mcfg = stage1_model_config(
-        cfg, args.variant,
-        compute_dtype=torch.bfloat16 if args.bf16 else None,
-        bn_groups=args.bn_groups)
+    dtype = torch.bfloat16 if args.bf16 else None
+    stage2 = args.variant == "coco-stackgan-2"
+    if stage2:
+        s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
+                                           bn_groups=args.bn_groups)
+    else:
+        mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dtype,
+                                   bn_groups=args.bn_groups)
     if not cfg.TRAIN.FLAG and args.variant not in ("multi-mnist", "clevr"):
         sys.exit(f"sampling {args.variant} is not ported yet")
     loader = (train_loader(args, cfg, args.variant, seed, device)
@@ -270,11 +284,19 @@ def main(argv=None) -> list[dict]:
     if not args.resume:
         snapshot_sources(output_dir)
     kl = f", KL x {train_settings(cfg).kl_coeff:g}" if mcfg.use_ca else ""
-    print(f"{args.variant} stage 1 on {device}: ngf {mcfg.ngf}, ndf "
-          f"{mcfg.df_dim}, {mcfg.num_objects} objects, batch {loader.bs}, "
+    width = (f"gf {mcfg.gf_dim}, df {mcfg.df_dim}, R_NUM {mcfg.r_num}, "
+             f"frozen stage-1 G ngf {s1_cfg.ngf}" if stage2 else
+             f"ngf {mcfg.ngf}, ndf {mcfg.df_dim}")
+    print(f"{args.variant} stage {2 if stage2 else 1} on {device}: {width}, "
+          f"{mcfg.num_objects} objects, batch {loader.bs}, "
           f"{len(loader)} steps an epoch, seed {seed}, "
           f"{'bf16' if args.bf16 else 'float32'}, BatchNorm groups "
           f"{mcfg.bn_groups}{kl}; output {output_dir}", flush=True)
+    if stage2:
+        return run_stage2(cfg, s1_cfg, mcfg, loader, output_dir,
+                          device=device, seed=seed,
+                          max_epochs=args.max_epochs,
+                          resume_dir=args.resume or None)
     _, history = train(cfg, mcfg, loader, output_dir, device=device,
                        seed=seed, max_epochs=args.max_epochs,
                        resume_dir=args.resume or None)

@@ -1,30 +1,37 @@
 """Serving endpoint of the port: layout -> image over HTTP, on the card.
 
 The PyTorch counterpart of the JAX package's ``cli/serve.py`` for the
-Stage-1 generators (multi-mnist, clevr, coco-stackgan-1): a micro-batcher
-coalesces concurrent requests into device batches of a fixed size
-(``MAX_BATCH``), each batch is one eval-mode ``Stage1G`` forward, whose
-object pathway places its objects with the CUDA kernel of
-``ops/stn_place_cuda.py``.
+Stage-1 generators (multi-mnist, clevr, coco-stackgan-1) and COCO
+StackGAN stage 2 (256px): a micro-batcher coalesces concurrent requests
+into device batches of a fixed size (``MAX_BATCH``), each batch is one
+eval-mode ``Stage1G`` forward (stage 2: the frozen stage-1 G, then
+``Stage2G``), whose object pathways place their objects with the CUDA
+kernel of ``ops/stn_place_cuda.py``.
 
 HTTP API (stdlib http.server, threaded):
   POST /generate  {"items": [{"labels": [3], "bboxes": [[x, y, w, h]]}]}
                   -> {"images": [base64 png, ...]}
                   a label is a class id or a label_dim-long row (clevr's
-                  two-hot shape + colour rows); coco-stackgan-1 items also
-                  carry "text_embedding", exactly 1024 values
+                  two-hot shape + colour rows); coco-stackgan-1/2 items
+                  also carry "text_embedding", exactly 1024 values, and
+                  coco-stackgan-2 items may carry "bboxes_s2", the boxes of
+                  its 256px object pathway (default: "bboxes")
   GET  /healthz   -> {"ok": true, ...}
   GET  /stats     -> batcher counters, device batches and K1 launches
 
 Usage:
   python -m multiple_objects_gan_tpu_torch.cli.serve \
-      --variant multi-mnist|clevr|coco-stackgan-1 [--net_g G.pth] \
-      [--cfg CFG] [--device cuda] [--port 8000] [--max_wait_ms 5] [--bf16]
+      --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2 \
+      [--net_g G.pth] [--cfg CFG] [--device cuda] [--port 8000] \
+      [--max_wait_ms 5] [--bf16]
 
-Without ``--cfg`` multi-mnist takes its preset and clevr and
-coco-stackgan-1 the widths of the repository's ``cfg/clevr_eval.yml`` and
-``cfg/coco_s1_train.yml`` (``DEFAULT_CFGS``); without ``--net_g`` (or a
-NET_G in the cfg) the generator gets the reference's random init.
+Without ``--cfg`` multi-mnist takes its preset and clevr, coco-stackgan-1
+and coco-stackgan-2 the widths of the repository's ``cfg/clevr_eval.yml``,
+``cfg/coco_s1_train.yml`` and ``cfg/coco_s2_eval.yml`` (``DEFAULT_CFGS``);
+without ``--net_g`` (or a NET_G in the cfg) the generator gets the
+reference's random init. Stage 2's NET_G is a reference STAGE2_G ``.pth``
+(its ``STAGE1_G.`` part, when it has one, is the frozen G) or a port run
+directory; the frozen G falls back on the cfg's STAGE1_G.
 """
 
 from __future__ import annotations
@@ -44,9 +51,15 @@ import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch import resolve_device
-from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
+from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
+from multiple_objects_gan_tpu_torch.config.config import (
+    cfg_from_file, stage1_model_config, stage2_model_config)
+from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
+from multiple_objects_gan_tpu_torch.io.weights import (
+    load_reference_g, split_stage2_g)
 from multiple_objects_gan_tpu_torch.models.common import MNIST, Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
+from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
 from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
@@ -54,12 +67,14 @@ from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
 MAX_BATCH = 64
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-# the cfg each variant is served with when no --cfg is given: stage-1 G
-# widths (coco_s1_eval.yml is the stage-2 sampler's)
+# the cfg each variant is served with when no --cfg is given (coco-stackgan-1:
+# the stage-1 G's widths; coco_s1_eval.yml is the stage-2 sampler's)
 DEFAULT_CFGS = {"multi-mnist": "",
                 "clevr": os.path.join(ROOT, "cfg", "clevr_eval.yml"),
                 "coco-stackgan-1": os.path.join(ROOT, "cfg",
-                                                "coco_s1_train.yml")}
+                                                "coco_s1_train.yml"),
+                "coco-stackgan-2": os.path.join(ROOT, "cfg",
+                                                "coco_s2_eval.yml")}
 
 
 # ---------------------------------------------------------------------------
@@ -216,16 +231,21 @@ def _item_layout(item: dict, max_objects: int, label_dim: int,
         else:
             raise ValueError(f"label must be an id or a {label_dim}-d "
                              "one-hot")
-        box = np.asarray(bb, np.float32).reshape(-1)
-        if box.size != 4:
-            raise ValueError(f"bbox must be [x, y, w, h], got {bb!r}")
-        # a padded object (all -1) places nothing; any other box needs
-        # finite values and a positive size, or the place divides by zero
-        if not (box == -1.0).all() and not (
-                np.isfinite(box).all() and box[2] > 0 and box[3] > 0):
-            raise ValueError(f"bbox {bb!r} needs finite values and w, h > 0")
-        bbox[o] = box
+        bbox[o] = _box(bb, "bbox")
     return labels, bbox
+
+
+def _box(bb, what: str) -> np.ndarray:
+    """One request box [x, y, w, h] as float32 (4,), else a ValueError (a
+    400). A padded object (all -1) places nothing; any other box needs
+    finite values and a positive size, or the place divides by zero."""
+    box = np.asarray(bb, np.float32).reshape(-1)
+    if box.size != 4:
+        raise ValueError(f"{what} must be [x, y, w, h], got {bb!r}")
+    if not (box == -1.0).all() and not (
+            np.isfinite(box).all() and box[2] > 0 and box[3] > 0):
+        raise ValueError(f"{what} {bb!r} needs finite values and w, h > 0")
+    return box
 
 
 def _item_text(item: dict, text_dim: int) -> np.ndarray:
@@ -313,6 +333,105 @@ class Stage1Service:
                 "k1_launches": stn_place_cuda.launch_count()}
 
 
+def _item_boxes_s2(item: dict, bbox: np.ndarray) -> np.ndarray:
+    """A stage-2 item's ``bboxes_s2`` (O, 4), the 256px object pathway's
+    boxes: the item's ``bboxes`` layout (``bbox``) when absent, as the COCO
+    reader gives them without a crop; else one [x, y, w, h] per box of
+    ``bboxes``, checked as those are (a ValueError, a 400)."""
+    boxes = item.get("bboxes_s2")
+    if boxes is None:
+        return bbox.copy()
+    boxes = list(boxes)
+    if len(boxes) != len(item.get("bboxes") or []):
+        raise ValueError("bboxes_s2 must match bboxes in length")
+    out = np.full_like(bbox, -1.0)
+    for o, bb in enumerate(boxes):
+        out[o] = _box(bb, "bboxes_s2 entry")
+    return out
+
+
+class Stage2Service:
+    """COCO StackGAN stage 2 at ``MAX_BATCH`` on one device: 256px images,
+    the paper's headline output (JAX ``cli/serve.py:Stage2Service``).
+
+    Each device batch runs the frozen stage-1 G and then Stage2G, both in
+    eval mode, with one fresh CA eps a batch given to both CA nets, as the
+    JAX service passes its key as both ``ca_rng``, and z, both drawn from a
+    ``torch.Generator`` seeded with ``seed``. Requests take the stage-1
+    coco schema (``labels``, ``bboxes``, ``text_embedding``) and an
+    optional ``bboxes_s2`` (:func:`_item_boxes_s2`).
+
+    Weights: ``net_g`` a reference STAGE2_G ``.pth`` (its ``STAGE1_G.``
+    part loads into the frozen G) or a port run directory (its latest
+    checkpoint's G2); the frozen G otherwise from ``stage1_g``, a
+    reference ``.pth``; either without a file gets the reference's random
+    init from ``seed``. The constructor runs one warm-up batch.
+    """
+
+    def __init__(self, s1_cfg: Stage1Config, s2_cfg: Stage1Config,
+                 net_g: str = "", stage1_g: str = "", seed: int = 0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.mcfg, self.s2_cfg = s1_cfg, s2_cfg
+        self.max_batch = MAX_BATCH
+        random_init = f"random init, seed {seed}"
+        s1_sd = load_reference_g(stage1_g) if stage1_g else None
+        g1_src, s2_sd = stage1_g or random_init, None
+        if net_g and os.path.isdir(net_g):
+            s2_sd = CheckpointManager(os.path.join(net_g, "models")).load()[
+                0]["g"]
+        elif net_g:
+            part1, s2_sd = split_stage2_g(load_reference_g(net_g))
+            if part1 is not None:
+                s1_sd, g1_src = part1, f"{net_g} (its STAGE1_G part)"
+        self.weights = f"G2 {net_g or random_init}; G1 {g1_src}"
+        self.g1 = build_stage1_g(s1_cfg, s1_sd, seed=seed,
+                                 device=self.device)
+        self.g2 = build_stage2_g(s2_cfg, s2_sd, seed=seed,
+                                 device=self.device)
+        self._rs = np.random.RandomState(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.device_batches = 0
+        self.run([{"text_embedding": [0.0] * s1_cfg.text_dim}])
+
+    def validate(self, item: dict) -> None:
+        """Raise ValueError for a malformed item, before the batcher (see
+        :meth:`Stage1Service.validate`)."""
+        mc = self.mcfg
+        _, bbox = _item_layout(item, mc.num_objects, mc.label_dim,
+                               np.random.RandomState(0))
+        _item_text(item, mc.text_dim)
+        _item_boxes_s2(item, bbox)
+
+    def run(self, items: list) -> list:
+        mc, b = self.mcfg, self.max_batch
+        labels = np.zeros((b, mc.num_objects, mc.label_dim), np.float32)
+        bbox = np.full((b, mc.num_objects, 4), -1.0, np.float32)
+        bbox_s2 = bbox.copy()
+        text = np.zeros((b, mc.text_dim), np.float32)
+        for i, item in enumerate(items):
+            labels[i], bbox[i] = _item_layout(item, mc.num_objects,
+                                              mc.label_dim, self._rs)
+            bbox_s2[i] = _item_boxes_s2(item, bbox[i])
+            text[i] = _item_text(item, mc.text_dim)
+        z = torch.randn((b, mc.z_dim), generator=self._gen,
+                        device=self.device)
+        eps = torch.randn((b, mc.condition_dim), generator=self._gen,
+                          device=self.device)
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in (
+            ("bbox", bbox), ("bbox_s2", bbox_s2), ("label_onehot", labels),
+            ("text_embedding", text))}
+        img = stage2_images(self.g1, self.g2, z, batch, eps)
+        imgs = img[:len(items)].permute(0, 2, 3, 1).cpu().numpy()
+        self.device_batches += 1
+        return [_png_b64(im) for im in imgs]
+
+    def stats(self) -> dict:
+        return {"device": str(self.device),
+                "device_batches": self.device_batches,
+                "k1_launches": stn_place_cuda.launch_count()}
+
+
 # ---------------------------------------------------------------------------
 # HTTP layer
 
@@ -365,28 +484,31 @@ def make_handler(batcher: MicroBatcher, info: dict, validate=None,
     return Handler
 
 
-def build_service(args) -> Stage1Service:
+def build_service(args):
     """The service the CLI arguments name: the model config and NET_G of
     ``--cfg`` (or of the variant's ``DEFAULT_CFGS`` entry; the MNIST preset
     for multi-mnist); ``--net_g`` wins over the YAML, and ``--bf16`` makes
-    the generator compute in bf16."""
+    the generators compute in bf16. coco-stackgan-2 gives a
+    :class:`Stage2Service`, with the cfg's STAGE1_G for the frozen G."""
     dt = torch.bfloat16 if getattr(args, "bf16", False) else None
     mcfg, net_g = dataclasses.replace(MNIST, compute_dtype=dt), args.net_g
     path = args.cfg or DEFAULT_CFGS[args.variant]
-    if path:
-        from multiple_objects_gan_tpu_torch.config.config import (
-            cfg_from_file, stage1_model_config)
-
-        cfg = cfg_from_file(path, args.variant)
-        mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dt)
-        # a cfg's NET_G is served only when its --cfg names it: the
-        # default cfgs' NET_G are paths of the reference's own layout
-        net_g = net_g or (cfg.NET_G if args.cfg else "")
+    if not path:
+        return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
+    cfg = cfg_from_file(path, args.variant)
+    # a cfg's NET_G and STAGE1_G are served only when its --cfg names them:
+    # the default cfgs' are paths of the reference's own layout
+    net_g = net_g or (cfg.NET_G if args.cfg else "")
+    if args.variant == "coco-stackgan-2":
+        s1_cfg, s2_cfg = stage2_model_config(cfg, compute_dtype=dt)
+        return Stage2Service(s1_cfg, s2_cfg, net_g,
+                             cfg.STAGE1_G if args.cfg else "",
+                             seed=args.seed, device=args.device)
+    mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dt)
     return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
 
 
-def serve(args, service: Optional[Stage1Service] = None
-          ) -> ThreadingHTTPServer:
+def serve(args, service=None) -> ThreadingHTTPServer:
     """Build the service (unless given) and batcher and return a bound,
     unstarted server; the CLI calls serve_forever, tests and chip_smoke.py
     drive it from a thread."""
@@ -411,10 +533,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cfg", default="",
                    help="reference YAML (cfg/mnist_eval.yml, ...); default: "
                         "the Multi-MNIST preset, cfg/clevr_eval.yml, "
-                        "cfg/coco_s1_train.yml")
+                        "cfg/coco_s1_train.yml, cfg/coco_s2_eval.yml")
     p.add_argument("--net_g", default="",
                    help="reference-format .pth (overrides the YAML's "
-                        "NET_G); default: random init from --seed")
+                        "NET_G; coco-stackgan-2: a STAGE2_G .pth or a port "
+                        "run directory); default: random init from --seed")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -431,7 +554,7 @@ def main(argv=None):
     httpd = serve(args)
     print(f"serving {args.variant} on http://{args.host}:"
           f"{httpd.server_address[1]} on {httpd.service.device} "
-          f"(max_batch={MAX_BATCH}, max_wait={args.max_wait_ms}ms, "
+          f"(max_batch={httpd.service.max_batch}, max_wait={args.max_wait_ms}ms, "
           f"weights: {httpd.service.weights})", flush=True)
     try:
         httpd.serve_forever()

@@ -1,4 +1,5 @@
-"""YAML config, the reference's cfg/*.yml key schema (the stage-1 families).
+"""YAML config, the reference's cfg/*.yml key schema (the stage-1 families
+and COCO StackGAN stage 2).
 
 The port's copy of the JAX package's ``config/config.py``: the default
 trees of code/multi-mnist/miscc/config.py:9-47, code/clevr/miscc/
@@ -9,8 +10,8 @@ with the standard library, so the port needs no PyYAML (the card's machine
 has none).
 
 Variants are named as the CLIs name them (``multi-mnist``, ``clevr``,
-``coco-stackgan-1``); the default tree of ``coco-stackgan-1`` is the
-stackgan one, ``coco-stackgan``, as in the JAX package.
+``coco-stackgan-1``, ``coco-stackgan-2``); the default tree of both COCO
+stages is the stackgan one, ``coco-stackgan``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -125,7 +126,8 @@ DEFAULTS: dict[str, dict] = {
 
 # the CLIs' variant names -> default trees and model presets
 _TREES = {"multi-mnist": "multi-mnist", "clevr": "clevr",
-          "coco-stackgan-1": "coco-stackgan"}
+          "coco-stackgan-1": "coco-stackgan",
+          "coco-stackgan-2": "coco-stackgan"}
 _PRESETS = {"multi-mnist": common.MNIST, "clevr": common.CLEVR,
             "coco-stackgan-1": common.COCO_S1}
 
@@ -237,11 +239,7 @@ def stage1_model_config(cfg: Config, variant: str, *,
     if variant not in _PRESETS:
         raise ValueError(f"variant {variant!r} is not a stage-1 family; one "
                          f"of {sorted(_PRESETS)}")
-    if compute_dtype not in (None, torch.bfloat16):
-        raise ValueError(f"compute dtype None (float32) or bfloat16, got "
-                         f"{compute_dtype}")
-    if int(bn_groups) < 1:
-        raise ValueError(f"bn_groups must be at least 1, got {bn_groups}")
+    _check_knobs(compute_dtype, bn_groups)
     kw = dict(z_dim=cfg.Z_DIM, gf_dim=cfg.GAN.GF_DIM, df_dim=cfg.GAN.DF_DIM,
               # the clevr reference also honours USE_BBOX_LAYOUT_S1
               # (code/clevr/model.py:126)
@@ -255,6 +253,40 @@ def stage1_model_config(cfg: Config, variant: str, *,
         kw["text_dim"] = cfg.TEXT.DIMENSION
         kw["d_cond_dim"] = cfg.GAN.CONDITION_DIM
     return dataclasses.replace(_PRESETS[variant], **kw)
+
+
+def _check_knobs(compute_dtype, bn_groups) -> None:
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype None (float32) or bfloat16, got "
+                         f"{compute_dtype}")
+    if int(bn_groups) < 1:
+        raise ValueError(f"bn_groups must be at least 1, got {bn_groups}")
+
+
+def stage2_model_config(cfg: Config, *,
+                        compute_dtype: Optional[torch.dtype] = None,
+                        bn_groups: int = 1
+                        ) -> tuple[common.Stage1Config, common.Stage1Config]:
+    """The two model configs of a COCO StackGAN stage-2 cfg (JAX
+    ``cli/stage2_runner.py:36-43``): the frozen stage-1 G's, as
+    :func:`stage1_model_config` reads the cfg for coco-stackgan-1 (G width
+    GF_DIM * 8), and stage 2's, the ``COCO_S2`` preset with GF_DIM and
+    DF_DIM taken directly, GAN.R_NUM ResBlocks, the CONDITION_DIM
+    condition and both D heads.
+    The compute dtype and BatchNorm groups reach both, as the JAX
+    package's global knobs do."""
+    _check_knobs(compute_dtype, bn_groups)
+    s1 = stage1_model_config(cfg, "coco-stackgan-1",
+                             compute_dtype=compute_dtype,
+                             bn_groups=bn_groups)
+    s2 = dataclasses.replace(
+        common.COCO_S2, gf_dim=int(cfg.GAN.GF_DIM),
+        df_dim=int(cfg.GAN.DF_DIM),
+        condition_dim=int(cfg.GAN.CONDITION_DIM),
+        d_cond_dim=int(cfg.GAN.CONDITION_DIM),
+        text_dim=int(cfg.TEXT.DIMENSION), r_num=int(cfg.GAN.R_NUM),
+        compute_dtype=compute_dtype, bn_groups=int(bn_groups))
+    return s1, s2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,13 +11,15 @@
   its h-flip.
 * :func:`synthetic_coco` makes the draws of ``data/coco.py:
   write_synthetic_coco`` from the same seed, with the images drawn at
-  64x64 directly.
+  64x64 (or stage 2's 256x256) directly; :func:`synthetic_coco_stage2`
+  adds stage 2's boxes.
 
 The port's ``data/datasets.py`` writes the Multi-MNIST and CLEVR sets to
 disk and reads them back. Left for COCO's on-disk reader (ROADMAP Queue 1,
 item 9b): the JPEG round trip, and COCO's resize to 76 with a random 64
 crop and flip and the box rescale that goes with them
-(``data/coco.py:29-43,134-141``).
+(``data/coco.py:29-43,134-141``), and stage 2's crop with its two box
+scales (``data/coco.py:111-131``).
 """
 
 from __future__ import annotations
@@ -230,3 +232,15 @@ def synthetic_coco(n: int = 256, seed: int = 0, imsize: int = 64,
         embs[i] = rng.randn(n_captions, text_dim).astype(np.float32)
     return {"image": images, "bbox": bboxes, "label_onehot": labels,
             "text_embedding": embs}
+
+
+def synthetic_coco_stage2(n: int = 80, seed: int = 0, imsize: int = 256,
+                          **kwargs) -> dict:
+    """The stage-2 train set: :func:`synthetic_coco` at ``imsize`` (256,
+    cfg/coco_s2_train.yml's IMSIZE) with ``bbox_s2``, the stage-2 boxes,
+    equal to ``bbox``, as the COCO reader gives them when it does not
+    crop (``data/coco.py:106-110``). Keyword arguments go to
+    :func:`synthetic_coco`."""
+    data = synthetic_coco(n, seed=seed, imsize=imsize, **kwargs)
+    data["bbox_s2"] = data["bbox"].copy()
+    return data

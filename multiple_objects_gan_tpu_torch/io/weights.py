@@ -1,12 +1,13 @@
-"""Weights for the port's Stage1G and Stage1D: carried across from the JAX
-package's Flax trees, loaded from reference ``.pth`` files, or drawn at
-random.
+"""Weights for the port's Stage1G/Stage1D and Stage2G/Stage2D: carried
+across from the JAX package's Flax trees, loaded from reference ``.pth``
+files, or drawn at random.
 
-:func:`stage1_g_state_dict_from_jax` and :func:`stage1_d_state_dict_from_jax`
-take the JAX ``Stage1G``/``Stage1D`` params and batch_stats as numpy arrays
-and return state dicts with the reference's key names
-(code/multi-mnist/model.py:113-257). Their mapping mirrors the JAX
-package's ``io/torch_export.py:export_stage1_g/export_stage1_d`` and
+:func:`stage1_g_state_dict_from_jax`, :func:`stage1_d_state_dict_from_jax`,
+:func:`stage2_g_state_dict_from_jax` and :func:`stage2_d_state_dict_from_jax`
+take the JAX modules' params and batch_stats as numpy arrays and return
+state dicts with the reference's key names (code/multi-mnist/
+model.py:113-257, code/coco/stackgan/model.py:311-537). Their mapping
+mirrors the JAX package's ``io/torch_export.py`` and
 ``io/torch_import.py``, written out again here:
 
   * conv kernel HWIO -> OIHW, dense kernel (in, out) -> (out, in);
@@ -18,7 +19,7 @@ package's ``io/torch_export.py:export_stage1_g/export_stage1_d`` and
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -114,6 +115,13 @@ def stage1_d_state_dict_from_jax(params: Mapping[str, Any],
         sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
     for i in (2, 3, 4):
         _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    _d_heads(sd, params, stats)
+    return sd
+
+
+def _d_heads(sd: dict, params: Mapping, stats: Mapping) -> None:
+    """D_GET_LOGITS: the conditional head, and the unconditional one where
+    the D has it."""
     h = params["get_cond_logits"]
     sd["get_cond_logits.outlogits.0.weight"] = _conv(
         h["Conv3x3_0"]["Conv_0"]["kernel"])
@@ -125,6 +133,67 @@ def stage1_d_state_dict_from_jax(params: Mapping[str, Any],
         u = params["get_uncond_logits"]["Conv_0"]
         sd["get_uncond_logits.outlogits.0.weight"] = _conv(u["kernel"])
         sd["get_uncond_logits.outlogits.0.bias"] = _t(u["bias"])
+
+
+def _resblock(sd: dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """ResBlock {Conv3x3_0, TorchBatchNorm_0, Conv3x3_1, TorchBatchNorm_1}
+    -> ``block`` Sequential [conv3x3, BN, ReLU, conv3x3, BN]."""
+    for i, (conv, bn) in enumerate(((0, 1), (3, 4))):
+        sd[f"{prefix}.block.{conv}.weight"] = _conv(
+            p[f"Conv3x3_{i}"]["Conv_0"]["kernel"])
+        _bn(sd, f"{prefix}.block.{bn}", p[f"TorchBatchNorm_{i}"],
+            s[f"TorchBatchNorm_{i}"])
+
+
+def stage2_g_state_dict_from_jax(params: Mapping[str, Any],
+                                 stats: Mapping[str, Any],
+                                 r_num: int) -> dict[str, torch.Tensor]:
+    """JAX ``Stage2G`` (params, batch_stats) -> the port's Stage2G state
+    dict, the reference STAGE2_G's keys without the ``STAGE1_G.`` part
+    (JAX ``io/torch_export.py:export_stage2_g``)."""
+    sd: dict[str, torch.Tensor] = {}
+    sd["encoder.0.weight"] = _conv(params["enc_conv0"]["Conv_0"]["kernel"])
+    sd["encoder.2.weight"] = _conv(params["enc_conv1"]["kernel"])
+    _bn(sd, "encoder.3", params["enc_bn1"], stats["enc_bn1"])
+    sd["encoder.5.weight"] = _conv(params["enc_conv2"]["kernel"])
+    _bn(sd, "encoder.6", params["enc_bn2"], stats["enc_bn2"])
+    fc = params["ca_net"]["Dense_0"]["Dense_0"]
+    sd["ca_net.fc.weight"] = _linear(fc["kernel"])
+    sd["ca_net.fc.bias"] = _t(fc["bias"])
+    sd["label.0.weight"] = _linear(
+        params["label"]["Dense_0"]["Dense_0"]["kernel"])
+    _bn(sd, "label.1", params["label"]["TorchBatchNorm_0"],
+        stats["label"]["TorchBatchNorm_0"])
+    sd["hr_joint.0.weight"] = _conv(
+        params["hr_joint_conv"]["Conv_0"]["kernel"])
+    _bn(sd, "hr_joint.1", params["hr_joint_bn"], stats["hr_joint_bn"])
+    for i in range(r_num):
+        _resblock(sd, f"residual.{i}", params[f"residual{i}"],
+                  stats[f"residual{i}"])
+    for name in ("local1", "local2", "upsample1", "upsample2", "upsample3",
+                 "upsample4"):
+        _upblock(sd, name, params[name], stats[name])
+    sd["img.0.weight"] = _conv(params["img"]["Conv_0"]["kernel"])
+    return sd
+
+
+def stage2_d_state_dict_from_jax(params: Mapping[str, Any],
+                                 stats: Mapping[str, Any]
+                                 ) -> dict[str, torch.Tensor]:
+    """JAX ``Stage2D`` (params, batch_stats) -> the port's Stage2D state
+    dict, STAGE2_D's keys with both heads (JAX
+    ``io/torch_export.py:export_stage2_d``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, (conv, bn) in enumerate(((0, 1), (3, 4)), start=1):
+        sd[f"local.{conv}.weight"] = _conv(params[f"local_conv{i}"]["kernel"])
+        _bn(sd, f"local.{bn}", params[f"local_bn{i}"], stats[f"local_bn{i}"])
+    for i in range(1, 7):
+        sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
+    for i in (7, 8):
+        sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["Conv_0"]["kernel"])
+    for i in range(2, 9):
+        _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    _d_heads(sd, params, stats)
     return sd
 
 
@@ -142,7 +211,9 @@ def load_reference_g(path: str) -> dict[str, torch.Tensor]:
     keys are the reference STAGE1_G's for every stage-1 family (JAX
     ``io/torch_import.py:96-110``: ``label.*`` is the live embedding of
     clevr and stackgan and mnist's dead module, ``ca_net.fc.*`` the CA
-    net), so :func:`build_stage1_g` loads the result with strict=True."""
+    net), so :func:`build_stage1_g` loads the result with strict=True. A
+    STAGE2_G's holds its frozen STAGE1_G under ``STAGE1_G.``
+    (:func:`split_stage2_g`)."""
     return _reference_state_dict(path, "netG")
 
 
@@ -150,22 +221,52 @@ def load_reference_d(path: str) -> dict[str, torch.Tensor]:
     """The discriminator state dict of a reference-format ``.pth``: a bare
     state dict, as the reference saves netD (code/multi-mnist/miscc/
     utils.py:165-168), or ``{'netD': ...}``. The keys are STAGE1_D's and
-    D_GET_LOGITS's (JAX ``io/torch_import.py:import_stage1_d``), so
-    :func:`build_stage1_d` loads the result with strict=True."""
+    D_GET_LOGITS's (JAX ``io/torch_import.py:import_stage1_d``), or
+    STAGE2_D's, so :func:`build_stage1_d` or :func:`build_stage2_d` loads
+    the result with strict=True."""
     return _reference_state_dict(path, "netD")
 
 
-def warm_start(state, net_g: str = "", net_d: str = "") -> list[str]:
+STAGE1_PREFIX = "STAGE1_G."   # the frozen stage-1 G inside a STAGE2_G
+
+
+def split_stage2_g(sd: Mapping[str, torch.Tensor]
+                   ) -> tuple[Optional[dict], dict]:
+    """A reference STAGE2_G state dict -> (the wrapped frozen STAGE1_G's
+    state dict, its prefix taken off, or None when it has none; the rest,
+    Stage2G's), as JAX ``io/torch_import.py:import_stage2_g`` splits it."""
+    s1 = {k[len(STAGE1_PREFIX):]: v for k, v in sd.items()
+          if k.startswith(STAGE1_PREFIX)}
+    s2 = {k: v for k, v in sd.items() if not k.startswith(STAGE1_PREFIX)}
+    return s1 or None, s2
+
+
+def _is_pth(path: str) -> bool:
+    return bool(path) and str(path).endswith(".pth") and os.path.exists(path)
+
+
+def warm_start(state, net_g: str = "", net_d: str = "",
+               frozen_g: Optional[nn.Module] = None) -> list[str]:
     """The reference's NET_G/NET_D warm start (load_network_stageI,
     code/multi-mnist/trainer.py:59-68; JAX ``train/loop.py:150-160``):
     each path that ends in ``.pth`` and exists is loaded into ``state.g``
-    or ``state.d`` with strict=True. Returns the paths loaded."""
+    or ``state.d`` with strict=True. With ``frozen_g``, stage 2's frozen
+    stage-1 G (load_network_stageII, code/coco/stackgan/trainer.py:117-151;
+    JAX ``cli/stage2_runner.py:80-98``), NET_G is a STAGE2_G: its
+    ``STAGE1_G.`` part, when it has one, goes to ``frozen_g``. Returns the
+    paths loaded."""
     loaded = []
-    for path, module, load in ((net_g, state.g, load_reference_g),
-                               (net_d, state.d, load_reference_d)):
-        if path and str(path).endswith(".pth") and os.path.exists(path):
-            module.load_state_dict(load(path), strict=True)
-            loaded.append(path)
+    if _is_pth(net_g):
+        sd = load_reference_g(net_g)
+        if frozen_g is not None:
+            s1, sd = split_stage2_g(sd)
+            if s1 is not None:
+                frozen_g.load_state_dict(s1, strict=True)
+        state.g.load_state_dict(sd, strict=True)
+        loaded.append(net_g)
+    if _is_pth(net_d):
+        state.d.load_state_dict(load_reference_d(net_d), strict=True)
+        loaded.append(net_d)
     return loaded
 
 

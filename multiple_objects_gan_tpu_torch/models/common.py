@@ -8,6 +8,9 @@ The three stage-1 families differ only in configuration:
   clevr     3       4        13     13 -> 16      no      clamp(sum), dim 13
   coco-s1   3       3        81     (c||81)->128  yes     mu, dim 128
 
+COCO StackGAN stage 2 (``COCO_S2``) shares coco-s1's fields; its G width
+is GF_DIM itself, not GF_DIM * 8 (``Stage2G``), and its D has both heads.
+
 Sources: code/multi-mnist/model.py, code/clevr/model.py,
 code/coco/stackgan/model.py and the cfg/*.yml files. The presets keep the
 JAX package's default widths; ``config/config.py:stage1_model_config``
@@ -46,6 +49,7 @@ class Stage1Config:
     # (float32), as the JAX package's COMPUTE_DTYPE None
     compute_dtype: Optional[torch.dtype] = None
     bn_groups: int = 1         # train-mode BatchNorm statistic groups
+    r_num: int = 2             # cfg.GAN.R_NUM: stage 2's ResBlocks
 
     @property
     def ngf(self) -> int:
@@ -77,3 +81,9 @@ COCO_S1 = Stage1Config(
     variant="coco-stackgan-1", img_channels=3, num_objects=3, label_dim=81,
     condition_dim=128, text_dim=1024, use_label_embed=True, use_ca=True,
     d_cond_dim=128)
+
+# stage 2 (JAX models/stage2.py:52-58): gf_dim is the G width itself
+# (code/coco/stackgan/model.py:314), and the D has the unconditional head
+COCO_S2 = dataclasses.replace(
+    COCO_S1, variant="coco-stackgan-2", gf_dim=192, df_dim=96,
+    use_uncond_head=True)

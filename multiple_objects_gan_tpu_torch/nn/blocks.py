@@ -257,3 +257,23 @@ class UpBlock(nn.Sequential):
                                  compute_dtype=compute_dtype),
                          norm(out_planes),
                          nn.ReLU(True))
+
+
+class ResBlock(nn.Module):
+    """conv3x3 + BN + ReLU + conv3x3 + BN, the skip added, then ReLU
+    (code/coco/stackgan/model.py:25-41; JAX ``nn/blocks.py:ResBlock``).
+    Keys ``block.{0,1,3,4}``, as the reference's Sequential numbers them."""
+
+    def __init__(self, channels: int,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_groups: int = 1):
+        super().__init__()
+        self.block = nn.Sequential(
+            Conv3x3(channels, channels, compute_dtype=compute_dtype),
+            BatchNorm2d(channels, groups=bn_groups),
+            nn.ReLU(True),
+            Conv3x3(channels, channels, compute_dtype=compute_dtype),
+            BatchNorm2d(channels, groups=bn_groups))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.block(x) + x)

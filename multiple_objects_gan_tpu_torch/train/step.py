@@ -1,5 +1,5 @@
-"""The alternating D-then-G train step of Stage 1 (port of the JAX
-``train/step.py:make_train_step``).
+"""The alternating D-then-G train steps of Stage 1 and Stage 2 (port of the
+JAX ``train/step.py:make_train_step`` and ``make_stage2_train_step``).
 
 It follows the reference hot loop (code/multi-mnist/trainer.py:113-157):
 
@@ -22,6 +22,11 @@ adds ``kl_coeff`` times the KL of (mu, logvar) (JAX ``train/step.py:230-
 ``torch.Generator`` on the device, or passed in: ``z``, and the CA net's
 ``eps`` (the tests replay the JAX step's z and ``rng_ca`` draws). There is
 one G forward a step.
+
+Stage 2 shares the D-then-G core (:func:`_alternating_step`, the JAX
+``_fused_alternating_step``): the frozen stage-1 G makes a 64px image, the
+stage-2 G refines it to 256px, and D works on 256px with the stage-2 boxes
+(:func:`make_stage2_train_step`).
 
 Under a bf16 compute dtype (``Stage1Config.compute_dtype``) the modules
 compute in bf16 and the step does not change: the losses take the logits
@@ -55,6 +60,65 @@ def _cond(cfg: Stage1Config, label_onehot: torch.Tensor,
     return cond
 
 
+def _alternating_step(state: GANTrainState, g_fwd: Callable,
+                      image: torch.Tensor, d_args: tuple, cond_fn: Callable,
+                      *, use_uncond: bool, kl_coeff: Optional[float],
+                      lr_g: float, lr_d: float) -> dict:
+    """The D-then-G update both stages share (JAX
+    ``train/step.py:_fused_alternating_step``).
+
+    ``g_fwd(g) -> (fake, mu, logvar)`` is the one G forward of the step;
+    ``d(image, *d_args)`` the D feature forward; ``cond_fn(mu)`` the
+    condition of the D head. ``kl_coeff`` None leaves the KL out of the G
+    loss. Updates ``state`` in place; returns the losses, detached."""
+    g, d = state.g, state.d
+    g.train()
+    d.train()
+    b = image.shape[0]
+    fake, mu, logvar = g_fwd(g)
+    cond = cond_fn(mu)
+
+    # ---- D update
+    feat_real = d(image, *d_args)
+    feat_fake = d(fake.detach(), *d_args)
+    real_logits = d.cond_logits(feat_real, cond)
+    wrong_logits = d.cond_logits(feat_real[:b - 1], cond[1:])
+    fake_logits = d.cond_logits(feat_fake, cond)
+    u_real = u_fake = None
+    if use_uncond:
+        u_real = d.uncond_logits(feat_real)
+        u_fake = d.uncond_logits(feat_fake)
+    err_d, d_parts = discriminator_loss(real_logits, wrong_logits,
+                                        fake_logits, u_real, u_fake)
+    set_lr(state.d_opt, lr_d)
+    state.d_opt.zero_grad(set_to_none=True)
+    err_d.backward()
+    state.d_opt.step()
+
+    # ---- G update through the updated D
+    feat_fake = d(fake, *d_args)
+    fake_logits = d.cond_logits(feat_fake, cond)
+    u_fake = d.uncond_logits(feat_fake) if use_uncond else None
+    err_g = generator_adv_loss(fake_logits, u_fake)
+    total = err_g
+    if kl_coeff is not None:
+        kl = kl_loss(mu, logvar)
+        total = err_g + kl * kl_coeff
+    params = [p for p in g.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    for p, grad in zip(params, grads):
+        p.grad = grad      # None for the reference's unused label module
+    set_lr(state.g_opt, lr_g)
+    state.g_opt.step()
+    state.step += 1
+
+    metrics = {"d_loss": err_d, **d_parts, "g_loss": err_g,
+               "g_loss_total": total}
+    if kl_coeff is not None:
+        metrics["kl_loss"] = kl
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
     """``train_step(state, batch, generator, lr_g, lr_d, z=None, eps=None)
     -> metrics``.
@@ -71,9 +135,6 @@ def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
                    generator: Optional[torch.Generator], lr_g: float,
                    lr_d: float, z: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None) -> dict:
-        g, d = state.g, state.d
-        g.train()
-        d.train()
         image = as_model_image(batch["image"])
         labels, bbox = batch["label_onehot"], batch["bbox"]
         text = batch.get("text_embedding")
@@ -84,50 +145,75 @@ def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
         if cfg.use_ca and eps is None:
             eps = torch.randn((b, cfg.condition_dim), generator=generator,
                               device=image.device)
+        return _alternating_step(
+            state,
+            lambda g: g.outputs(z, bbox, labels, text,
+                                eps if cfg.use_ca else None),
+            image, (labels, bbox), lambda mu: _cond(cfg, labels, mu),
+            use_uncond=cfg.use_uncond_head,
+            kl_coeff=kl_coeff if cfg.use_ca else None, lr_g=lr_g, lr_d=lr_d)
 
-        fake, mu, logvar = g.outputs(z, bbox, labels, text,
-                                     eps if cfg.use_ca else None)
-        cond = _cond(cfg, labels, mu)
+    return train_step
 
-        # ---- D update
-        feat_real = d(image, labels, bbox)
-        feat_fake = d(fake.detach(), labels, bbox)
-        real_logits = d.cond_logits(feat_real, cond)
-        wrong_logits = d.cond_logits(feat_real[:b - 1], cond[1:])
-        fake_logits = d.cond_logits(feat_fake, cond)
-        u_real = u_fake = None
-        if cfg.use_uncond_head:
-            u_real = d.uncond_logits(feat_real)
-            u_fake = d.uncond_logits(feat_fake)
-        err_d, d_parts = discriminator_loss(real_logits, wrong_logits,
-                                            fake_logits, u_real, u_fake)
-        set_lr(state.d_opt, lr_d)
-        state.d_opt.zero_grad(set_to_none=True)
-        err_d.backward()
-        state.d_opt.step()
 
-        # ---- G update through the updated D
-        feat_fake = d(fake, labels, bbox)
-        fake_logits = d.cond_logits(feat_fake, cond)
-        u_fake = d.uncond_logits(feat_fake) if cfg.use_uncond_head else None
-        err_g = generator_adv_loss(fake_logits, u_fake)
-        total = err_g
-        if cfg.use_ca:
-            kl = kl_loss(mu, logvar)
-            total = err_g + kl * kl_coeff
-        params = [p for p in g.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        for p, grad in zip(params, grads):
-            p.grad = grad      # None for the reference's unused label module
-        set_lr(state.g_opt, lr_g)
-        state.g_opt.step()
-        state.step += 1
+def frozen_forward(g1: Stage1G, *args) -> torch.Tensor:
+    """The frozen stage-1 G's image inside the stage-2 step: a train-mode
+    forward (batch statistics) without autograd whose running-statistic
+    updates are thrown away, as the JAX step discards them
+    (``train/step.py:362-365``). The forward runs on clones of the
+    buffers (``torch.func.functional_call``), so G1's parameters and
+    buffers stay bit-identical; its mode is restored after."""
+    was_training = g1.training
+    g1.train()
+    buffers = {k: v.clone() for k, v in g1.named_buffers()}
+    try:
+        with torch.no_grad():
+            return torch.func.functional_call(g1, buffers, args).detach()
+    finally:
+        g1.train(was_training)
 
-        metrics = {"d_loss": err_d, **d_parts, "g_loss": err_g,
-                   "g_loss_total": total}
-        if cfg.use_ca:
-            metrics["kl_loss"] = kl
-        return {k: v.detach() for k, v in metrics.items()}
+
+def make_stage2_train_step(s2_cfg: Stage1Config, s1_cfg: Stage1Config,
+                           g1: Stage1G, kl_coeff: float = 2.0) -> Callable:
+    """``train_step(state, batch, generator, lr_g, lr_d, z=None, eps1=None,
+    eps2=None) -> metrics``: the stage-2 step (code/coco/stackgan/
+    trainer.py:155-235, STAGE=2; JAX ``make_stage2_train_step``).
+
+    ``batch`` holds the 256px ``image``, ``bbox`` (the stage-1 boxes),
+    ``bbox_s2``, ``label_onehot`` and ``text_embedding``. The frozen
+    stage-1 G ``g1`` makes the 64px image from ``z`` and its CA noise
+    ``eps1`` (:func:`frozen_forward`); ``state.g``, a Stage2G, refines it
+    with its own CA noise ``eps2``; D sees the 256px images with the
+    stage-2 boxes. The condition is G2's mu, detached; the unconditional
+    head is always on, and KL x ``kl_coeff`` joins the G loss. Noise not
+    passed is drawn from ``generator`` in the order z, eps1, eps2.
+    """
+
+    def train_step(state: GANTrainState, batch: dict,
+                   generator: Optional[torch.Generator], lr_g: float,
+                   lr_d: float, z: Optional[torch.Tensor] = None,
+                   eps1: Optional[torch.Tensor] = None,
+                   eps2: Optional[torch.Tensor] = None) -> dict:
+        image = as_model_image(batch["image"])
+        labels, text = batch["label_onehot"], batch["text_embedding"]
+        bbox_s1, bbox_s2 = batch["bbox"], batch["bbox_s2"]
+        b, dev = image.shape[0], image.device
+        if z is None:
+            z = torch.randn((b, s1_cfg.z_dim), generator=generator,
+                            device=dev)
+        if eps1 is None:
+            eps1 = torch.randn((b, s1_cfg.condition_dim),
+                               generator=generator, device=dev)
+        if eps2 is None:
+            eps2 = torch.randn((b, s2_cfg.condition_dim),
+                               generator=generator, device=dev)
+        stage1_img = frozen_forward(g1, z, bbox_s1, labels, text, eps1)
+        return _alternating_step(
+            state,
+            lambda g: g.outputs(stage1_img, bbox_s1, bbox_s2, labels, text,
+                                eps2),
+            image, (labels, bbox_s2), lambda mu: mu.detach(),
+            use_uncond=True, kl_coeff=kl_coeff, lr_g=lr_g, lr_d=lr_d)
 
     return train_step
 
