@@ -9,8 +9,10 @@ Multi-MNIST paths, 16-20 the CLEVR and COCO-StackGAN-1 families at the
 widths of cfg/clevr_train.yml and cfg/coco_s1_train.yml, from seeded
 weights, 21-24 the host side of stage 1: data on disk, checkpoints
 and resume, and sampling, and 25-29 COCO StackGAN stage 2 at the widths
-of cfg/coco_s2_train.yml, from seeded weights. The train entries' data and runs go to a
-temporary directory, removed at the end. Phases, each logged with the
+of cfg/coco_s2_train.yml, from seeded weights, and 30-32 serve the trained
+COCO AttnGAN (runs_r5/attngan_flagship: netG_ema_final.pth and
+damsm/DAMSMencoders/text_encoder29.pth). The train entries' data and runs
+go to a temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
@@ -135,7 +137,32 @@ elapsed time:
  29. s2serve  - G1 + G2 eval card against CPU at batch 4, and
                 Stage2Service over HTTP: 256px PNGs against the CPU's
                 images of the same items and draws, a bboxes_s2 override,
-                a length mismatch answered 400, then a 1-item request.
+                a length mismatch answered 400, then a 1-item request;
+ 30. attnkernels - K1 at AttnGAN's object pathway, (64,3,192,16,16) onto
+                16x16 (the service's batch) and at batch 1, float32 and
+                bf16, on service-style boxes with the third object padded
+                (equal bit for bit to the other two alone), held against
+                its plain version, timed cold in turns and on the device
+                alone beside the bound;
+ 31. attnmodel - the flagship's vocabulary rebuilt by
+                write_synthetic_attngan(n=2048, seed=7) (140 words, the
+                encoder's rows); the trained G (GF 48, ngf 768) and text
+                encoder card against CPU at batch 4 (word and sentence
+                embeddings, the 64/128/256px images, both attention maps);
+                GFLOP an image by stage (torch.utils.flop_counter); the
+                text encoder + G forward at batch 64 in float32 and bf16
+                (median of CUDA events, images/s, peak memory, K1 launches
+                a forward) and its device time by kernel group
+                (torch.profiler, tools/profile_step.py's groups);
+ 32. attnserve - cli/serve.py --variant coco-attngan on the card from a
+                copy of the flagship's sampling cfg naming the two files
+                and phase 31's set: 8 concurrent requests and a 64-item
+                one (an OOV-mixed and an all-OOV caption among them), the
+                first 8 served PNGs against the CPU nets' images of the
+                same items and z, a bad label and a non-string caption
+                answered 400, /stats's K1 launches, and the served images'
+                in-box/out-of-box separation, printed beside the
+                flagship's 0.987.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -169,10 +196,13 @@ from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, Stage2Service, _item_boxes_s2, _item_layout, _png_b64,
-    build_service, serve)
+    attngan_images, build_service, parse_args as serve_parse_args, serve)
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
-    cfg_from_file, stage1_model_config, stage2_model_config, train_settings)
+    attngan_model_config, cfg_from_file, stage1_model_config,
+    stage2_model_config, train_settings)
+from multiple_objects_gan_tpu_torch.data.attngan import (
+    AttnGanDataset, write_synthetic_attngan)
 from multiple_objects_gan_tpu_torch.data.datasets import (
     ClevrDataset, MemoryLoader, MultiMnistDataset, write_synthetic_clevr,
     write_synthetic_multimnist)
@@ -182,15 +212,19 @@ from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_clevr, synthetic_coco, synthetic_coco_stage2,
     synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
-from multiple_objects_gan_tpu_torch.io.weights import load_reference_g
+from multiple_objects_gan_tpu_torch.io.weights import (
+    load_reference_attngan_g, load_reference_g, load_text_encoder)
+from multiple_objects_gan_tpu_torch.models.attngan import (
+    COCO_ATTN, build_attngan_g)
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
+from multiple_objects_gan_tpu_torch.nn.encoders import build_text_encoder
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
-from multiple_objects_gan_tpu_torch.tools import spike_normconv
+from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.state import (
     create_state, create_state_stage2)
@@ -372,7 +406,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/29 device")
+    log("phase 1/32 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -390,7 +424,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/29 build")
+    log("phase 2/32 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -435,7 +469,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/29 kernel against its plain version, on the card")
+    log("phase 3/32 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -570,7 +604,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/29 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/32 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -634,19 +668,26 @@ def _png_gray64(b64: str, channels: int = 1):
     return img if channels == 1 else img.reshape(64, 64, 3)
 
 
-def _separation(u8, boxes) -> float:
-    """In-box minus out-of-box mean luminance in [-1, 1] units (the
-    separation measure of tools/validate_learning.py)."""
-    img = u8.astype(np.float32) / 127.5 - 1.0
-    mask = np.zeros(img.shape, bool)
-    for x, y, w, h in boxes:
-        mask[int(round(y * 64)):int(round((y + h) * 64)),
-             int(round(x * 64)):int(round((x + w) * 64))] = True
-    return float(img[mask].mean() - img[~mask].mean())
+def _separation(imgs, boxes) -> tuple[float, float]:
+    """In-box and out-of-box mean luminance in [-1, 1] units over a batch
+    of uint8 images, (N, S, S) or (N, S, S, 3), with each image's boxes
+    (x, y, w, h) in [0, 1], a negative x marking a padded object: the
+    measure of tools/validate_learning.py."""
+    imgs = imgs.astype(np.float32) / 127.5 - 1.0
+    lum = imgs.mean(axis=-1) if imgs.ndim == 4 else imgs
+    size = lum.shape[1]
+    inside = np.zeros(lum.shape, bool)
+    for i, bb in enumerate(boxes):
+        for x, y, w, h in bb:
+            if x < 0:
+                continue
+            inside[i, int(y * size):min(int((y + h) * size), size),
+                   int(x * size):min(int((x + w) * size), size)] = True
+    return float(lum[inside].mean()), float(lum[~inside].mean())
 
 
 def phase_serve():
-    log("phase 5/29 serve: the port's main path over HTTP, on the card")
+    log("phase 5/32 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -713,7 +754,7 @@ def phase_serve():
         latency_ms = (time.perf_counter() - t) * 1e3
         check(status == 200 and len(body["images"]) == 64,
               f"64-item request: {status}")
-        sep = [_separation(_png_gray64(b), bb)
+        sep = [np.subtract(*_separation(_png_gray64(b)[None], [bb]))
                for b, bb in zip(body["images"], boxes)]
         log(f"64-item request: {latency_ms:.1f} ms end to end over HTTP "
             f"(host clock); digits in their boxes: separation mean "
@@ -793,7 +834,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/29 grad: K2 (place backward) against its plain version, "
+    log("phase 6/32 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -900,7 +941,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/29 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/32 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1056,7 +1097,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/29 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/32 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1090,7 +1131,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/29 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/32 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1170,7 +1211,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/29 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/32 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1269,7 +1310,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/29 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/32 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1304,7 +1345,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/29 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/32 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1366,7 +1407,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/29 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/32 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1410,7 +1451,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/29 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/32 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1453,7 +1494,8 @@ def phase_entry_bf16():
     imgs32 = [_png_gray64(b) for b in svc32.run(items)]
     diff = np.abs(np.stack(imgs16).astype(np.float32)
                   - np.stack(imgs32).astype(np.float32)) / 127.5
-    sep = [_separation(u8, bb) for u8, bb in zip(imgs16, boxes)]
+    sep = [np.subtract(*_separation(u8[None], [bb]))
+           for u8, bb in zip(imgs16, boxes)]
     log(f"64-item request with --bf16: {latency_ms:.1f} ms over HTTP (host "
         f"clock); against the float32 image of the card: mean |diff| "
         f"{diff.mean():.4f}, max {diff.max():.4f} in [-1, 1] units (limit "
@@ -1533,7 +1575,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/29 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/32 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1608,7 +1650,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/29 fstep: one full-width float32 train step of each "
+    log(f"phase 17/32 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1647,7 +1689,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/29 ftime: each family's train step at batch "
+    log("phase 18/32 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1655,13 +1697,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/29 ftime, {key}",
+                                       f"18/32 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/29 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/32 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1698,7 +1740,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/29 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/32 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1850,7 +1892,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/29 probe: the image decoders this machine has, read only "
+    log("phase 21/32 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2104,7 +2146,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/29 disk: the train entries from disk (cli/main.py "
+    log("phase 22/32 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2284,7 +2326,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/29 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/32 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2327,7 +2369,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/29 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/32 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2427,7 +2469,7 @@ def stage2_shapes():
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/29 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/32 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(25)
     dev = torch.device(DEVICE)
@@ -2601,7 +2643,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/29 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/32 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2646,7 +2688,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/29 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/32 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2719,7 +2761,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/29 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/32 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2790,7 +2832,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/29 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/32 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -2893,6 +2935,382 @@ def phase_stage2_serve():
 
 
 
+# ------------------------------------------------- COCO AttnGAN, serving
+
+ATTN_DIR = os.path.join(ROOT, "runs_r5", "attngan_flagship")
+ATTN_NET_G = os.path.join(ATTN_DIR, "netG_ema_final.pth")
+ATTN_NET_E = os.path.join(ATTN_DIR, "damsm", "DAMSMencoders",
+                          "text_encoder29.pth")
+ATTN_CFG = os.path.join(ATTN_DIR, "coco_attn_sampling.yml")
+ATTN_SET = (2048, 7)        # the flagship's data: write_synthetic_attngan
+ATTN_WORDS = 140            # text_encoder29.pth's embedding rows
+ATTN_BATCH = 64             # the service's device batch (cli/serve.py)
+ATTN_CHECK_BATCH = 4        # the flagship forward card vs CPU (phase 31)
+ATTN_SERVE_CHECK = 8        # served items held against the CPU (phase 32)
+ATTN_TIME_RUNS = 10         # CUDA-event readings a forward time
+# the flagship card vs CPU (phase 31): the images at MODEL_ATOL, the text
+# encoder's embeddings and the attention maps at ATTN_ATOL (the CPU's
+# port against JAX read 4e-5 on the images, 1.2e-7 on the embeddings,
+# tests/test_torch_port_attngan_model.py)
+ATTN_ATOL = 1e-4
+FLAGSHIP_SEPARATION = 0.987  # runs_r5/attngan_flagship/result.json
+
+
+def _attn_set():
+    """The flagship's synthetic set, text side, in the work directory:
+    write_synthetic_attngan(n=2048, seed=7), the vocabulary held to the
+    encoder's 140 rows."""
+    data = os.path.join(WORK, "attngan_data")
+    t = time.perf_counter()
+    if not os.path.isdir(data):
+        write_synthetic_attngan(data, n=ATTN_SET[0], seed=ATTN_SET[1])
+    ds = AttnGanDataset(data, split="test", captions_per_image=5)
+    rows = load_text_encoder(ATTN_NET_E)["encoder.weight"].shape[0]
+    log(f"  write_synthetic_attngan(n={ATTN_SET[0]}, seed={ATTN_SET[1]}) "
+        f"and its vocabulary: {ds.n_words} words, the encoder's rows "
+        f"{rows}, in {time.perf_counter() - t:.1f}s (host clock)")
+    check(ds.n_words == rows == ATTN_WORDS, f"vocabulary {ds.n_words} words, "
+          f"encoder {rows} rows; {ATTN_WORDS} expected")
+    return data, ds
+
+
+def _attn_inputs(ds, b, seed):
+    """b test-split items as the service batches them: the captions' ids
+    (cut at 12, zero-padded), lengths, the layouts (one-hot 81, a -1 label
+    in slot 80, as the reference's readers give it) and z."""
+    rs = np.random.RandomState(seed)
+    idx = rs.choice(len(ds), b, replace=len(ds) < b)
+    caps = np.zeros((b, 12), np.int64)
+    lens = np.ones((b,), np.int64)
+    for i, j in enumerate(idx):
+        ids = ds.captions[int(j) * 5][:12]
+        caps[i, :len(ids)], lens[i] = ids, len(ids)
+    lab = ds.labels[idx].reshape(b, 3)
+    onehot = np.zeros((b, 3, 81), np.float32)
+    onehot[np.arange(b)[:, None], np.arange(3)[None, :],
+           np.where(lab < 0, 80, lab)] = 1.0
+    return {"caps": caps, "lens": lens, "bbox": ds.bboxes[idx],
+            "label_onehot": onehot,
+            "z": rs.randn(b, 100).astype(np.float32)}
+
+
+def phase_attn_kernels():
+    log(f"phase 30/32 attnkernels: K1 at AttnGAN's object pathway, "
+        f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
+        "against its plain version, and timed")
+    rs = np.random.RandomState(30)
+    dev = torch.device(DEVICE)
+    c, hw = COCO_ATTN.ngf // 4, (16, 16)
+    smem = {es: k1.place_smem_bytes(3, k1.place_tile(hw, hw), hw, hw, es)
+            for es in (4, 2)}
+    log(f"  K1 tile {k1.place_tile(hw, hw)} channels, shared memory {smem[4]}"
+        f" B (f32), {smem[2]} B (bf16) of {k1.MAX_PLACE_SMEM}")
+    check(max(smem.values()) <= k1.MAX_PLACE_SMEM, "K1 shared memory")
+    out = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype)[6:]
+        worst = "max_abs_err" if dtype == torch.float32 else \
+            "max_abs_err_bf16"
+        for b in (ATTN_BATCH, 1):
+            bbox = _service_boxes(rs, b, 3)
+            bbox[:, 2] = -1.0                 # a padded third object
+            bbox = torch.from_numpy(bbox).to(dev)
+            feats = torch.from_numpy(rs.randn(b, 3, c, *hw).astype(
+                np.float32)).to(dev).to(dtype)
+            label = f"batch {b} {tname} {tuple(feats.shape)} -> {hw}"
+            got = k1.stn_place_multi_nchw(feats, bbox, hw)
+            out[worst] = max(out[worst], _held(
+                got, k1.stn_place_multi_plain(feats, bbox, hw), dtype, "K1",
+                label))
+            first = k1.stn_place_multi_nchw(feats[:, :2].contiguous(),
+                                            bbox[:, :2].contiguous(), hw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, first), f"K1 {label}: the padded object "
+                  "changed the sums of the others")
+            log(f"  K1 {label}: equal bit for bit to the two unpadded "
+                "objects alone")
+            row = time_place(feats, bbox, hw, f"K1 AttnGAN batch {b}")
+            out.setdefault(tname, {})[f"batch{b}"] = {
+                k: row[k] for k in ("ms", "plain_ms", "graph_ms", "bound_ms",
+                                    "bound_by", "share_of_bound",
+                                    "graph_share_of_bound")}
+    return out
+
+
+def _flops_by_stage(g, enc, inputs):
+    """GFLOP of one image by torch.utils.flop_counter (convs and matmuls:
+    K1, BatchNorm and the activations are not counted) at each stage:
+    h_net1 (its object pathway, local1 and local2, apart), h_net2, h_net3,
+    the image heads and the text encoder."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc, torch.inference_mode():
+        attngan_images(enc, g, *inputs)
+    counts = fc.get_flop_counts()
+    b = inputs[0].shape[0]
+
+    def total(prefix):
+        return sum(sum(v.values()) for k, v in counts.items()
+                   if k == prefix) / b / 1e9
+
+    out = {name: total(f"GNet.{name}") for name in (
+        "h_net1", "h_net2", "h_net3", "img_net1", "img_net2", "img_net3")}
+    out["object_pathway"] = (total("GNet.h_net1.local1")
+                             + total("GNet.h_net1.local2"))
+    out["text_encoder"] = total("RNNEncoder")
+    out["total"] = fc.get_total_flops() / b / 1e9
+    return out
+
+
+def _profile_forward(fn, n: int = 3):
+    """Device ms of ``fn`` by kernel group (tools/profile_step.py's), over
+    ``n`` calls traced with torch.profiler after one untraced call:
+    returns (wall ms a call on the host clock, busy ms a call, {group: ms
+    a call}, the top 5 kernels as (ms a call, name))."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = profile_step.kernel_times(prof)
+    groups = {g: ms / n for g, ms in
+              profile_step.group_times(kernels).items()}
+    top = sorted(((ms / n, name) for name, ms in kernels.items()),
+                 reverse=True)[:5]
+    return wall, sum(kernels.values()) / n, groups, top
+
+
+def phase_attn_model():
+    log("phase 31/32 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+        "text_encoder29.pth) card against CPU, and its forward timed")
+    data, ds = _attn_set()
+    mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
+    check(mcfg.ngf == 768 and mcfg.r_num == 3 and mcfg.branch_num == 3,
+          f"flagship widths {mcfg}")
+    g_sd, e_sd = load_reference_attngan_g(ATTN_NET_G), \
+        load_text_encoder(ATTN_NET_E)
+    nets = {dev: (build_text_encoder(ds.n_words, 256, e_sd, device=dev),
+                  build_attngan_g(mcfg, g_sd, device=dev))
+            for dev in (DEVICE, "cpu")}
+    n_params = sum(p.numel() for p in nets["cpu"][1].parameters())
+    log(f"  G: GF {mcfg.gf_dim} (ngf {mcfg.ngf}), R_NUM {mcfg.r_num}, "
+        f"{mcfg.branch_num} branches, {n_params} parameters; text encoder "
+        f"{ds.n_words} words, bi-LSTM 2 x 128")
+    x = _attn_inputs(ds, ATTN_CHECK_BATCH, 31)
+    got = {}
+    for dev, (enc, g) in nets.items():
+        t = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+        with torch.inference_mode():
+            words, sent = enc(t["caps"], t["lens"].cpu())
+            o = g.outputs(t["z"], sent, words, t["caps"] == 0, t["bbox"],
+                          t["label_onehot"])
+        got[dev] = [words, sent, *o.imgs, *o.att_maps]
+    names = ["words", "sent", "img64", "img128", "img256", "att64",
+             "att128"]
+    errs = {}
+    for name, a, b in zip(names, got[DEVICE], got["cpu"]):
+        check(bool(torch.isfinite(a).all()), f"flagship {name} non-finite")
+        errs[name] = float((a.cpu() - b).abs().max())
+    log(f"  card vs CPU, batch {ATTN_CHECK_BATCH}, float32 (TF32 off): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (images: atol {MODEL_ATOL:g}; the rest {ATTN_ATOL:g}); 256px "
+        f"std {float(got['cpu'][4].std()):.4f}")
+    for k, v in errs.items():
+        check(v <= (MODEL_ATOL if k.startswith("img") else ATTN_ATOL),
+              f"flagship {k}: card and CPU disagree by {v:.3e}")
+
+    enc, g = nets[DEVICE]
+    x = _attn_inputs(ds, ATTN_BATCH, 32)
+    dev_in = [torch.from_numpy(x["caps"]).to(DEVICE),
+              torch.from_numpy(x["lens"]),
+              torch.from_numpy(x["bbox"]).to(DEVICE),
+              torch.from_numpy(x["label_onehot"]).to(DEVICE),
+              torch.from_numpy(x["z"]).to(DEVICE)]
+    flops = _flops_by_stage(g, enc, [t[:1] for t in dev_in])
+    log("  GFLOP an image (torch.utils.flop_counter, batch 1): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in flops.items()))
+    rows = {}
+    g16 = build_attngan_g(dataclasses.replace(
+        mcfg, compute_dtype=torch.bfloat16), g_sd, device=DEVICE)
+    for tname, gen in (("float32", g), ("bfloat16", g16)):
+        k1.reset_launch_count()
+        img = attngan_images(enc, gen, *dev_in)
+        torch.cuda.synchronize()
+        launches = k1.launch_count()
+        check(launches == 1, f"{tname} forward: {launches} K1 launches, 1 "
+              "expected")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: attngan_images(enc, gen, *dev_in), warmup=2,
+                     runs=ATTN_TIME_RUNS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tflops = flops["total"] * ATTN_BATCH / ms   # GFLOP / ms = TFLOP/s
+        rows[tname] = {"ms": ms, "images_per_s": ATTN_BATCH * 1e3 / ms,
+                       "peak_gib": peak, "k1_launches_per_forward": launches,
+                       "tflop_per_s": tflops}
+        log(f"  text encoder + G forward at batch {ATTN_BATCH}, {tname}: "
+            f"{ms:.2f} ms (CUDA events, median of {ATTN_TIME_RUNS}), "
+            f"{ATTN_BATCH * 1e3 / ms:.0f} images/s, {tflops:.1f} TFLOP/s of "
+            f"the counted convs and matmuls, peak {peak:.2f} GiB, K1 "
+            f"launches a forward {launches}")
+        wall, busy, groups, top = _profile_forward(
+            lambda: attngan_images(enc, gen, *dev_in))
+        rows[tname].update(profiled_wall_ms=wall, busy_ms=busy,
+                           groups_ms=groups)
+        log(f"  {tname} forward traced (torch.profiler, 3 forwards): "
+            f"{wall:.2f} ms a forward on the host clock, the device busy "
+            f"{busy:.2f} ms ({busy / wall:.1%}); by kernel group: "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(
+                groups.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(
+                f"{ms:.2f} ms {name[:70]}" for ms, name in top))
+        if tname == "float32":
+            img32 = img
+    diff = (img.float() - img32).abs()
+    log(f"  bf16 256px images against float32: mean |diff| "
+        f"{float(diff.mean()):.4f}, max {float(diff.max()):.4f}")
+    check(float(diff.mean()) <= MAX_BF16_SERVE_MEAN_DIFF,
+          "bf16 AttnGAN images stray from the float32 ones")
+    return {"data": data, "ds": ds, "mcfg": mcfg, "g_cpu": nets["cpu"][1],
+            "enc_cpu": nets["cpu"][0], "flops": flops, "rows": rows,
+            "card_vs_cpu": errs}
+
+
+def _attn_items(ds, n, seed):
+    """n request items from the test split: each caption as text (its
+    first caption's words), each layout as class ids and boxes."""
+    rs = np.random.RandomState(seed)
+    items = []
+    for j in rs.choice(len(ds), n, replace=len(ds) < n):
+        words = [ds.ixtoword[i] for i in ds.captions[int(j) * 5]]
+        keep = ds.bboxes[j][:, 0] >= 0
+        items.append({"caption": " ".join(words),
+                      "labels": [int(v) for v in ds.labels[j][keep, 0]],
+                      "bboxes": ds.bboxes[j][keep].round(4).tolist()})
+    return items
+
+
+def phase_attn_serve(model):
+    log("phase 32/32 attnserve: cli/serve.py --variant coco-attngan on the "
+        "card from the flagship weights, over HTTP")
+    ds = model["ds"]
+    cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
+    with open(ATTN_CFG) as f:
+        lines = f.read().splitlines()
+    subs = {"NET_G:": ATTN_NET_G, "NET_E:": ATTN_NET_E,
+            "DATA_DIR:": model["data"]}
+    with open(cfg_file, "w") as f:
+        for line in lines:
+            key = line.strip().split(" ")[0]
+            if key in subs:
+                line = f"{line[:line.index(key)]}{key} '{subs[key]}'"
+            f.write(line + "\n")
+    k1.reset_launch_count()
+    args = serve_parse_args(["--variant", "coco-attngan", "--cfg", cfg_file,
+                             "--data_dir", model["data"], "--port", "0",
+                             "--device", DEVICE])
+    t = time.perf_counter()
+    httpd = serve(args)
+    build_s = time.perf_counter() - t
+    svc = httpd.service
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    log(f"  serving on 127.0.0.1:{port} in {build_s:.1f}s (host clock, the "
+        f"warm-up batch included); weights: {svc.weights}")
+    items = _attn_items(ds, svc.max_batch, 32)
+    items[1]["caption"] += " with a zebra and qwerty"     # OOV words
+    items[2]["caption"] = "zebra qwerty asdfgh"            # all OOV
+    try:
+        results = [None] * 8
+
+        def call(i):
+            results[i] = _post(port, {"items": [
+                items[(i + k) % len(items)] for k in range(1 + i % 3)]})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        conc_ms = (time.perf_counter() - t) * 1e3
+        for i, (status, body) in enumerate(results):
+            check(status == 200 and len(body["images"]) == 1 + i % 3,
+                  f"concurrent request {i}: {status} {body.get('error')}")
+        before = svc.device_batches
+        t = time.perf_counter()
+        status, body = _post(port, {"items": items})
+        full_ms = (time.perf_counter() - t) * 1e3
+        check(status == 200 and len(body["images"]) == svc.max_batch,
+              f"{svc.max_batch}-item request: {status} {body.get('error')}")
+        check(svc.device_batches == before + 1, "the full request took "
+              f"{svc.device_batches - before} device batches, 1 expected")
+        served = np.stack([_png_rgb(b) for b in body["images"]])
+        check(served.shape == (svc.max_batch, 256, 256, 3),
+              f"served {served.shape}, 256px RGB expected")
+        bad = dict(items[0], labels=[81] * len(items[0]["labels"]))
+        status_bad, body_bad = _post(port, {"items": [bad]})
+        check(status_bad == 400, f"a label id of 81 got {status_bad}, not 400")
+        status_cap, body_cap = _post(port, {"items": [{"caption": 7}]})
+        check(status_cap == 400, f"a non-string caption got {status_cap}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.close()
+        thread.join(timeout=30)
+    got = (k1.launch_count(), k1.grad_launch_count())
+    check(stats["k1_launches"] == got[0] == svc.device_batches
+          and got[1] == 0, f"K1/K2 launches {got}, /stats "
+          f"{stats['k1_launches']}, device batches {svc.device_batches}; one "
+          "K1 launch a device batch and no K2 expected")
+    # the first items through the CPU nets, with the z the service drew for
+    # the 64-item request (draw number before + 1 of its seeded generator)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for _ in range(before):
+        torch.randn((svc.max_batch, svc.mcfg.z_dim), generator=gen,
+                    device=DEVICE)
+    z = torch.randn((svc.max_batch, svc.mcfg.z_dim), generator=gen,
+                    device=DEVICE)[:ATTN_SERVE_CHECK].cpu()
+    arr = svc.batch(items[:ATTN_SERVE_CHECK])
+    n = ATTN_SERVE_CHECK
+    want = attngan_images(
+        model["enc_cpu"], model["g_cpu"], torch.from_numpy(arr["caps"][:n]),
+        torch.from_numpy(arr["lens"][:n]), torch.from_numpy(arr["bbox"][:n]),
+        torch.from_numpy(arr["label_onehot"][:n]), z)
+    want = to_uint8(want.permute(0, 2, 3, 1).numpy())
+    levels = int(np.abs(served[:n].astype(np.int16) - want).max())
+    tokens = [svc.token_ids(items[i]["caption"]) for i in (1, 2)]
+    in_box, out_box = _separation(
+        served, [np.asarray(it["bboxes"]) for it in items])
+    log(f"  8 concurrent requests of 1-3 items in {conc_ms:.1f} ms, a "
+        f"{svc.max_batch}-item request in {full_ms:.1f} ms (host clock, over "
+        f"HTTP); "
+        f"256px RGB PNGs; the first {n} items against the CPU nets' images "
+        f"of the same items and z: max {levels} levels of 255 (limit 1); an "
+        f"OOV-mixed caption's ids {tokens[0]}, an all-OOV one's {tokens[1]} "
+        f"(the largest id, {svc.max_word}); a label id of 81: 400 "
+        f"({body_bad['error']}); a non-string caption: 400; /stats: "
+        f"{stats['device_batches']} device batches (warm-up included), K1 "
+        f"launches {stats['k1_launches']}, K2 {got[1]}")
+    log(f"  separation of the {len(served)} served images (in-box minus out-of-box "
+        f"mean luminance, [-1, 1]): {in_box - out_box:.3f} (in {in_box:.3f}, "
+        f"out {out_box:.3f}); the flagship's result.json read "
+        f"{FLAGSHIP_SEPARATION} after training. Printed, not held")
+    check(levels <= 1, "AttnGAN served images stray from the CPU's")
+    check(tokens[1] == [svc.max_word], "the all-OOV caption's ids")
+    return {"serve_coco-attngan": got}, {
+        "concurrent_ms": conc_ms, "request64_ms": full_ms,
+        "separation": in_box - out_box, "levels": levels}
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -2930,7 +3348,7 @@ def run_phases() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/29 time16")
+    step16 = phase_step_time(BF16, "14/32 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -2950,13 +3368,16 @@ def run_phases() -> int:
     s2_time = phase_stage2_step_time()
     s2_entry = phase_stage2_entry()
     s2_serve, _ = phase_stage2_serve()
+    attn_kernels = phase_attn_kernels()
+    attn_model = phase_attn_model()
+    attn_serve, attn_latency = phase_attn_serve(attn_model)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
-               **sampled["launches"], **s2_entry, **s2_serve}
+               **sampled["launches"], **s2_entry, **s2_serve, **attn_serve}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
-                 *sampled["launches"], *s2_entry, *s2_serve)
+                 *sampled["launches"], *s2_entry, *s2_serve, *attn_serve)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16")
 
     def launches(i):
@@ -2979,7 +3400,8 @@ def run_phases() -> int:
         "max_abs_err": max(place["max_abs_err"],
                            families["place"]["max_abs_err"],
                            batch9["max_abs_err"],
-                           s2_kernels["place"]["max_abs_err"]),
+                           s2_kernels["place"]["max_abs_err"],
+                           attn_kernels["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
@@ -2989,6 +3411,10 @@ def run_phases() -> int:
         "stage2": {**s2_kernels["place"],
                    "step_launches": {k: v["launches_per_step"][0]
                                      for k, v in s2_time.items()}},
+        "attngan": {**attn_kernels,
+                    "forward_b64": attn_model["rows"],
+                    "gflop_per_image": attn_model["flops"],
+                    "serve": attn_latency},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

@@ -1,12 +1,13 @@
 """Serving endpoint of the port: layout -> image over HTTP, on the card.
 
 The PyTorch counterpart of the JAX package's ``cli/serve.py`` for the
-Stage-1 generators (multi-mnist, clevr, coco-stackgan-1) and COCO
-StackGAN stage 2 (256px): a micro-batcher coalesces concurrent requests
-into device batches of a fixed size (``MAX_BATCH``), each batch is one
-eval-mode ``Stage1G`` forward (stage 2: the frozen stage-1 G, then
-``Stage2G``), whose object pathways place their objects with the CUDA
-kernel of ``ops/stn_place_cuda.py``.
+Stage-1 generators (multi-mnist, clevr, coco-stackgan-1), COCO StackGAN
+stage 2 (256px) and COCO AttnGAN (free-text captions, 256px): a
+micro-batcher coalesces concurrent requests into device batches of a
+fixed size (``MAX_BATCH``), each batch is one eval-mode ``Stage1G``
+forward (stage 2: the frozen stage-1 G, then ``Stage2G``; AttnGAN: the
+DAMSM text encoder, then ``GNet``), whose object pathways place their
+objects with the CUDA kernel of ``ops/stn_place_cuda.py``.
 
 HTTP API (stdlib http.server, threaded):
   POST /generate  {"items": [{"labels": [3], "bboxes": [[x, y, w, h]]}]}
@@ -15,7 +16,9 @@ HTTP API (stdlib http.server, threaded):
                   two-hot shape + colour rows); coco-stackgan-1/2 items
                   also carry "text_embedding", exactly 1024 values, and
                   coco-stackgan-2 items may carry "bboxes_s2", the boxes of
-                  its 256px object pathway (default: "bboxes")
+                  its 256px object pathway (default: "bboxes");
+                  coco-attngan items carry "caption", free text, and up to
+                  3 objects (a random layout without "labels"/"bboxes")
   GET  /healthz   -> {"ok": true, ...}
   GET  /stats     -> batcher counters, device batches and K1 launches
 
@@ -24,6 +27,8 @@ Usage:
       --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2 \
       [--net_g G.pth] [--cfg CFG] [--device cuda] [--port 8000] \
       [--max_wait_ms 5] [--bf16]
+  python -m multiple_objects_gan_tpu_torch.cli.serve --variant coco-attngan \
+      --cfg CFG --data_dir D [--img_dir I] [--net_g G.pth] [--bf16] ...
 
 Without ``--cfg`` multi-mnist takes its preset and clevr, coco-stackgan-1
 and coco-stackgan-2 the widths of the repository's ``cfg/clevr_eval.yml``,
@@ -31,7 +36,11 @@ and coco-stackgan-2 the widths of the repository's ``cfg/clevr_eval.yml``,
 without ``--net_g`` (or a NET_G in the cfg) the generator gets the
 reference's random init. Stage 2's NET_G is a reference STAGE2_G ``.pth``
 (its ``STAGE1_G.`` part, when it has one, is the frozen G) or a port run
-directory; the frozen G falls back on the cfg's STAGE1_G.
+directory; the frozen G falls back on the cfg's STAGE1_G. coco-attngan
+takes cfg/coco_attn_eval.yml without ``--cfg``, its vocabulary from the
+data directory's captions (``--data_dir``, else the cfg's DATA_DIR), its
+G from ``--net_g`` or TRAIN.NET_G and its text encoder from TRAIN.NET_E;
+a missing file gives a WARNING and random weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,13 +62,20 @@ import torch
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
-    cfg_from_file, stage1_model_config, stage2_model_config)
+    attngan_model_config, cfg_from_file, stage1_model_config,
+    stage2_model_config)
+from multiple_objects_gan_tpu_torch.data.attngan import (
+    AttnGanDataset, tokenize)
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
-    load_reference_g, split_stage2_g)
+    load_reference_attngan_g, load_reference_g, load_text_encoder,
+    split_stage2_g)
+from multiple_objects_gan_tpu_torch.models.attngan import (
+    AttnGanConfig, build_attngan_g)
 from multiple_objects_gan_tpu_torch.models.common import MNIST, Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
+from multiple_objects_gan_tpu_torch.nn.encoders import build_text_encoder
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
 from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
@@ -74,7 +90,9 @@ DEFAULT_CFGS = {"multi-mnist": "",
                 "coco-stackgan-1": os.path.join(ROOT, "cfg",
                                                 "coco_s1_train.yml"),
                 "coco-stackgan-2": os.path.join(ROOT, "cfg",
-                                                "coco_s2_eval.yml")}
+                                                "coco_s2_eval.yml"),
+                "coco-attngan": os.path.join(ROOT, "cfg",
+                                             "coco_attn_eval.yml")}
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +450,146 @@ class Stage2Service:
                 "k1_launches": stn_place_cuda.launch_count()}
 
 
+def attngan_images(text_enc, g, caps: torch.Tensor, lens: torch.Tensor,
+                   bbox: torch.Tensor, labels: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    """The JAX AttnGanService's ``gen``: the text encoder's word and
+    sentence embeddings of ``caps`` (B, T) at ``lens`` (B,), then the
+    generator with the mask ``caps == 0`` and c = mu; returns the last
+    branch's image (B, 3, 256, 256) in float32."""
+    with torch.inference_mode():
+        words, sent = text_enc(caps, lens)
+        return g(z, sent, words, caps == 0, bbox, labels).float()
+
+
+def _read_weights(path: str, name: str, kind: str, load, what: str,
+                  warning: str):
+    """The state dict ``load`` reads from the file ``path``. A ``path``
+    that is empty or does not exist prints the JAX package's WARNING and
+    gives None: the caller takes random weights. An existing path that is
+    not a readable ``kind`` ``.pth`` raises ValueError: the port reads no
+    other format (not a JAX run directory, which the JAX runner restores
+    with its checkpoint manager)."""
+    if not path or not os.path.exists(path):
+        print(f"WARNING: {name}={path!r} not found — {warning}", flush=True)
+        return None
+    if not os.path.isfile(path):
+        raise ValueError(f"{name}={path!r} is not a file: the port reads "
+                         f"only a reference-format {kind} .pth")
+    try:
+        sd = load(path)
+    except Exception as e:
+        raise ValueError(f"{name}={path!r} is not a reference-format {kind} "
+                         f".pth ({type(e).__name__}: {e})") from e
+    print(f"Load {what} from: {path}", flush=True)
+    return sd
+
+
+class AttnGanService:
+    """COCO AttnGAN at ``MAX_BATCH`` on one device: free-text caption and
+    layout -> 256px image (JAX ``cli/serve.py:AttnGanService``).
+
+    The vocabulary is the data directory's (``data/attngan.py:
+    AttnGanDataset``, its test split). A caption is tokenized, its
+    in-vocabulary words kept, and cut at ``words_num``; a caption with none
+    takes the largest word id, as the JAX service does. Each device batch
+    runs the DAMSM text encoder, then GNet in eval mode with c = mu; z
+    comes from a ``torch.Generator`` seeded with ``seed``.
+
+    Weights: ``net_g`` a reference-format G_NET ``.pth`` (``netG``),
+    ``net_e`` a DAMSM ``text_encoder*.pth``; either missing prints the JAX
+    package's WARNING and takes random weights from ``seed`` (AttnGAN's
+    orthogonal init; the encoder's uniform one), and either naming
+    anything else raises (:func:`_read_weights`). The generator computes
+    in ``mcfg.compute_dtype``; the text encoder and the word attention
+    stay float32. The constructor runs one warm-up batch.
+    """
+
+    def __init__(self, mcfg: AttnGanConfig, data_dir: str, net_g: str = "",
+                 net_e: str = "", words_num: int = 12,
+                 captions_per_image: int = 5, seed: int = 0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.mcfg, self.words_num = mcfg, int(words_num)
+        self.max_batch = MAX_BATCH
+        ds = AttnGanDataset(data_dir, split="test",
+                            captions_per_image=captions_per_image)
+        self.wordtoix = ds.wordtoix
+        self.max_word = max(self.wordtoix.values())
+        e_sd = _read_weights(net_e, "NET_E", "DAMSM text_encoder",
+                             load_text_encoder, "text encoder",
+                             "DAMSM encoders use random weights")
+        self.text_enc = build_text_encoder(ds.n_words, mcfg.embedding_dim,
+                                           e_sd, seed=seed,
+                                           device=self.device)
+        g_sd = _read_weights(net_g, "TRAIN.NET_G", "G_NET",
+                             load_reference_attngan_g, "G",
+                             "G uses random weights")
+        self.g = build_attngan_g(mcfg, g_sd, seed=seed, device=self.device)
+        random_init = f"random init, seed {seed}"
+        self.weights = (f"G {net_g if g_sd is not None else random_init}; "
+                        f"text encoder "
+                        f"{net_e if e_sd is not None else random_init}")
+        self._rs = np.random.RandomState(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.device_batches = 0
+        self.run([{"caption": "a"}])       # warm-up, as the JAX service
+
+    def validate(self, item: dict) -> None:
+        """Raise ValueError for a malformed item, before the batcher (see
+        :meth:`Stage1Service.validate`)."""
+        if not isinstance(item.get("caption", ""), str):
+            raise ValueError("caption must be a string")
+        _item_layout(item, self.mcfg.num_objects, self.mcfg.label_dim,
+                     np.random.RandomState(0))
+
+    def token_ids(self, caption: str) -> list[int]:
+        """The caption's in-vocabulary word ids, at most ``words_num``; the
+        largest id when it has none (the JAX service's all-OOV rule)."""
+        ids = [self.wordtoix[w] for w in tokenize(caption.lower())
+               if w in self.wordtoix]
+        return (ids or [self.max_word])[:self.words_num]
+
+    def batch(self, items: list) -> dict:
+        """A device batch's inputs as numpy arrays, ``MAX_BATCH`` rows:
+        ``caps`` (zero-padded ids), ``lens`` (1 for the padding rows),
+        ``label_onehot`` and ``bbox`` (items without a layout draw one
+        from the service's RandomState)."""
+        b, mc = self.max_batch, self.mcfg
+        out = {"caps": np.zeros((b, self.words_num), np.int64),
+               "lens": np.ones((b,), np.int64),
+               "label_onehot": np.zeros((b, mc.num_objects, mc.label_dim),
+                                        np.float32),
+               "bbox": np.full((b, mc.num_objects, 4), -1.0, np.float32)}
+        for i, item in enumerate(items):
+            ids = self.token_ids(str(item.get("caption", "")))
+            out["caps"][i, :len(ids)] = ids
+            out["lens"][i] = len(ids)
+            out["label_onehot"][i], out["bbox"][i] = _item_layout(
+                item, mc.num_objects, mc.label_dim, self._rs)
+        return out
+
+    def draw_z(self) -> torch.Tensor:
+        return torch.randn((self.max_batch, self.mcfg.z_dim),
+                           generator=self._gen, device=self.device)
+
+    def run(self, items: list) -> list:
+        arr = self.batch(items)
+        t = {k: torch.from_numpy(v).to(self.device) for k, v in arr.items()
+             if k != "lens"}
+        img = attngan_images(self.text_enc, self.g, t["caps"],
+                             torch.from_numpy(arr["lens"]), t["bbox"],
+                             t["label_onehot"], self.draw_z())
+        imgs = img[:len(items)].permute(0, 2, 3, 1).cpu().numpy()
+        self.device_batches += 1
+        return [_png_b64(im) for im in imgs]
+
+    def stats(self) -> dict:
+        return {"device": str(self.device),
+                "device_batches": self.device_batches,
+                "k1_launches": stn_place_cuda.launch_count()}
+
+
 # ---------------------------------------------------------------------------
 # HTTP layer
 
@@ -489,13 +647,23 @@ def build_service(args):
     ``--cfg`` (or of the variant's ``DEFAULT_CFGS`` entry; the MNIST preset
     for multi-mnist); ``--net_g`` wins over the YAML, and ``--bf16`` makes
     the generators compute in bf16. coco-stackgan-2 gives a
-    :class:`Stage2Service`, with the cfg's STAGE1_G for the frozen G."""
+    :class:`Stage2Service`, with the cfg's STAGE1_G for the frozen G;
+    coco-attngan an :class:`AttnGanService` on ``--data_dir`` (else the
+    cfg's DATA_DIR)."""
     dt = torch.bfloat16 if getattr(args, "bf16", False) else None
     mcfg, net_g = dataclasses.replace(MNIST, compute_dtype=dt), args.net_g
     path = args.cfg or DEFAULT_CFGS[args.variant]
     if not path:
         return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
     cfg = cfg_from_file(path, args.variant)
+    if args.variant == "coco-attngan":
+        # as the JAX service: TRAIN.NET_G and TRAIN.NET_E whatever the cfg
+        return AttnGanService(
+            attngan_model_config(cfg, compute_dtype=dt),
+            args.data_dir or cfg.DATA_DIR, net_g or cfg.TRAIN.NET_G,
+            cfg.TRAIN.NET_E, words_num=cfg.TEXT.WORDS_NUM,
+            captions_per_image=cfg.TEXT.CAPTIONS_PER_IMAGE, seed=args.seed,
+            device=args.device)
     # a cfg's NET_G and STAGE1_G are served only when its --cfg names them:
     # the default cfgs' are paths of the reference's own layout
     net_g = net_g or (cfg.NET_G if args.cfg else "")
@@ -511,8 +679,13 @@ def build_service(args):
 def serve(args, service=None) -> ThreadingHTTPServer:
     """Build the service (unless given) and batcher and return a bound,
     unstarted server; the CLI calls serve_forever, tests and chip_smoke.py
-    drive it from a thread."""
+    drive it from a thread. A float32 service of any variant on the card
+    turns TF32 off for matmuls and cuDNN in the process, so that float32
+    serving computes in float32 (the JAX package's float32 path)."""
     svc = service if service is not None else build_service(args)
+    if svc.device.type == "cuda" and svc.mcfg.compute_dtype is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     batcher = MicroBatcher(svc.run, max_batch=svc.max_batch,
                            max_wait_ms=args.max_wait_ms)
     info = {"variant": args.variant, "max_batch": svc.max_batch,
@@ -533,11 +706,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cfg", default="",
                    help="reference YAML (cfg/mnist_eval.yml, ...); default: "
                         "the Multi-MNIST preset, cfg/clevr_eval.yml, "
-                        "cfg/coco_s1_train.yml, cfg/coco_s2_eval.yml")
+                        "cfg/coco_s1_train.yml, cfg/coco_s2_eval.yml, "
+                        "cfg/coco_attn_eval.yml")
     p.add_argument("--net_g", default="",
                    help="reference-format .pth (overrides the YAML's "
                         "NET_G; coco-stackgan-2: a STAGE2_G .pth or a port "
-                        "run directory); default: random init from --seed")
+                        "run directory; coco-attngan: a G_NET .pth, over "
+                        "TRAIN.NET_G); default: random init from --seed")
+    p.add_argument("--data_dir", default="",
+                   help="coco-attngan: the set whose captions give the "
+                        "vocabulary (default: the cfg's DATA_DIR)")
+    p.add_argument("--img_dir", default="",
+                   help="coco-attngan: accepted as the JAX CLI takes it; "
+                        "serving reads no image")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -545,7 +726,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
                    help="run the generator in bf16 (float32 weights and "
-                        "running statistics, float32 images out)")
+                        "running statistics, float32 images out); "
+                        "without it every variant computes in float32, "
+                        "TF32 off on the card")
     return p.parse_args(argv)
 
 

@@ -1,16 +1,17 @@
-"""YAML config, the reference's cfg/*.yml key schema (the stage-1 families
-and COCO StackGAN stage 2).
+"""YAML config, the reference's cfg/*.yml key schema (the stage-1 families,
+COCO StackGAN stage 2 and COCO AttnGAN).
 
 The port's copy of the JAX package's ``config/config.py``: the default
 trees of code/multi-mnist/miscc/config.py:9-47, code/clevr/miscc/
 config.py:9-45 and code/coco/stackgan/miscc/config.py:9-57, the strict
-recursive merge of ``_merge_a_into_b`` and ``cfg_from_file``. The cfg
+recursive merge of ``_merge_a_into_b`` and ``cfg_from_file``, with code/coco/attngan/miscc/config.py:9-64's tree
+for ``coco-attngan``. The cfg
 files are nested mappings of plain scalars, which :func:`parse_yaml` reads
 with the standard library, so the port needs no PyYAML (the card's machine
 has none).
 
 Variants are named as the CLIs name them (``multi-mnist``, ``clevr``,
-``coco-stackgan-1``, ``coco-stackgan-2``); the default tree of both COCO
+``coco-stackgan-1``, ``coco-stackgan-2``, ``coco-attngan``); the default tree of both COCO
 stages is the stackgan one, ``coco-stackgan``, as in the JAX package.
 """
 
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from multiple_objects_gan_tpu_torch.models import common
+from multiple_objects_gan_tpu_torch.models import attngan, common
 
 
 class Config(dict):
@@ -122,12 +123,45 @@ DEFAULTS: dict[str, dict] = {
                 "R_NUM": 4},
         "TEXT": {"DIMENSION": 1024},
     },
+    # code/coco/attngan/miscc/config.py:9-64
+    "coco-attngan": {
+        "DATASET_NAME": "coco",
+        "CONFIG_NAME": "",
+        "DATA_DIR": "",
+        "IMG_DIR": "",
+        "GPU_ID": "0",
+        "CUDA": True,
+        "WORKERS": 6,
+        "RNN_TYPE": "LSTM",
+        "B_VALIDATION": False,
+        "TREE": {"BRANCH_NUM": 3, "BASE_SIZE": 64},
+        "TRAIN": {
+            "BATCH_SIZE": 64,
+            "MAX_EPOCH": 600,
+            "SNAPSHOT_INTERVAL": 2000,
+            "DISCRIMINATOR_LR": 2e-4,
+            "GENERATOR_LR": 2e-4,
+            "ENCODER_LR": 2e-4,
+            "RNN_GRAD_CLIP": 0.25,
+            "FLAG": True,
+            "NET_E": "",
+            "NET_G": "",
+            "B_NET_D": True,
+            "SMOOTH": {"GAMMA1": 5.0, "GAMMA3": 10.0, "GAMMA2": 5.0,
+                       "LAMBDA": 1.0},
+        },
+        "GAN": {"DF_DIM": 64, "GF_DIM": 128, "Z_DIM": 100,
+                "CONDITION_DIM": 100, "R_NUM": 2, "B_ATTENTION": True,
+                "B_DCGAN": False},
+        "TEXT": {"CAPTIONS_PER_IMAGE": 10, "EMBEDDING_DIM": 256,
+                 "WORDS_NUM": 18},
+    },
 }
 
 # the CLIs' variant names -> default trees and model presets
 _TREES = {"multi-mnist": "multi-mnist", "clevr": "clevr",
           "coco-stackgan-1": "coco-stackgan",
-          "coco-stackgan-2": "coco-stackgan"}
+          "coco-stackgan-2": "coco-stackgan", "coco-attngan": "coco-attngan"}
 _PRESETS = {"multi-mnist": common.MNIST, "clevr": common.CLEVR,
             "coco-stackgan-1": common.COCO_S1}
 
@@ -287,6 +321,24 @@ def stage2_model_config(cfg: Config, *,
         text_dim=int(cfg.TEXT.DIMENSION), r_num=int(cfg.GAN.R_NUM),
         compute_dtype=compute_dtype, bn_groups=int(bn_groups))
     return s1, s2
+
+
+def attngan_model_config(cfg: Config, *,
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> attngan.AttnGanConfig:
+    """The AttnGanConfig of a coco-attngan cfg (JAX
+    ``cli/attngan_runner.py:39-62 build_all``): ``COCO_ATTN`` with the
+    cfg's GAN widths, Z_DIM, CONDITION_DIM, R_NUM and B_DCGAN, its
+    TEXT.EMBEDDING_DIM and TREE.BRANCH_NUM, and the caller's compute
+    dtype."""
+    _check_knobs(compute_dtype, 1)
+    return dataclasses.replace(
+        attngan.COCO_ATTN, gf_dim=int(cfg.GAN.GF_DIM),
+        df_dim=int(cfg.GAN.DF_DIM), z_dim=int(cfg.GAN.Z_DIM),
+        condition_dim=int(cfg.GAN.CONDITION_DIM),
+        embedding_dim=int(cfg.TEXT.EMBEDDING_DIM),
+        branch_num=int(cfg.TREE.BRANCH_NUM), r_num=int(cfg.GAN.R_NUM),
+        b_dcgan=bool(cfg.GAN.B_DCGAN), compute_dtype=compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
-"""Weights for the port's Stage1G/Stage1D and Stage2G/Stage2D: carried
-across from the JAX package's Flax trees, loaded from reference ``.pth``
-files, or drawn at random.
+"""Weights for the port's Stage1G/Stage1D, Stage2G/Stage2D and the AttnGAN
+GNet and text encoder: carried across from the JAX package's Flax trees,
+loaded from reference ``.pth`` files, or drawn at random.
 
 :func:`stage1_g_state_dict_from_jax`, :func:`stage1_d_state_dict_from_jax`,
-:func:`stage2_g_state_dict_from_jax` and :func:`stage2_d_state_dict_from_jax`
-take the JAX modules' params and batch_stats as numpy arrays and return
-state dicts with the reference's key names (code/multi-mnist/
-model.py:113-257, code/coco/stackgan/model.py:311-537). Their mapping
+:func:`stage2_g_state_dict_from_jax`, :func:`stage2_d_state_dict_from_jax`,
+:func:`attngan_g_state_dict_from_jax` and
+:func:`text_encoder_state_dict_from_jax` take the JAX modules' params and
+batch_stats as numpy arrays and return state dicts with the reference's
+key names (code/multi-mnist/model.py:113-257, code/coco/stackgan/
+model.py:311-537, code/coco/attngan/model.py:120-204,478-528). Their mapping
 mirrors the JAX package's ``io/torch_export.py`` and
 ``io/torch_import.py``, written out again here:
 
@@ -56,6 +58,17 @@ def _upblock(sd: dict, prefix: str, p: Mapping, s: Mapping) -> None:
     _bn(sd, f"{prefix}.2", p["TorchBatchNorm_0"], s["TorchBatchNorm_0"])
 
 
+def _bbox_net(sd: dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """LayoutEncoder {Conv3x3_0..2, TorchBatchNorm_0..1} -> ``encode``
+    Sequential [conv, LReLU, conv, BN, LReLU, conv, BN, LReLU]."""
+    for i, idx in enumerate((0, 2, 5)):
+        sd[f"{prefix}.encode.{idx}.weight"] = _conv(
+            p[f"Conv3x3_{i}"]["Conv_0"]["kernel"])
+    for i, idx in enumerate((3, 6)):
+        _bn(sd, f"{prefix}.encode.{idx}", p[f"TorchBatchNorm_{i}"],
+            s[f"TorchBatchNorm_{i}"])
+
+
 def stage1_g_state_dict_from_jax(params: Mapping[str, Any],
                                  stats: Mapping[str, Any],
                                  mcfg) -> dict[str, torch.Tensor]:
@@ -77,14 +90,7 @@ def stage1_g_state_dict_from_jax(params: Mapping[str, Any],
                  stats[f"upsample{i}"])
     sd["img.0.weight"] = _conv(params["img"]["Conv_0"]["kernel"])
     if mcfg.use_bbox_layout:
-        p, s = params["bbox_net"], stats["bbox_net"]
-        sd["bbox_net.encode.0.weight"] = _conv(p["Conv3x3_0"]["Conv_0"]["kernel"])
-        sd["bbox_net.encode.2.weight"] = _conv(p["Conv3x3_1"]["Conv_0"]["kernel"])
-        _bn(sd, "bbox_net.encode.3", p["TorchBatchNorm_0"],
-            s["TorchBatchNorm_0"])
-        sd["bbox_net.encode.5.weight"] = _conv(p["Conv3x3_2"]["Conv_0"]["kernel"])
-        _bn(sd, "bbox_net.encode.6", p["TorchBatchNorm_1"],
-            s["TorchBatchNorm_1"])
+        _bbox_net(sd, "bbox_net", params["bbox_net"], stats["bbox_net"])
     if mcfg.use_label_embed:
         sd["label.0.weight"] = _linear(
             params["label"]["Dense_0"]["Dense_0"]["kernel"])
@@ -195,6 +201,75 @@ def stage2_d_state_dict_from_jax(params: Mapping[str, Any],
         _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
     _d_heads(sd, params, stats)
     return sd
+
+
+def attngan_g_state_dict_from_jax(params: Mapping[str, Any],
+                                  stats: Mapping[str, Any],
+                                  branch_num: int = 3,
+                                  r_num: int = 3) -> dict[str, torch.Tensor]:
+    """JAX ``GNet`` (params, batch_stats) -> the port's GNet state dict,
+    G_NET's keys (code/coco/attngan/model.py:478-528; JAX
+    ``io/torch_export.py:export_attngan_g``). ``conv_context``, a Dense
+    (cdf, idf) there, is the reference's conv1x1 (idf, cdf, 1, 1)."""
+    sd: dict[str, torch.Tensor] = {}
+    fc = params["ca_net"]["Dense_0"]["Dense_0"]
+    sd["ca_net.fc.weight"] = _linear(fc["kernel"])
+    sd["ca_net.fc.bias"] = _t(fc["bias"])
+    p, s = params["h_net1"], stats["h_net1"]
+    sd["h_net1.label.0.weight"] = _linear(p["label_fc"]["kernel"])
+    _bn(sd, "h_net1.label.1", p["label_bn"], s["label_bn"])
+    sd["h_net1.fc.0.weight"] = _linear(p["fc"]["kernel"])
+    _bn(sd, "h_net1.fc.1", p["fc_bn"], s["fc_bn"])
+    _bbox_net(sd, "h_net1.bbox_net", p["bbox_net"], s["bbox_net"])
+    for name in ("local1", "local2"):
+        _upblock(sd, f"h_net1.{name}", p["local"][name], s["local"][name])
+    for i in range(1, 5):
+        _upblock(sd, f"h_net1.upsample{i}", p[f"upsample{i}"],
+                 s[f"upsample{i}"])
+    for b in range(2, branch_num + 1):
+        p, s = params[f"h_net{b}"], stats[f"h_net{b}"]
+        sd[f"h_net{b}.att.conv_context.weight"] = _linear(
+            p["att"]["conv_context"]["kernel"])[:, :, None, None]
+        for i in range(r_num):
+            _resblock(sd, f"h_net{b}.residual.{i}", p[f"residual{i}"],
+                      s[f"residual{i}"])
+        _upblock(sd, f"h_net{b}.upsample", p["upsample"], s["upsample"])
+    for b in range(1, branch_num + 1):
+        sd[f"img_net{b}.img.0.weight"] = _conv(
+            params[f"img_net{b}"]["img"]["Conv_0"]["kernel"])
+    return sd
+
+
+def text_encoder_state_dict_from_jax(variables: Mapping[str, Any]
+                                     ) -> dict[str, torch.Tensor]:
+    """JAX ``RNNEncoder`` variables -> the port's RNNEncoder state dict,
+    RNN_ENCODER's keys (code/coco/attngan/model.py:120-204): the
+    embedding, and each direction's LSTM weights and biases under
+    nn.LSTM's names, the gates in the same [i, f, g, o] order (JAX
+    ``io/damsm_import.py:import_text_encoder``, inverted)."""
+    params = variables["params"]
+    sd = {"encoder.weight": _t(params["encoder"])}
+    for suffix, name in (("", "rnn_fwd"), ("_reverse", "rnn_bwd")):
+        for key in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            kind = "weight" if key[0] == "w" else "bias"
+            sd[f"rnn.{kind}_{key[2:]}_l0{suffix}"] = _t(params[name][key])
+    return sd
+
+
+def load_reference_attngan_g(path: str) -> dict[str, torch.Tensor]:
+    """The G_NET state dict of a reference-format ``.pth`` (its ``netG``,
+    as the reference saves it, code/coco/attngan/trainer.py:497-504, or a
+    bare state dict), for :func:`build_attngan_g` to load with
+    strict=True."""
+    return _reference_state_dict(path, "netG")
+
+
+def load_text_encoder(path: str) -> dict[str, torch.Tensor]:
+    """A DAMSM ``text_encoder*.pth`` (NET_E): a bare RNN_ENCODER state dict
+    (or a pickled module), for the port's RNNEncoder to load with
+    strict=True."""
+    sd = torch_load(path)
+    return dict(sd.state_dict() if hasattr(sd, "state_dict") else sd)
 
 
 def _reference_state_dict(path: str, key: str) -> dict[str, torch.Tensor]:

@@ -1,5 +1,6 @@
-"""Stage-1 building blocks, NCHW, as the reference defines them
-(code/multi-mnist/model.py:9-22).
+"""Building blocks, NCHW, as the reference defines them: stage 1's
+(code/multi-mnist/model.py:9-22) and AttnGAN's GLU forms
+(code/coco/attngan/model.py:24-81).
 
 The JAX package's ``TorchBatchNorm`` and ``Dense`` are :class:`BatchNorm1d`,
 :class:`BatchNorm2d` (eps 1e-5, momentum 0.1) and :class:`Linear` here; its
@@ -277,3 +278,52 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.block(x) + x)
+
+
+def glu(x: torch.Tensor) -> torch.Tensor:
+    """Gated linear unit over the channel axis (dim 1): the first half
+    times the sigmoid of the second (attngan model.py:24-32)."""
+    c = x.shape[1] // 2
+    return x[:, :c] * torch.sigmoid(x[:, c:])
+
+
+class GLU(nn.Module):
+    """:func:`glu` as a module, a child of the reference's Sequentials."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return glu(x)
+
+
+class UpBlockGLU(nn.Sequential):
+    """AttnGAN's upBlock: nearest 2x upsample + conv3x3 to twice
+    ``out_planes`` + BN + GLU (model.py:48-55; JAX ``UpBlockGLU``). Keys
+    ``.1.weight`` and ``.2.*``; ``norm`` builds the BN as for
+    :class:`UpBlock`."""
+
+    def __init__(self, in_planes: int, out_planes: int,
+                 norm: Callable[[int], nn.Module] = BatchNorm2d,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
+                         Conv3x3(in_planes, out_planes * 2,
+                                 compute_dtype=compute_dtype),
+                         norm(out_planes * 2),
+                         GLU())
+
+
+class ResBlockGLU(nn.Module):
+    """AttnGAN's ResBlock: conv3x3 to 2c + BN + GLU + conv3x3 + BN, the
+    skip added, with no final ReLU, unlike :class:`ResBlock`
+    (model.py:67-81; JAX ``ResBlockGLU``). Keys ``block.{0,1,3,4}``."""
+
+    def __init__(self, channels: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.block = nn.Sequential(
+            Conv3x3(channels, channels * 2, compute_dtype=compute_dtype),
+            BatchNorm2d(channels * 2),
+            GLU(),
+            Conv3x3(channels, channels, compute_dtype=compute_dtype),
+            BatchNorm2d(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x) + x

@@ -5,7 +5,8 @@ Reference: BBOX_NET (code/multi-mnist/model.py:80-110), the G object
 pathway (model.py:160-169), the D object pathway (model.py:225-234),
 D_GET_LOGITS (model.py:43-70), the label embedding (code/clevr/
 model.py:138-141, code/coco/stackgan/model.py:200-203) and CA_NET
-(code/coco/stackgan/model.py:44-72). The reference loops over objects; here the
+(code/coco/stackgan/model.py:44-72; AttnGAN's GLU form,
+code/coco/attngan/model.py:317-345). The reference loops over objects; here the
 objects fold into the batch, (B, O) with O minor, and one kernel launch
 places and sums them all. The fold keeps the reference's statistics:
 eval-mode BatchNorm is per sample, and in train mode the object pathways'
@@ -25,7 +26,7 @@ from torch import nn
 
 from multiple_objects_gan_tpu_torch.nn.blocks import (
     BatchNorm2d, Conv2d, Conv3x3, Linear, ObjectBatchNorm1d,
-    ObjectBatchNorm2d, UpBlock)
+    ObjectBatchNorm2d, UpBlock, glu)
 from multiple_objects_gan_tpu_torch.ops.stn import (
     stn_extract_multi_nchw, stn_place_const_multi)
 from multiple_objects_gan_tpu_torch.ops.stn_place_cuda import (
@@ -59,10 +60,11 @@ class LabelEmbed(nn.Sequential):
 
 
 class CANet(nn.Module):
-    """Conditioning augmentation (JAX ``CANet``, non-GLU form;
-    code/coco/stackgan/model.py:44-72): ``fc`` (text_dim -> 2 * c_dim, with
-    bias) + ReLU, split into mu and logvar, c = mu + eps * exp(logvar / 2).
-    Key ``ca_net.fc``.
+    """Conditioning augmentation (JAX ``CANet``): ``fc`` (text_dim ->
+    2 * c_dim, with bias) + ReLU, as StackGAN's (code/coco/stackgan/
+    model.py:44-72), or with ``use_glu`` AttnGAN's ``fc`` (text_dim ->
+    4 * c_dim) + GLU (code/coco/attngan/model.py:317-345); then split into
+    mu and logvar, c = mu + eps * exp(logvar / 2). Key ``ca_net.fc``.
 
     ``forward(text (B, text_dim), eps (B, c_dim) or None)`` returns
     (c, mu, logvar). Without ``eps`` (eval) c = mu, as the JAX package's
@@ -73,13 +75,15 @@ class CANet(nn.Module):
     """
 
     def __init__(self, text_dim: int, c_dim: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 use_glu: bool = False):
         super().__init__()
-        self.c_dim = c_dim
-        self.fc = Linear(text_dim, 2 * c_dim, compute_dtype=compute_dtype)
+        self.c_dim, self.use_glu = c_dim, use_glu
+        self.fc = Linear(text_dim, (4 if use_glu else 2) * c_dim,
+                         compute_dtype=compute_dtype)
 
     def forward(self, text: torch.Tensor, eps: Optional[torch.Tensor] = None):
-        x = torch.relu(self.fc(text))
+        x = glu(self.fc(text)) if self.use_glu else torch.relu(self.fc(text))
         mu, logvar = x[:, :self.c_dim], x[:, self.c_dim:]
         if eps is None:
             return mu, mu, logvar
@@ -118,13 +122,15 @@ class LayoutEncoder(nn.Module):
 
 
 def object_pathway_g(labels: torch.Tensor, bbox: torch.Tensor,
-                     local1: UpBlock, local2: UpBlock) -> torch.Tensor:
+                     local1: nn.Module, local2: nn.Module) -> torch.Tensor:
     """The JAX ``ObjectPathwayG``: per object, tile the label to 4x4, run two
     UpBlocks to 16x16, place into the box and sum over objects.
 
     labels (B, O, ef), bbox (B, O, 4) -> (B, ngf // 4, 16, 16). A function
     over the two blocks, because the reference keeps ``local1``/``local2``
     on STAGE1_G itself (model.py:135-136), and so do the state-dict keys.
+    AttnGAN's (JAX ``ObjectPathwayGLU``, code/coco/attngan/
+    model.py:399-410) is this function over two ``UpBlockGLU``s.
     """
     b, o, ef = labels.shape
     x = labels.reshape(b * o, ef, 1, 1).expand(b * o, ef, 4, 4)

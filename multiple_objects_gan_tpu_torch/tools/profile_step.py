@@ -58,6 +58,34 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def kernel_times(prof) -> dict[str, float]:
+    """Device ms of each kernel in a finished ``torch.profiler`` trace;
+    raises when the trace holds no device time."""
+    kernels: dict[str, float] = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        # a user annotation (the optimizer's record_function range) spans
+        # kernels counted on their own
+        if getattr(e, "is_user_annotation", False) or "#" in e.key:
+            continue
+        if dev_us and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + dev_us / 1e3
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    return kernels
+
+
+def group_times(kernels: dict[str, float]) -> dict[str, float]:
+    """The kernels' device ms summed by :data:`GROUPS`."""
+    groups: dict[str, float] = {}
+    for name, ms in kernels.items():
+        g = group_of(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    return groups
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--bf16", action="store_true")
@@ -82,23 +110,8 @@ def main(argv=None) -> int:
             step(state, data, gen, 2e-4, 2e-4)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels: dict[str, float] = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        # a user annotation (the optimizer's record_function range) spans
-        # kernels counted on their own
-        if getattr(e, "is_user_annotation", False) or "#" in e.key:
-            continue
-        if dev_us and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + dev_us / 1e3
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
-    groups: dict[str, float] = {}
-    for name, ms in kernels.items():
-        g = group_of(name)
-        groups[g] = groups.get(g, 0.0) + ms
+    kernels = kernel_times(prof)
+    groups = group_times(kernels)
     busy = sum(kernels.values())
     n = STEPS
     kind = "bf16" if args.bf16 else "float32 (TF32 off)"
