@@ -9,9 +9,11 @@ Multi-MNIST paths, 16-20 the CLEVR and COCO-StackGAN-1 families at the
 widths of cfg/clevr_train.yml and cfg/coco_s1_train.yml, from seeded
 weights, 21-24 the host side of stage 1: data on disk, checkpoints
 and resume, and sampling, and 25-29 COCO StackGAN stage 2 at the widths
-of cfg/coco_s2_train.yml, from seeded weights, and 30-32 serve the trained
+of cfg/coco_s2_train.yml, from seeded weights, 30-32 serve the trained
 COCO AttnGAN (runs_r5/attngan_flagship: netG_ema_final.pth and
-damsm/DAMSMencoders/text_encoder29.pth). The train entries' data and runs
+damsm/DAMSMencoders/text_encoder29.pth), and 33-36 train it at the widths
+of cfg/coco_attn_train.yml from the flagship's EMA G, its DAMSM encoders
+(image_encoder29.pth too) and seeded Ds. The train entries' data and runs
 go to a temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
 
@@ -162,7 +164,33 @@ elapsed time:
                 same items and z, a bad label and a non-string caption
                 answered 400, /stats's K1 launches, and the served images'
                 in-box/out-of-box separation, printed beside the
-                flagship's 0.987.
+                flagship's 0.987;
+ 33. attnplaces - K1 and K2 at AttnGAN's train places, batch 14, float32
+                and bf16: G's object pathway (14,3,192,16,16) onto 16x16
+                and D64's (14,3,192,15,15) onto 16x16, boxes inside the
+                canvas with the last object padded (K1 equal bit for bit
+                to the other objects alone, K2 zeros for it), held against
+                the plain versions, timed cold in turns and on the device
+                alone beside the bound;
+ 34. attnstep - image_encoder29.pth card against CPU at batch 2 from
+                256px (regions, codes); one full-width AttnGAN step (G the
+                flagship EMA G, seeded Ds, the flagship encoders, batch 4
+                of the flagship set's test split) on the card against the
+                same step on the CPU from warm Adams: losses, BatchNorm
+                statistics and per-tensor gradient cosines of G and the
+                three Ds held, the Adam deltas read, the EMA held to
+                0.999 ema + 0.001 param;
+ 35. attntime - the step at batch 14, float32 and bf16: median of CUDA
+                events, images/s, peak memory, K1 and K2 launches a step (4
+                and 4), GFLOP a step (torch.utils.flop_counter) and the
+                device's time by kernel group (torch.profiler);
+ 36. attnentry - cli/main.py --variant coco-attngan --synthetic from a
+                copy of coco_attn_full.yml (the flagship EMA G as NET_G,
+                B_NET_D False, the flagship NET_E): 3 epochs with their
+                montages, grids, run_flags.json provenance and
+                checkpoints; a resume from its epoch-1 checkpoint to epoch
+                3 held against it (the resumed epoch's first step, then
+                the parameters); one epoch with --bf16; K1/K2 launches.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -213,21 +241,26 @@ from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
-    load_reference_attngan_g, load_reference_g, load_text_encoder)
+    load_image_encoder, load_reference_attngan_g, load_reference_g,
+    load_text_encoder)
 from multiple_objects_gan_tpu_torch.models.attngan import (
-    COCO_ATTN, build_attngan_g)
+    COCO_ATTN, D_NAMES, build_attngan_d, build_attngan_g)
 from multiple_objects_gan_tpu_torch.models.common import MNIST
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
-from multiple_objects_gan_tpu_torch.nn.encoders import build_text_encoder
+from multiple_objects_gan_tpu_torch.nn.encoders import (
+    build_image_encoder, build_text_encoder)
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
+from multiple_objects_gan_tpu_torch.train.attngan_step import (
+    make_attngan_train_step)
 from multiple_objects_gan_tpu_torch.train.state import (
-    create_state, create_state_stage2)
+    AttnGanTrainState, create_state, create_state_stage2, ema_of,
+    make_optimizer)
 from multiple_objects_gan_tpu_torch.train.step import (
     frozen_forward, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
@@ -406,7 +439,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/32 device")
+    log("phase 1/36 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -424,7 +457,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/32 build")
+    log("phase 2/36 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -469,7 +502,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/32 kernel against its plain version, on the card")
+    log("phase 3/36 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -604,7 +637,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/32 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/36 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -687,7 +720,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/32 serve: the port's main path over HTTP, on the card")
+    log("phase 5/36 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -834,7 +867,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/32 grad: K2 (place backward) against its plain version, "
+    log("phase 6/36 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -941,7 +974,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/32 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/36 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1064,7 +1097,7 @@ def step_disagreements(got, want, loss_atol=LOSS_ATOL, loss_rtol=0.0,
                                 err / max(abs(want[0][k]), 1e-12))
         if err > loss_atol + loss_rtol * abs(want[0][k]):
             bad.append(f"loss {k}: {got[0][k]:.6f} vs {want[0][k]:.6f}")
-    for net in ("G", "D"):
+    for net in want[2]:
         for k in want[2][net]:
             if k.endswith(("running_mean", "running_var")):
                 err = float((got[2][net][k] - want[2][net][k]).abs().max())
@@ -1084,7 +1117,7 @@ def delta_readings(got, want):
     of :func:`step_once`, worst tensor of each: delta cosine, mean
     |difference| in lr, share of elements apart by more than 0.5 lr."""
     cos, mean_lr, flip = 1.0, 0.0, 0.0
-    for net in ("G", "D"):
+    for net in want[3]:
         pre = want[1][net]
         for k in want[3][net]:
             dg = got[2][net][k] - pre[k]
@@ -1097,7 +1130,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/32 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/36 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1131,7 +1164,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/32 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/36 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1211,7 +1244,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/32 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/36 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1310,7 +1343,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/32 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/36 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1345,7 +1378,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/32 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/36 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1407,7 +1440,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/32 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/36 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1451,7 +1484,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/32 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/36 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1575,7 +1608,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/32 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/36 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1650,7 +1683,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/32 fstep: one full-width float32 train step of each "
+    log(f"phase 17/36 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1689,7 +1722,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/32 ftime: each family's train step at batch "
+    log("phase 18/36 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1697,13 +1730,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/32 ftime, {key}",
+                                       f"18/36 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/32 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/36 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1740,7 +1773,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/32 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/36 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1892,7 +1925,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/32 probe: the image decoders this machine has, read only "
+    log("phase 21/36 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2146,7 +2179,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/32 disk: the train entries from disk (cli/main.py "
+    log("phase 22/36 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2326,7 +2359,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/32 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/36 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2369,7 +2402,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/32 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/36 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2468,12 +2501,15 @@ def stage2_shapes():
             "D2": (o, 2 * s2.df_dim, (30, 30), (32, 32))}
 
 
-def phase_stage2_kernels():
-    log(f"phase 25/32 s2kernels: K1 and K2 at the stage-2 shapes, batch "
-        f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
-    rs = np.random.RandomState(25)
-    dev = torch.device(DEVICE)
-    shapes = stage2_shapes()
+def held_and_timed_places(shapes, b, launches, rs):
+    """K1 and K2 at each train place of ``shapes`` ({path: (O, C, input
+    side, output side)}) at batch ``b``, float32 and bf16, on boxes inside
+    the canvas with the last object padded: held against their plain
+    versions, K1 equal bit for bit to the unpadded objects alone and K2
+    exact zeros for the padded one, then timed cold in turns and on the
+    device alone beside the bound (:func:`time_place`, :func:`time_grad`).
+    ``launches`` is (K1, K2) a step, recorded in each row. Returns
+    {"place": {...}, "grad": {...}, "under_half_of_bound": [...]}."""
     for path, (o, c, hw, out_hw) in shapes.items():
         for es in (4, 2):
             smem = k1.place_smem_bytes(o, k1.place_tile(hw, out_hw), hw,
@@ -2486,6 +2522,7 @@ def phase_stage2_kernels():
             f", {k1.place_smem_bytes(o, k1.place_tile(hw, out_hw), hw, out_hw, 4)}"
             f" B of shared memory (f32); K2 tile {k1.grad_tile(hw, out_hw)}, "
             f"{k1.grad_smem_bytes(o, k1.grad_tile(hw, out_hw), hw, out_hw)} B")
+    dev = torch.device(DEVICE)
     out = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
            for k in ("place", "grad")}
     under_half = []
@@ -2494,7 +2531,6 @@ def phase_stage2_kernels():
         worst = "max_abs_err" if dtype == torch.float32 else \
             "max_abs_err_bf16"
         for path, (o, c, hw, out_hw) in shapes.items():
-            b = S2_BATCH
             bbox = torch.from_numpy(_stage2_boxes(rs, b, o)).to(dev)
             feats = torch.from_numpy(rs.randn(b, o, c, *hw).astype(
                 np.float32)).to(dev).to(dtype)
@@ -2530,7 +2566,7 @@ def phase_stage2_kernels():
                                       f"K2 {tname} at the {path} shape")}
             for kernel, row in rows.items():
                 row["launches_per_step"] = (
-                    S2_LAUNCHES[0 if kernel == "place" else 1])
+                    launches[0 if kernel == "place" else 1])
                 out[kernel].setdefault(tname, {})[path] = row
                 if row["graph_share_of_bound"] < 0.5:
                     under_half.append(
@@ -2544,15 +2580,25 @@ def phase_stage2_kernels():
     return out
 
 
+def phase_stage2_kernels():
+    log(f"phase 25/36 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+        f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
+    return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
+                                 np.random.RandomState(25))
+
+
 ADAM_WARM_COUNT = 10        # the warm Adam state of phase 26's held step
 
 
 def warm_adam(state):
-    """Both Adams at step ADAM_WARM_COUNT with first moments 0 and second
-    moments 1: the update is then about 0.05 lr * g, linear in the
-    gradient, where a fresh Adam's first update is lr * sign(g)
+    """Every Adam of ``state`` (G's, and D's or each AttnGAN D's) at step
+    ADAM_WARM_COUNT with first moments 0 and second moments 1: the update
+    is then about 0.05 lr * g, linear in the gradient, where a fresh Adam's
+    first update is lr * sign(g)
     (tests/test_torch_port_stage2_step.py:_warm_adam)."""
-    for opt in (state.g_opt, state.d_opt):
+    d_opts = (list(state.d_opts.values()) if hasattr(state, "d_opts")
+              else [state.d_opt])
+    for opt in (state.g_opt, *d_opts):
         for group in opt.param_groups:
             for p in group["params"]:
                 opt.state[p] = {"step": torch.tensor(float(ADAM_WARM_COUNT)),
@@ -2643,7 +2689,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/32 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/36 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2688,7 +2734,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/32 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/36 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2761,7 +2807,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/32 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/36 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2832,7 +2878,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/32 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/36 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -2995,7 +3041,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/32 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/36 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3085,7 +3131,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/32 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/36 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3194,7 +3240,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/32 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/36 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3311,6 +3357,420 @@ def phase_attn_serve(model):
         "separation": in_box - out_box, "levels": levels}
 
 
+# --------------------------------------------------- AttnGAN training
+
+ATTN_TRAIN_CFG = os.path.join(ATTN_DIR, "coco_attn_full.yml")
+ATTN_IMAGE_E = os.path.join(ATTN_DIR, "damsm", "DAMSMencoders",
+                            "image_encoder29.pth")
+ATTN_TRAIN_BATCH = 14       # cfg/coco_attn_train.yml TRAIN.BATCH_SIZE
+ATTN_WIDTHS = (48, 96, 3, 3, 256)  # GF, DF, R_NUM, branches, embedding
+ATTN_STEP_BATCH = 4         # the step card vs CPU (phase 34)
+ATTN_ENCODER_BATCH = 2      # the image encoder card vs CPU (phase 34)
+ATTN_STEP_RUNS = 10         # CUDA-event readings a step time (phase 35)
+# K1 a step: G's object pathway 1, D64 twice in the D update and once in
+# the G update; K2 the backward of each of those places
+ATTN_LAUNCHES = (4, 4)
+# the step card vs CPU: the DAMSM losses are LAMBDA (50) times
+# cross-entropies, hundreds in all, so the losses are held at LOSS_ATOL
+# plus ATTN_LOSS_RTOL of their value
+ATTN_LOSS_RTOL = 1e-5
+
+
+def attn_train_shapes():
+    """AttnGAN's train places: G's object pathway (O, ngf / 4, 16x16) onto
+    16x16 and D64's (O, 2 * df, 15x15) onto 16x16."""
+    m = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
+    return {"G": (m.num_objects, m.ngf // 4, (16, 16), (16, 16)),
+            "D64": (m.num_objects, 2 * m.df_dim, (15, 15), (16, 16))}
+
+
+def phase_attn_train_kernels():
+    log(f"phase 33/36 attnplaces: K1 and K2 at AttnGAN's train places, "
+        f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
+        "bf16, and timed")
+    return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
+                                 ATTN_LAUNCHES, np.random.RandomState(33))
+
+
+def _attn_train_batch(ds, b, seed):
+    """A train batch of ``b`` items of the flagship set's test split (its
+    140-word vocabulary): captions cut at 12 and their lengths, layouts and
+    one-hots (``_attn_inputs``), class ids, and uint8 images at 64, 128 and
+    256 drawn as the synthetic set's writer draws them (dark noise, each
+    box in its label's colour)."""
+    x = _attn_inputs(ds, b, seed)
+    rs = np.random.RandomState(seed + 1)
+    batch = {"captions": x["caps"], "cap_lens": x["lens"],
+             "bbox": x["bbox"], "label_onehot": x["label_onehot"],
+             "class_ids": rs.permutation(b).astype(np.int64)}
+    labels = x["label_onehot"].argmax(-1)
+    for side in (64, 128, 256):
+        img = (rs.rand(b, side, side, 3) * 40).astype(np.uint8)
+        for i in range(b):
+            for j, (bx, by, bw, bh) in enumerate(x["bbox"][i]):
+                if bx < 0:
+                    continue
+                img[i, int(by * side):int((by + bh) * side),
+                    int(bx * side):int((bx + bw) * side)] = [
+                        120 + 135 * ((labels[i, j] * k) % 9) // 8
+                        for k in (1, 2, 3)]
+        batch[f"image{side}"] = img
+    return batch
+
+
+def _attn_nets(device, mcfg, g_sd, d_sds, vocab, e_sd, i_sd):
+    """An AttnGAN train state on ``device`` holding ``g_sd`` and
+    ``d_sds``, with fresh Adams and the EMA at G's parameters, and the
+    frozen text and image encoders."""
+    g = build_attngan_g(mcfg, g_sd, device=device).train()
+    ds = {n: build_attngan_d(mcfg, 64 * 2 ** i, d_sds[n],
+                             device=device).train()
+          for i, n in enumerate(d_sds)}
+    state = AttnGanTrainState(
+        g=g, ds=ds, g_opt=make_optimizer(g.parameters()),
+        d_opts={n: make_optimizer(d.parameters()) for n, d in ds.items()},
+        g_ema=ema_of(g))
+    text = build_text_encoder(vocab, mcfg.embedding_dim, e_sd,
+                              device=device)
+    image = build_image_encoder(mcfg.embedding_dim, i_sd,
+                                compute_dtype=mcfg.compute_dtype,
+                                device=device)
+    return state, text, image
+
+
+def _flagship_attn_weights(mcfg):
+    """The flagship EMA G, seeded Ds (d64 from seed 1, d128 from 2, d256
+    from 3; AttnGAN's orthogonal init, its QR on the card) and the
+    flagship DAMSM encoders, as state dicts on the CPU."""
+    t = time.perf_counter()
+    d_sds = {n: {k: v.cpu() for k, v in build_attngan_d(
+                 mcfg, 64 * 2 ** i, seed=1 + i,
+                 device=DEVICE).state_dict().items()}
+             for i, n in enumerate(D_NAMES[:mcfg.branch_num])}
+    log(f"  the Ds' orthogonal init (normal draws on the CPU, QR on the "
+        f"card): {time.perf_counter() - t:.1f} s (host clock); parameters "
+        + ", ".join(
+            f"{n} {sum(v.numel() for k, v in sd.items() if 'running' not in k and 'num_batches' not in k)}"
+            for n, sd in d_sds.items()))
+    return (load_reference_attngan_g(ATTN_NET_G), d_sds,
+            load_text_encoder(ATTN_NET_E), load_image_encoder(ATTN_IMAGE_E))
+
+
+def attn_step_once(device, mcfg, weights, batch, z, eps):
+    """One full-width AttnGAN step on ``device`` from ``weights`` and warm
+    Adams (:func:`warm_adam`), with the noise given. Returns (losses, the
+    state dicts before and after, the gradients (G's, and each D's of its
+    update), host seconds, the EMA after) in :func:`step_disagreements`'
+    form, nets keyed G, d64, d128, d256."""
+    g_sd, d_sds, e_sd, i_sd = weights
+    state, text, image = _attn_nets(device, mcfg, g_sd, d_sds,
+                                    ATTN_WORDS, e_sd, i_sd)
+    warm_adam(state)
+    nets = {"G": state.g, **state.ds}
+    pre = {n: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+           for n, m in nets.items()}
+    dev_batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    t = time.perf_counter()
+    metrics = make_attngan_train_step(mcfg, text, image)(
+        state, dev_batch, None, LR, LR, z=torch.from_numpy(z).to(device),
+        eps=torch.from_numpy(eps).to(device))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t
+    post = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+            for n, m in nets.items()}
+    grads = {n: {k: (torch.zeros(p.shape) if p.grad is None
+                     else p.grad.detach().float().cpu())
+                 for k, p in m.named_parameters()} for n, m in nets.items()}
+    ema = {k: v.detach().cpu() for k, v in state.g_ema.items()}
+    return metrics, pre, post, grads, seconds, ema
+
+
+def phase_attn_step():
+    log(f"phase 34/36 attnstep: image_encoder29.pth card against CPU at "
+        f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
+        f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
+    mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
+    check((mcfg.gf_dim, mcfg.df_dim, mcfg.r_num, mcfg.branch_num,
+           mcfg.embedding_dim) == ATTN_WIDTHS,
+          f"cfg/coco_attn_train.yml's widths: {mcfg}")
+    weights = _flagship_attn_weights(mcfg)
+    rs = np.random.RandomState(34)
+    x = rs.uniform(-1, 1, (ATTN_ENCODER_BATCH, 3, 256, 256)).astype(
+        np.float32)
+    enc = {}
+    for dev in (DEVICE, "cpu"):
+        e = build_image_encoder(256, weights[3], device=dev)
+        with torch.no_grad():
+            enc[dev] = [t.cpu() for t in e(torch.from_numpy(x).to(dev))]
+    enc_err = [float((a - b).abs().max()) for a, b in zip(enc[DEVICE],
+                                                         enc["cpu"])]
+    log(f"  image encoder card vs CPU (float32, TF32 off): regions "
+        f"{enc_err[0]:.3e}, codes {enc_err[1]:.3e} (atol {ATTN_ATOL:g}; "
+        f"|regions| up to {float(enc['cpu'][0].abs().max()):.4f}, |codes| up "
+        f"to {float(enc['cpu'][1].abs().max()):.4f})")
+    check(max(enc_err) <= ATTN_ATOL, "image encoder card vs CPU")
+    _, ds = _attn_set()
+    batch = _attn_train_batch(ds, ATTN_STEP_BATCH, 34)
+    z = rs.randn(ATTN_STEP_BATCH, mcfg.z_dim).astype(np.float32)
+    eps = rs.randn(ATTN_STEP_BATCH, mcfg.condition_dim).astype(np.float32)
+    cpu = attn_step_once("cpu", mcfg, weights, batch, z, eps)
+    card = attn_step_once(DEVICE, mcfg, weights, batch, z, eps)
+    log(f"  step on the CPU {cpu[4]:.1f} s ({torch.get_num_threads()} "
+        f"threads), on the card {card[4]:.2f} s (host clock, first call)")
+    bad, worst = step_disagreements(card[:4], cpu[:4],
+                                    loss_rtol=ATTN_LOSS_RTOL)
+    cos, mean_lr, flip = delta_readings(card[:4], cpu[:4])
+    log("  losses card / CPU: " + "; ".join(
+        f"{k} {card[0][k]:.6f} / {cpu[0][k]:.6f}" for k in sorted(cpu[0])))
+    log(f"    worst: loss {worst['loss']:.3e} ({worst['loss_rel']:.2e} of "
+        f"the loss; limit {LOSS_ATOL:g} + {ATTN_LOSS_RTOL:g} of it); "
+        f"BatchNorm running stats {worst['stats']:.3e} (atol "
+        f"{STATS_ATOL:g}); per-tensor gradient cosine "
+        f"{worst['grad_cosine']:.8f} (limit {MIN_GRAD_COSINE:g}); Adam "
+        f"deltas (read): cosine {cos:.8f}, mean |difference| {mean_lr:.5f} "
+        f"lr, {flip:.4%} of the elements apart by more than 0.5 lr")
+    ema_err = max(float((card[5][k] - cpu[5][k]).abs().max())
+                  for k in cpu[5])
+    ema_want = max(float((card[5][k] - (0.999 * card[1]["G"][k] + 0.001
+                                        * card[2]["G"][k])).abs().max())
+                   for k in card[5])
+    log(f"    EMA card vs CPU max |diff| {ema_err:.3e}; the card's EMA "
+        f"against 0.999 pre + 0.001 post {ema_want:.3e}")
+    for msg in bad:
+        log(f"    FAILED {msg}")
+    check(not bad, f"AttnGAN step card vs CPU: {len(bad)} checks failed")
+    check(ema_want <= 1e-6, "the EMA is not 0.999 * ema + 0.001 * param")
+    check(all(card[0][k] > 0 for k in ("w_loss", "s_loss", "kl_loss")),
+          "the DAMSM and KL terms must be in the G loss")
+    return {"encoder": enc_err, "worst": worst, "adam_delta_cosine": cos,
+            "ema": ema_err, "weights": weights, "ds": ds}
+
+
+def _flop_count(fn) -> float:
+    """GFLOP of ``fn()`` by torch.utils.flop_counter: the convs and matmuls
+    (K1, K2, BatchNorm, the activations and Adam are not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return fc.get_total_flops() / 1e9
+
+
+def phase_attn_step_time(model):
+    log(f"phase 35/36 attntime: the AttnGAN step at batch "
+        f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
+        "launches, peak memory, GFLOP and the device's kernel groups")
+    g_sd, d_sds, e_sd, i_sd = model["weights"]
+    dev = torch.device(DEVICE)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             _attn_train_batch(model["ds"], ATTN_TRAIN_BATCH, 35).items()}
+    out = {}
+    for dtype in (None, torch.bfloat16):
+        kind = "bf16" if dtype else "f32"
+        mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG,
+                                                  "coco-attngan"),
+                                    compute_dtype=dtype)
+        state, text, image = _attn_nets(dev, mcfg, g_sd, d_sds, ATTN_WORDS,
+                                        e_sd, i_sd)
+        step = make_attngan_train_step(mcfg, text, image)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def one():
+            return step(state, batch, gen, LR, LR)
+
+        for _ in range(3):
+            one()
+        flops = _flop_count(one)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.reset_launch_count()
+        times = []
+        for _ in range(ATTN_STEP_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = one()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        per_step = (k1.launch_count() / ATTN_STEP_RUNS,
+                    k1.grad_launch_count() / ATTN_STEP_RUNS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times)
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+              f"non-finite AttnGAN losses while timing ({kind})")
+        tflops = flops / ms                 # GFLOP / ms = TFLOP/s
+        log(f"coco-attngan step at batch {ATTN_TRAIN_BATCH}, full width, "
+            f"{kind}{'' if dtype else ' (TF32 off)'}: {ms:.2f} ms (CUDA "
+            f"events, median of {ATTN_STEP_RUNS}; min {min(times):.2f}, max "
+            f"{max(times):.2f}) = {ATTN_TRAIN_BATCH * 1e3 / ms:.1f} images/s;"
+            f" peak memory {peak:.2f} GiB; launches per step: K1 "
+            f"{per_step[0]:g}, K2 {per_step[1]:g}; {flops:.1f} GFLOP a step "
+            f"({flops / ATTN_TRAIN_BATCH:.1f} an image; "
+            "torch.utils.flop_counter, forward and backward), "
+            f"{tflops:.1f} TFLOP/s of them")
+        check(per_step == ATTN_LAUNCHES, f"AttnGAN K1/K2 launches per step "
+              f"{per_step} != {ATTN_LAUNCHES}")
+        wall, busy, groups, top = _profile_forward(one)
+        log(f"  {kind} step traced (torch.profiler, 3 steps): {wall:.2f} ms "
+            f"a step on the host clock, the device busy {busy:.2f} ms "
+            f"({busy / wall:.1%}); by kernel group: " + ", ".join(
+                f"{g} {v:.2f}" for g, v in sorted(groups.items(),
+                                                  key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(
+                f"{v:.2f} ms {name[:70]}" for v, name in top))
+        out[kind] = {"ms": ms, "images_per_s": ATTN_TRAIN_BATCH * 1e3 / ms,
+                     "peak_gib": peak, "launches_per_step": per_step,
+                     "gflop_per_step": flops, "tflop_per_s": tflops,
+                     "profiled_wall_ms": wall, "busy_ms": busy,
+                     "groups_ms": groups}
+        del state, text, image, step
+        torch.cuda.empty_cache()
+    log(f"AttnGAN step bf16 {out['bf16']['ms']:.2f} ms beside float32 "
+        f"{out['f32']['ms']:.2f} ms: {out['f32']['ms'] / out['bf16']['ms']:.2f}"
+        "x")
+    return out
+
+
+def _attn_entry_cfg():
+    """A copy of runs_r5/attngan_flagship/coco_attn_full.yml in the work
+    directory: NET_G the flagship EMA G (a warm start), B_NET_D False,
+    NET_E the flagship text encoder (its 140 rows cover the n = 32 set's
+    vocabulary; image_encoder29.pth beside it)."""
+    with open(ATTN_TRAIN_CFG) as f:
+        text = f.read()
+    lines = []
+    for line in text.splitlines():
+        key = line.strip().split(":")[0]
+        if key == "NET_G":
+            line = f"    NET_G: '{ATTN_NET_G}'"
+        elif key == "NET_E":
+            line = f"    NET_E: '{ATTN_NET_E}'"
+        elif key == "B_NET_D":
+            line = "    B_NET_D: False"
+        lines.append(line)
+    path = os.path.join(WORK, "coco_attn_full.yml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _attn_gap(run, ref, epoch, steps):
+    """``run`` against ``ref`` at ``epoch``: the largest difference of the
+    losses both logged at the epoch's first step (absolute, and over the
+    loss), the lowest per-tensor cosine of G's, the Ds' and the EMA's
+    tensors, and their distance over the reference's norm."""
+    a = CheckpointManager(os.path.join(run, "models")).load(epoch)[0]
+    b = CheckpointManager(os.path.join(ref, "models")).load(epoch)[0]
+    first = a["step"] - steps
+    la, lb = _logged(run, first), _logged(ref, first)
+    cos, dist, norm = {}, 0.0, 0.0
+    pairs = [("g", a["g"], b["g"]), ("g_ema", a["g_ema"], b["g_ema"])]
+    pairs += [(n, a["d"][n], b["d"][n]) for n in b["d"]]
+    for net, sa, sb in pairs:
+        for k, v in sa.items():
+            if not v.is_floating_point() or "running_" in k:
+                continue
+            cos[f"{net}.{k}"] = _cosine(v, sb[k])
+            dist += float((v.double() - sb[k].double()).square().sum())
+            norm += float(sb[k].double().square().sum())
+    worst = min(cos, key=cos.get)
+    return {"first_step": max(abs(la[k] - lb[k]) for k in lb),
+            "first_step_rel": max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12)
+                                  for k in lb),
+            "first_step_held": all(
+                abs(la[k] - lb[k]) <= RESUME_FIRST_STEP_ATOL
+                + ATTN_LOSS_RTOL * abs(lb[k]) for k in lb),
+            "min_cosine": cos[worst], "worst_tensor": worst,
+            "rel_dist": (dist / norm) ** 0.5, "steps": (a["step"], b["step"])}
+
+
+def phase_attn_entry():
+    log("phase 36/36 attnentry: cli/main.py --variant coco-attngan "
+        "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
+        "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
+        "its epoch-1 checkpoint held against it, and one epoch with --bf16")
+    cfg_file = _attn_entry_cfg()
+    data = os.path.join(WORK, "attngan_train")
+    runs = {n: os.path.join(WORK, "runs", f"attn_{n}")
+            for n in ("straight", "resumed", "bf16")}
+    items = train_main.synthetic_items("coco-attngan", ATTN_TRAIN_BATCH)
+    steps = items // ATTN_TRAIN_BATCH
+    base = ["--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
+            data, "--synthetic", "--manualSeed", "7"]
+    launches = {}
+
+    def entry(key, name, out, epochs, *extra):
+        k4.reset_launch_count()
+        hist, got, _ = _entry(name, [*base, "--output_dir", out,
+                                     "--max_epochs", str(epochs), *extra])
+        launches[key] = (*got, k4.launch_count())
+        for h in hist:
+            check(h["steps"] == steps and all(np.isfinite(v)
+                                              for v in h.values())
+                  and h["w_loss"] > 0 and h["s_loss"] > 0,
+                  f"{name}: epoch {h}")
+        return hist
+
+    hist = entry("train_coco-attngan", "coco-attngan, 3 epochs",
+                 runs["straight"], 3, "--snapshot_interval", "2")
+    # K1: 4 a step, the montage after step 0 and one an epoch end; K2: 4
+    # a step
+    check(launches["train_coco-attngan"] == (4 * 3 * steps + 1 + 3,
+                                            4 * 3 * steps, 0),
+          f"K1/K2/K4 launches {launches['train_coco-attngan']}")
+    _resume_copy(runs["straight"], 1, runs["resumed"])
+    hist_r = entry("train_coco-attngan_resume",
+                   "coco-attngan, resumed from epoch 1 to 3",
+                   runs["resumed"], 3, "--resume", runs["resumed"])
+    check(len(hist_r) == 1 and launches["train_coco-attngan_resume"]
+          == (4 * steps + 1, 4 * steps, 0),
+          f"the resume: {len(hist_r)} epochs, launches "
+          f"{launches['train_coco-attngan_resume']}")
+    hist_b = entry("train_coco-attngan_bf16", "coco-attngan --bf16, 1 "
+                   "epoch", runs["bf16"], 1, "--bf16",
+                   "--snapshot_interval", "0")
+    out = runs["straight"]
+    with open(os.path.join(out, "run_flags.json")) as f:
+        flags = json.load(f)
+    check(flags["encoders"] == {"text_encoder": "imported",
+                                "image_encoder": "imported"}
+          and flags["net_e"] == ATTN_NET_E, f"run_flags.json: {flags}")
+    want = [os.path.join("logs", "metrics.jsonl"), "run_flags.json",
+            os.path.basename(cfg_file),
+            os.path.join("src_snapshot", "cli", "attngan_runner.py"),
+            os.path.join("images", "real_samples.png"),
+            os.path.join("images", "fake_samples_step_0000000.png"),
+            os.path.join("images", "attention_maps_step_0000000.png")]
+    want += [os.path.join("images", f"{kind}_epoch_{e:03d}.png")
+             for kind in ("fake_samples", "attention_maps") for e in range(3)]
+    want += [os.path.join("models", str(e), "state.pth") for e in (1, 2)]
+    missing = [w for w in want if not os.path.isfile(os.path.join(out, w))]
+    check(not missing, f"{out}: missing {missing}")
+    montage = read_png(os.path.join(out, "images",
+                                    "attention_maps_epoch_002.png"), "RGB")
+    check(montage.shape == (8 * 64, 9 * 64, 3), f"montage {montage.shape}")
+    gap = _attn_gap(runs["resumed"], runs["straight"], 2, steps)
+    log(f"  resumed against the straight run after epoch 2: first step's "
+        f"losses max |diff| {gap['first_step']:.3e} ({gap['first_step_rel']:.2e}"
+        f" of the loss), lowest tensor cosine {gap['min_cosine']:.8f} "
+        f"({gap['worst_tensor']}), parameter distance {gap['rel_dist']:.3e} "
+        f"of the norm (G, EMA, Ds), steps {gap['steps']}")
+    log("  epoch times (host clock, {} steps of {}): {}; resumed {}; bf16 {}"
+        .format(steps, ATTN_TRAIN_BATCH,
+                ", ".join(f"{h['seconds']:.2f}" for h in hist),
+                f"{hist_r[0]['seconds']:.2f}", f"{hist_b[0]['seconds']:.2f}"))
+    check(gap["steps"] == (3 * steps, 3 * steps), f"steps {gap['steps']}")
+    check(gap["first_step_held"], f"the resumed epoch's first step strays "
+          f"past {RESUME_FIRST_STEP_ATOL:g} + {ATTN_LOSS_RTOL:g} of a loss")
+    check(gap["rel_dist"] <= MAX_RESUME_DIST
+          and gap["min_cosine"] > MIN_RESUME_COSINE,
+          "the resumed run strays from the straight one")
+    for path in runs.values():
+        shutil.rmtree(path, ignore_errors=True)
+    return launches, {"resume": gap, "epoch_s": [h["seconds"] for h in hist],
+                      "bf16_epoch_s": hist_b[0]["seconds"]}
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -3348,7 +3808,7 @@ def run_phases() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/32 time16")
+    step16 = phase_step_time(BF16, "14/36 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -3371,14 +3831,21 @@ def run_phases() -> int:
     attn_kernels = phase_attn_kernels()
     attn_model = phase_attn_model()
     attn_serve, attn_latency = phase_attn_serve(attn_model)
+    attn_places = phase_attn_train_kernels()
+    attn_step = phase_attn_step()
+    attn_time = phase_attn_step_time(attn_step)
+    attn_entry, attn_run = phase_attn_entry()
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
-               **sampled["launches"], **s2_entry, **s2_serve, **attn_serve}
+               **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
+               **attn_entry}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
-                 *sampled["launches"], *s2_entry, *s2_serve, *attn_serve)
-    bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16")
+                 *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
+                 "train_coco-attngan", "train_coco-attngan_resume")
+    bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
+                  "train_coco-attngan_bf16")
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -3401,7 +3868,8 @@ def run_phases() -> int:
                            families["place"]["max_abs_err"],
                            batch9["max_abs_err"],
                            s2_kernels["place"]["max_abs_err"],
-                           attn_kernels["max_abs_err"]),
+                           attn_kernels["max_abs_err"],
+                           attn_places["place"]["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
@@ -3415,6 +3883,12 @@ def run_phases() -> int:
                     "forward_b64": attn_model["rows"],
                     "gflop_per_image": attn_model["flops"],
                     "serve": attn_latency},
+        "attngan_train": {**attn_places["place"],
+                          "step_launches": {k: v["launches_per_step"][0]
+                                            for k, v in attn_time.items()},
+                          "step_ms": {k: v["ms"]
+                                      for k, v in attn_time.items()},
+                          "entry": attn_run},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
@@ -3422,7 +3896,8 @@ def run_phases() -> int:
         **launches(1),
         "max_abs_err": max(grad["max_abs_err"],
                            families["grad"]["max_abs_err"],
-                           s2_kernels["grad"]["max_abs_err"]),
+                           s2_kernels["grad"]["max_abs_err"],
+                           attn_places["grad"]["max_abs_err"]),
         **grad["G"],
         "d_shape": grad["D"],
         "bf16": bf16["grad"],
@@ -3430,6 +3905,9 @@ def run_phases() -> int:
         "stage2": {**s2_kernels["grad"],
                    "step_launches": {k: v["launches_per_step"][1]
                                      for k, v in s2_time.items()}},
+        "attngan_train": {**attn_places["grad"],
+                          "step_launches": {k: v["launches_per_step"][1]
+                                            for k, v in attn_time.items()}},
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",

@@ -8,7 +8,9 @@ JAX and nothing of ``multiple_objects_gan_tpu``: the JAX package is the
 reference the port's tests hold it against.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``.
-Without a card it raises; it runs on the CPU only when asked to.
+Without a card it raises; it runs on the CPU only when asked to. Float32
+work on the card computes in float32: the train and serve entries turn
+TF32 off through :func:`float32_policy`.
 """
 
 from __future__ import annotations
@@ -28,3 +30,14 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or "
                          "'cpu'")
     return dev
+
+
+def float32_policy(device: torch.device, compute_dtype) -> None:
+    """The port's one float32 policy, which ``cli/main.py`` (training) and
+    ``cli/serve.py`` (serving) apply: float32 work on the card
+    (``compute_dtype`` None) turns TF32 off for matmuls and cuDNN in the
+    process, so that it computes in float32, as the JAX package's float32
+    path does; bf16 work and the CPU leave both settings as they are."""
+    if torch.device(device).type == "cuda" and compute_dtype is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

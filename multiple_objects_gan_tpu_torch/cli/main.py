@@ -1,9 +1,10 @@
 """Train or sample with the PyTorch port (the port's counterpart of the JAX
-package's ``cli/main.py``, for the three stage-1 families and COCO
-StackGAN stage 2).
+package's ``cli/main.py``, for the three stage-1 families, COCO StackGAN
+stage 2 and COCO AttnGAN).
 
     python -m multiple_objects_gan_tpu_torch.cli.main \\
-        --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2 \\
+        --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2|\\
+coco-attngan \\
         --cfg CFG \\
         [--data_dir D] [--output_dir O] [--synthetic] [--resume RUN_DIR] \\
         [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
@@ -17,7 +18,12 @@ missing train split is first written there, at the JAX CLI's sizes
 (``synthetic_items``). COCO has no on-disk reader yet: with ``--synthetic``
 both stages train on a synthetic set held on the device (stage 2's at
 256px, its stage-2 boxes the stage-1 ones), stage 2 through
-``cli/stage2_runner.py`` with the frozen stage-1 G of cfg ``STAGE1_G``. A
+``cli/stage2_runner.py`` with the frozen stage-1 G of cfg ``STAGE1_G``.
+COCO AttnGAN trains through ``cli/attngan_runner.py`` on the synthetic set
+of DATA_DIR: ``--synthetic`` writes its text side there when missing, at
+the JAX CLI's size (max(2 * batch, 32) items, ``multiple_objects_gan_tpu/
+cli/main.py:352-361``), and the images are held in memory; the DAMSM
+encoders come from cfg ``TRAIN.NET_E``. A
 run leaves, under ``--output_dir`` (default
 ``output/<DATASET>_<time>``), ``run_flags.json``, a copy of the cfg, the
 port's sources (``src_snapshot/``), ``logs/metrics.jsonl``, epoch grids in
@@ -28,7 +34,8 @@ takes the seed of the resumed run's ``run_flags.json``, so its shuffles
 and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
 samples 25 grids from ``NET_G`` (``cli/sample.py``; not yet for COCO).
 The run is on the card unless ``--device cpu`` is given; without a card it
-raises.
+raises. A float32 run on the card computes in float32: TF32 is turned off
+(``float32_policy``, as the server does).
 """
 
 from __future__ import annotations
@@ -46,11 +53,15 @@ import warnings
 import numpy as np
 import torch
 
-from multiple_objects_gan_tpu_torch import resolve_device
+from multiple_objects_gan_tpu_torch import float32_policy, resolve_device
+from multiple_objects_gan_tpu_torch.cli.attngan_runner import run_attngan
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import run_stage2
 from multiple_objects_gan_tpu_torch.config.config import (
-    cfg_from_file, stage1_model_config, stage2_model_config, train_settings)
+    attngan_model_config, cfg_from_file, stage1_model_config,
+    stage2_model_config, train_settings)
+from multiple_objects_gan_tpu_torch.data.attngan import (
+    write_synthetic_attngan)
 from multiple_objects_gan_tpu_torch.data.datasets import (
     MNIST_VARIANT, ClevrDataset, Loader, MemoryLoader, MultiMnistDataset,
     write_synthetic_clevr, write_synthetic_multimnist)
@@ -58,7 +69,8 @@ from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_coco, synthetic_coco_stage2)
 from multiple_objects_gan_tpu_torch.train.loop import train
 
-VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2")
+VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2",
+            "coco-attngan")
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's sources that define a run, copied into src_snapshot/
 SNAPSHOT_DIRS = ("cli", "config", "models", "train", "losses", "nn", "ops",
@@ -70,8 +82,22 @@ SYNTHETIC_ITEMS = {"multi-mnist": 512, "clevr": 256}
 def synthetic_items(variant: str, batch: int) -> int:
     """The items of ``variant``'s --synthetic train set: the on-disk sizes,
     and for COCO at least 2 full batches (else the drop-last loop is
-    empty)."""
-    return SYNTHETIC_ITEMS.get(variant, max(2 * batch, 64))
+    empty), at least 64 for StackGAN and 32 for AttnGAN."""
+    least = 32 if variant == "coco-attngan" else 64
+    return SYNTHETIC_ITEMS.get(variant, max(2 * batch, least))
+
+
+def attngan_data(args, cfg, seed: int) -> None:
+    """AttnGAN's synthetic set in DATA_DIR: written there (text side) with
+    ``--synthetic`` when its train split is missing."""
+    if os.path.isfile(os.path.join(cfg.DATA_DIR, "train",
+                                   "filenames.pickle")):
+        return
+    if not args.synthetic:
+        sys.exit(f"no AttnGAN train split under {cfg.DATA_DIR!r}; pass "
+                 "--synthetic (the port has no COCO JPEG reader yet)")
+    n = synthetic_items("coco-attngan", int(cfg.TRAIN.BATCH_SIZE))
+    write_synthetic_attngan(cfg.DATA_DIR, n=n, seed=seed)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -254,8 +280,14 @@ def main(argv=None) -> list[dict]:
     torch.manual_seed(seed)
 
     dtype = torch.bfloat16 if args.bf16 else None
+    float32_policy(device, dtype)
     stage2 = args.variant == "coco-stackgan-2"
-    if stage2:
+    attn = args.variant == "coco-attngan"
+    if attn:
+        if args.bn_groups != 1:
+            sys.exit("--bn_groups is not ported for coco-attngan yet")
+        mcfg = attngan_model_config(cfg, compute_dtype=dtype)
+    elif stage2:
         s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
                                            bn_groups=args.bn_groups)
     else:
@@ -263,8 +295,11 @@ def main(argv=None) -> list[dict]:
                                    bn_groups=args.bn_groups)
     if not cfg.TRAIN.FLAG and args.variant not in ("multi-mnist", "clevr"):
         sys.exit(f"sampling {args.variant} is not ported yet")
-    loader = (train_loader(args, cfg, args.variant, seed, device)
-              if cfg.TRAIN.FLAG else None)
+    loader = None
+    if attn and cfg.TRAIN.FLAG:
+        attngan_data(args, cfg, seed)
+    elif cfg.TRAIN.FLAG:
+        loader = train_loader(args, cfg, args.variant, seed, device)
     now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     output_dir = args.output_dir or os.path.join(
         "output", f"{cfg.DATASET_NAME}_{now}")
@@ -283,6 +318,15 @@ def main(argv=None) -> list[dict]:
         return []
     if not args.resume:
         snapshot_sources(output_dir)
+    if attn:
+        print(f"coco-attngan on {device}: gf {mcfg.gf_dim}, df "
+              f"{mcfg.df_dim}, R_NUM {mcfg.r_num}, {mcfg.branch_num} "
+              f"branches, batch {cfg.TRAIN.BATCH_SIZE}, seed {seed}, "
+              f"{'bf16' if args.bf16 else 'float32'}; data {cfg.DATA_DIR}; "
+              f"output {output_dir}", flush=True)
+        return run_attngan(cfg, mcfg, output_dir, device=device, seed=seed,
+                           max_epochs=args.max_epochs,
+                           resume_dir=args.resume or None)
     kl = f", KL x {train_settings(cfg).kl_coeff:g}" if mcfg.use_ca else ""
     width = (f"gf {mcfg.gf_dim}, df {mcfg.df_dim}, R_NUM {mcfg.r_num}, "
              f"frozen stage-1 G ngf {s1_cfg.ngf}" if stage2 else

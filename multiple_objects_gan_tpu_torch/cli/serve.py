@@ -59,7 +59,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from multiple_objects_gan_tpu_torch import resolve_device
+from multiple_objects_gan_tpu_torch import float32_policy, resolve_device
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_model_config, cfg_from_file, stage1_model_config,
@@ -681,11 +681,10 @@ def serve(args, service=None) -> ThreadingHTTPServer:
     unstarted server; the CLI calls serve_forever, tests and chip_smoke.py
     drive it from a thread. A float32 service of any variant on the card
     turns TF32 off for matmuls and cuDNN in the process, so that float32
-    serving computes in float32 (the JAX package's float32 path)."""
+    serving computes in float32 (the JAX package's float32 path;
+    ``float32_policy``)."""
     svc = service if service is not None else build_service(args)
-    if svc.device.type == "cuda" and svc.mcfg.compute_dtype is None:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    float32_policy(svc.device, svc.mcfg.compute_dtype)
     batcher = MicroBatcher(svc.run, max_batch=svc.max_batch,
                            max_wait_ms=args.max_wait_ms)
     info = {"variant": args.variant, "max_batch": svc.max_batch,

@@ -90,7 +90,7 @@ def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
     if resume_dir:
         prev = CheckpointManager(os.path.join(resume_dir, "models"))
         if prev.latest_epoch() is not None:
-            start_epoch = prev.restore(state, generator) + 1
+            start_epoch = prev.restore(state, generator)[0] + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
     n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)

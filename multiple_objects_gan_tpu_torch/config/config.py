@@ -363,3 +363,40 @@ def train_settings(cfg: Config) -> TrainSettings:
         generator_lr=float(t.GENERATOR_LR),
         discriminator_lr=float(t.DISCRIMINATOR_LR),
         kl_coeff=float(t.COEFF.KL) if "COEFF" in t else 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnGanTrainSettings:
+    """What the AttnGAN train entry reads of a coco-attngan cfg (JAX
+    ``cli/attngan_runner.py:185-331``): the TRAIN block's batch, epochs,
+    learning rates (never decayed), snapshot interval, SMOOTH (the DAMSM
+    gammas and LAMBDA), NET_G, NET_E and B_NET_D, and the data's TEXT and
+    TREE settings."""
+    batch_size: int
+    max_epoch: int
+    generator_lr: float
+    discriminator_lr: float
+    snapshot_interval: int
+    smooth: dict
+    net_g: str
+    net_e: str
+    b_net_d: bool
+    words_num: int
+    captions_per_image: int
+    base_size: int
+    branch_num: int
+
+
+def attngan_train_settings(cfg: Config) -> AttnGanTrainSettings:
+    t = cfg.TRAIN
+    return AttnGanTrainSettings(
+        batch_size=int(t.BATCH_SIZE), max_epoch=int(t.MAX_EPOCH),
+        generator_lr=float(t.GENERATOR_LR),
+        discriminator_lr=float(t.DISCRIMINATOR_LR),
+        snapshot_interval=int(t.SNAPSHOT_INTERVAL),
+        smooth={k: float(v) for k, v in t.SMOOTH.items()},
+        net_g=str(t.NET_G), net_e=str(t.NET_E), b_net_d=bool(t.B_NET_D),
+        words_num=int(cfg.TEXT.WORDS_NUM),
+        captions_per_image=int(cfg.TEXT.CAPTIONS_PER_IMAGE),
+        base_size=int(cfg.TREE.BASE_SIZE),
+        branch_num=int(cfg.TREE.BRANCH_NUM))

@@ -1,5 +1,6 @@
-"""The text side of the AttnGAN COCO data (port of the JAX
-``data/attngan.py``): captions, the vocabulary, and the split's layouts.
+"""The AttnGAN COCO data (port of the JAX ``data/attngan.py``): captions,
+the vocabulary, the split's layouts, and the synthetic train set held in
+memory with the reader's augmentations.
 
 Reference: the caption pipeline of code/coco/attngan/datasets.py:192-291:
 each image's text file tokenized with a
@@ -10,11 +11,20 @@ wordtoix].
 
 The published pickles were written by Python 2; they are read through
 ``io/pycompat.load_pickle``, and the cache the port writes is the one the
-JAX package writes. The images (JPEGs, resized, cropped and flipped with
-their boxes) wait for the JPEG reader: the card's machine has no JPEG
-decoder or encoder, so this module reads no image and
-:func:`write_synthetic_attngan` writes none. A caption's padding and
-subsampling to TEXT.WORDS_NUM (get_caption, :311-329) waits with them.
+JAX package writes.
+
+COCO's JPEGs wait for the JPEG reader: the card's machine has no JPEG
+decoder or encoder, so :func:`write_synthetic_attngan` writes no image.
+Training runs on :class:`AttnGanTrainSet`: the synthetic set's 268x268
+pixels as the JAX writer draws them before its JPEG encode
+(:func:`synthetic_attngan_images`), held in memory, and per item the
+reader's draws from its ``RandomState`` in its order (get_imgs and
+get_caption, code/coco/attngan/datasets.py:71-137,311-329; JAX
+``AttnGanDataset.__getitem__``): the h-flip, the 256 crop's offsets, the
+boxes rescaled to the crop, the caption of the item and its words cut to
+TEXT.WORDS_NUM; the 128 and 64px images are PIL's bilinear resize of the
+crop (``data/png.py``). Only the JPEG round trip of the JAX set is
+missing.
 """
 
 from __future__ import annotations
@@ -25,10 +35,15 @@ import re
 from collections import defaultdict
 
 import numpy as np
+import torch
 
+from multiple_objects_gan_tpu_torch.data.png import resize_bilinear_batch
 from multiple_objects_gan_tpu_torch.io.pycompat import load_pickle
 
 MAX_OBJECTS = 3
+NUM_CLASSES = 81            # COCO's 80 and the padding class
+LOAD_SIZE = 268             # the reader's resize before its 256 crop
+CROP = 256
 _TOKEN_RE = re.compile(r"\w+")
 
 
@@ -137,31 +152,21 @@ class AttnGanDataset:
         return len(self.filenames)
 
 
-def write_synthetic_attngan(data_dir: str, n: int = 32, seed: int = 0,
-                            captions_per_image: int = 5,
-                            vocab: int = 50) -> None:
-    """The JAX package's synthetic AttnGAN set, text side: the same text
-    files, ``{filenames,bboxes,labels}.pickle`` of both splits (n train
-    items, max(4, n // 4) test items) and so the same vocabulary, drawn
-    from the same ``RandomState`` stream. Each caption names every object
-    (``obj<label>``) and its cell of a 3x3 grid (``loc<gx><gy>``) in a
-    random order, then 1-3 filler words (``word<i>``).
-
-    The JAX writer also draws each item's 268x268 image and saves it as
-    a JPEG. The draw (``rng.rand(268, 268, 3)``) is made here too, so the
-    stream and every caption stay the same, but no image is written: the
-    images wait for the JPEG reader."""
+def _synthetic_items(n: int, seed: int, captions_per_image: int,
+                     vocab: int, images: bool = True):
+    """The JAX writer's stream (JAX ``write_synthetic_attngan``): per item
+    of the train split (n items), then the test split (max(4, n // 4)),
+    ``(split, key, image, bbox, labels, caption lines)``. The image is the
+    writer's 268x268 draw, ``rand * 40``, with each object's box filled in
+    its label's colour, before the JPEG encode; without ``images`` it is
+    drawn, so that the stream stays the same, and None."""
     rng = np.random.RandomState(seed)
     words = [f"word{i}" for i in range(vocab)]
-    os.makedirs(os.path.join(data_dir, "text"), exist_ok=True)
     for split, count in [("train", n), ("test", max(4, n // 4))]:
-        split_dir = os.path.join(data_dir, split)
-        os.makedirs(split_dir, exist_ok=True)
-        filenames, bboxes, labels = [], [], []
         for i in range(count):
             key = f"{split}_{i:05d}"
-            rng.rand(268, 268, 3)      # the JAX writer's image draw
-            filenames.append(key)
+            img = rng.rand(268, 268, 3)
+            img = (img * 40).astype(np.uint8) if images else None
             n_obj = rng.randint(1, MAX_OBJECTS + 1)
             bb = np.full((MAX_OBJECTS, 4), -1.0, np.float32)
             lab = np.full((MAX_OBJECTS, 1), -1, np.int64)
@@ -170,21 +175,223 @@ def write_synthetic_attngan(data_dir: str, n: int = 32, seed: int = 0,
                 w, h = rng.uniform(0.2, 0.4, 2)
                 bb[j] = [rng.uniform(0, 1 - w), rng.uniform(0, 1 - h), w, h]
                 lab[j] = rng.randint(0, 80)
+                x0, y0 = int(bb[j][0] * 268), int(bb[j][1] * 268)
+                x1 = int((bb[j][0] + bb[j][2]) * 268)
+                y1 = int((bb[j][1] + bb[j][3]) * 268)
+                lab_j = int(lab[j, 0])
+                if images:
+                    img[y0:y1, x0:x1] = np.array(
+                        [120 + 135 * ((lab_j * k) % 9) // 8
+                         for k in (1, 2, 3)], np.uint8)
                 gx = min(int((bb[j][0] + bb[j][2] / 2) * 3), 2)
                 gy = min(int((bb[j][1] + bb[j][3] / 2) * 3), 2)
-                obj_tokens.append(f"obj{int(lab[j, 0])} loc{gx}{gy}")
+                obj_tokens.append(f"obj{lab_j} loc{gx}{gy}")
             cap_lines = []
             for _ in range(captions_per_image):
                 order = rng.permutation(n_obj)
                 toks = [obj_tokens[j] for j in order]
                 toks += list(rng.choice(words, rng.randint(1, 4)))
                 cap_lines.append(" ".join(toks))
-            with open(os.path.join(data_dir, "text", key + ".txt"), "w") as f:
-                f.write("\n".join(cap_lines))
-            bboxes.append(bb)
-            labels.append(lab)
+            yield split, key, img, bb, lab, cap_lines
+
+
+def write_synthetic_attngan(data_dir: str, n: int = 32, seed: int = 0,
+                            captions_per_image: int = 5,
+                            vocab: int = 50) -> None:
+    """The JAX package's synthetic AttnGAN set, text side: the same text
+    files, ``{filenames,bboxes,labels}.pickle`` of both splits (n train
+    items, max(4, n // 4) test items) and so the same vocabulary, drawn
+    from the same ``RandomState`` stream. Each caption names every object
+    (``obj<label>``) and its cell of a 3x3 grid (``loc<gx><gy>``) in a
+    random order, then 1-3 filler words (``word<i>``). The JAX writer also
+    saves each item's image as a JPEG; here the image is drawn, so the
+    stream stays the same, and kept by :func:`synthetic_attngan_images`
+    alone."""
+    os.makedirs(os.path.join(data_dir, "text"), exist_ok=True)
+    splits: dict = {}
+    for split, key, _, bb, lab, cap_lines in _synthetic_items(
+            n, seed, captions_per_image, vocab, images=False):
+        with open(os.path.join(data_dir, "text", key + ".txt"), "w") as f:
+            f.write("\n".join(cap_lines))
+        rows = splits.setdefault(split, ([], [], []))
+        for col, v in zip(rows, (key, bb, lab)):
+            col.append(v)
+    for split, (filenames, bboxes, labels) in splits.items():
+        split_dir = os.path.join(data_dir, split)
+        os.makedirs(split_dir, exist_ok=True)
         for name, obj in [("filenames.pickle", filenames),
                           ("bboxes.pickle", np.stack(bboxes)),
                           ("labels.pickle", np.stack(labels))]:
             with open(os.path.join(split_dir, name), "wb") as f:
                 pickle.dump(obj, f)
+
+
+def synthetic_attngan_images(n: int = 32, seed: int = 0,
+                             captions_per_image: int = 5, vocab: int = 50,
+                             split: str = "train") -> np.ndarray:
+    """The 268x268 images of ``split`` of :func:`write_synthetic_attngan`'s
+    set with the same arguments, (items, 268, 268, 3) uint8 in its order:
+    the JAX writer's pixels before its JPEG encode."""
+    return np.stack([img for s, _, img, *_ in _synthetic_items(
+        n, seed, captions_per_image, vocab) if s == split])
+
+
+def synthetic_train_images(data_dir: str, seed: int,
+                           captions_per_image: int = 5,
+                           vocab: int = 50) -> np.ndarray:
+    """The train images of the synthetic set in ``data_dir``, written by
+    :func:`write_synthetic_attngan` with ``seed``: its stream drawn again
+    for as many items as the split holds. Raises ``ValueError`` when the
+    boxes drawn are not the split's (another seed, or a set this writer did
+    not write, such as COCO's, whose JPEGs the port cannot read yet)."""
+    split_dir = os.path.join(data_dir, "train")
+    n = len(_load_filenames(data_dir, "train"))
+    if n == 0:
+        raise ValueError(f"no train split under {data_dir}")
+    want = np.array(load_pickle(os.path.join(split_dir, "bboxes.pickle")),
+                    np.float32)
+    images, boxes = [], []
+    for s, _, img, bb, *_ in _synthetic_items(n, seed, captions_per_image,
+                                              vocab):
+        if s == "train":
+            images.append(img)
+            boxes.append(bb)
+    if not np.array_equal(np.stack(boxes), want):
+        raise ValueError(
+            f"{data_dir} is not write_synthetic_attngan(n={n}, seed={seed})'s"
+            " set: the port trains AttnGAN on that set, in memory, until "
+            "COCO's JPEG reader is ported")
+    return np.stack(images)
+
+
+def labels_to_onehot(labels: np.ndarray) -> np.ndarray:
+    """(O,) or (O, 1) class ids, -1 for padding -> (O, 81) one-hots, the
+    padding in slot 80 (JAX ``data/coco.py:labels_to_onehot``)."""
+    ids = np.asarray(labels).reshape(-1).astype(np.int64)
+    ids = np.where(ids < 0, NUM_CLASSES - 1, ids)
+    onehot = np.zeros((ids.shape[0], NUM_CLASSES), np.float32)
+    onehot[np.arange(ids.shape[0]), ids] = 1.0
+    return onehot
+
+
+def _scale_bbox(bbox: np.ndarray, h1: int, w1: int, flip: bool
+                ) -> np.ndarray:
+    """The boxes after the reader's resize to 268, 256 crop at (h1, w1)
+    and h-flip (datasets.py:95-137; JAX ``AttnGanDataset._scale_bbox``)."""
+    bbox_scaled = np.full_like(bbox, -1.0)
+    for i in range(MAX_OBJECTS):
+        bt = bbox[i]
+        if bt[0] == -1:
+            break
+        x = max(bt[0] * 268.0 - h1, 0) / 256.0
+        y = max(bt[1] * 268.0 - w1, 0) / 256.0
+        w = min((268.0 / 256.0) * bt[2], 1.0)
+        if x + w > 0.999:
+            w = 1.0 - x - 0.001
+        h = min((268.0 / 256.0) * bt[3], 1.0)
+        if y + h > 0.999:
+            h = 1.0 - y - 0.001
+        if flip:
+            x = 1.0 - x - w
+        bbox_scaled[i] = [x, y, w, h]
+    return bbox_scaled.astype(np.float32)
+
+
+class AttnGanTrainSet:
+    """The train split held in memory, batched in the JAX reader's order.
+
+    ``images`` (items, 268, 268, 3) uint8 are the split's pixels in
+    filename order (:func:`synthetic_attngan_images`); the captions, boxes
+    and labels are :class:`AttnGanDataset`'s. :meth:`get_batch` gives what
+    the JAX reader's ``get_batch`` gives for the same indices:
+    ``image{64,128,256}`` (uint8 NHWC), ``bbox``, ``label_onehot``,
+    ``captions`` (B, words_num) int64 zero-padded, ``cap_lens`` and
+    ``class_ids`` (arange, or ``class_info.pickle`` where there is one).
+    The draws come from one ``RandomState(seed)`` carried across epochs;
+    :meth:`rng_state` and :meth:`set_rng_state` carry it through a
+    checkpoint, so a resumed run draws what an uninterrupted one draws.
+    """
+
+    def __init__(self, data_dir: str, images: np.ndarray,
+                 base_size: int = 64, branch_num: int = 3,
+                 captions_per_image: int = 5, words_num: int = 12,
+                 seed: int = 0):
+        self.text = AttnGanDataset(data_dir, "train", captions_per_image)
+        if images.shape[1:] != (LOAD_SIZE, LOAD_SIZE, 3) or \
+                len(images) != len(self.text):
+            raise ValueError(f"{len(self.text)} images of {LOAD_SIZE}x"
+                             f"{LOAD_SIZE}x3 expected, got {images.shape}")
+        self.images = images
+        self.embeddings_num = captions_per_image
+        self.words_num = words_num
+        self.imsizes = [base_size * (2 ** i) for i in range(branch_num)]
+        self._rng = np.random.RandomState(seed)
+        cls_path = os.path.join(data_dir, "train", "class_info.pickle")
+        self.class_id = (np.asarray(load_pickle(cls_path))
+                         if os.path.isfile(cls_path)
+                         else np.arange(len(self.text)))
+
+    def __len__(self) -> int:
+        return len(self.text)
+
+    @property
+    def ixtoword(self) -> dict:
+        return self.text.ixtoword
+
+    @property
+    def n_words(self) -> int:
+        return self.text.n_words
+
+    def _get_caption(self, sent_ix: int):
+        """Caption ``sent_ix``'s ids zero-padded to words_num, or
+        words_num of them drawn in order when it is longer, and its length
+        (at least 1)."""
+        sent = np.asarray(self.text.captions[sent_ix], np.int64)
+        x = np.zeros(self.words_num, np.int64)
+        if len(sent) <= self.words_num:
+            x[:len(sent)] = sent
+            return x, max(len(sent), 1)
+        ix = np.sort(self._rng.permutation(len(sent))[:self.words_num])
+        x[:] = sent[ix]
+        return x, self.words_num
+
+    def get_batch(self, idxs) -> dict:
+        idxs = np.asarray(idxs)
+        n = len(idxs)
+        crops = np.empty((n, CROP, CROP, 3), np.uint8)
+        bbox = np.empty((n, MAX_OBJECTS, 4), np.float32)
+        caps = np.empty((n, self.words_num), np.int64)
+        lens = np.empty((n,), np.int64)
+        for j, i in enumerate(idxs):
+            flip = self._rng.rand() < 0.5
+            h1 = int(np.floor(12 * self._rng.rand()))
+            w1 = int(np.floor(12 * self._rng.rand()))
+            crop = self.images[i, w1:w1 + CROP, h1:h1 + CROP]
+            crops[j] = crop[:, ::-1] if flip else crop
+            bbox[j] = _scale_bbox(self.text.bboxes[i], h1, w1, flip)
+            sent_ix = self._rng.randint(0, self.embeddings_num)
+            caps[j], lens[j] = self._get_caption(
+                int(i) * self.embeddings_num + sent_ix)
+        out = {f"image{s}": (crops if s == CROP else
+                             resize_bilinear_batch(crops, (s, s)))
+               for s in self.imsizes}
+        out.update({
+            "bbox": bbox,
+            "label_onehot": np.stack([labels_to_onehot(self.text.labels[i])
+                                      for i in idxs]),
+            "captions": caps, "cap_lens": lens,
+            "class_ids": self.class_id[idxs].astype(np.int64)})
+        return out
+
+    def rng_state(self) -> dict:
+        """The draws' ``RandomState`` as tensors, for a checkpoint."""
+        kind, keys, pos, has_gauss, gauss = self._rng.get_state()
+        return {"keys": torch.from_numpy(keys.astype(np.int64)),
+                "pos": int(pos), "has_gauss": int(has_gauss),
+                "cached_gaussian": float(gauss)}
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.set_state(("MT19937",
+                             state["keys"].numpy().astype(np.uint32),
+                             state["pos"], state["has_gauss"],
+                             state["cached_gaussian"]))

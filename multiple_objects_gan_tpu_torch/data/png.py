@@ -16,6 +16,9 @@ PNGs itself and reproduces the two PIL calls its readers make:
   the scale on a downscale, its coefficients normalised and rounded to
   22-bit fixed point, the horizontal pass first into uint8, then the
   vertical pass; a pass whose size does not change is skipped.
+  :func:`resize_bilinear_batch` gives the same for a stack of images in
+  one pass each way: a pass is a float64 matrix product with the
+  fixed-point coefficients, exact because every sum stays below 2^53.
 
 The Average and Paeth row filters depend on the byte to their left, so
 they are undone in a Python loop over the row; None, Sub and Up are
@@ -25,6 +28,7 @@ filter 0 alone.
 
 from __future__ import annotations
 
+import functools
 import math
 import struct
 import zlib
@@ -216,3 +220,37 @@ def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     if x.shape[0] != h:
         x = _resample_axis(x, h, axis=0)
     return x[..., 0] if img.ndim == 2 else x
+
+
+@functools.lru_cache(maxsize=16)
+def _dense_coefficients(in_size: int, out_size: int) -> np.ndarray:
+    """The fixed-point coefficients of :func:`_coefficients` as an
+    (out_size, in_size) float64 matrix."""
+    first, count, kk = _coefficients(in_size, out_size)
+    m = np.zeros((out_size, in_size))
+    for o in range(out_size):
+        m[o, first[o]:first[o] + count[o]] = kk[o, :count[o]]
+    return m
+
+
+def _dense_pass(x: np.ndarray, m: np.ndarray, spec: str) -> np.ndarray:
+    acc = np.einsum(spec, m, x, optimize=True) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(np.floor(acc / (1 << _PRECISION_BITS)), 0, 255)
+
+
+def resize_bilinear_batch(images: np.ndarray, size: tuple[int, int]
+                          ) -> np.ndarray:
+    """:func:`resize_bilinear` of every image of a uint8 (N, H, W, C)
+    stack, bit for bit; ``size`` is (width, height)."""
+    if images.dtype != np.uint8:
+        raise ValueError(f"resize_bilinear_batch takes uint8, got "
+                         f"{images.dtype}")
+    w, h = size
+    x = images.astype(np.float64)
+    if x.shape[2] != w:
+        x = _dense_pass(x, _dense_coefficients(x.shape[2], w),
+                        "ow,nhwc->nhoc")
+    if x.shape[1] != h:
+        x = _dense_pass(x, _dense_coefficients(x.shape[1], h),
+                        "oh,nhwc->nowc")
+    return x.astype(np.uint8)

@@ -1,11 +1,14 @@
 """Checkpoints of a training run, newest five kept (the port's counterpart
-of the JAX package's orbax ``io/checkpoint.py:CheckpointManager``).
+of the JAX package's orbax ``io/checkpoint.py:CheckpointManager``), for
+the stage-1 and stage-2 state and AttnGAN's.
 
 Parity target: the reference's save_model with its keep-newest-5 rotation
 (code/multi-mnist/miscc/utils.py:160-174). As in the JAX package the whole
 training state is saved, so a resume continues exactly: G and D with every
 BatchNorm buffer, both Adam states, the step and the epoch, and the state
-of the train step's ``torch.Generator``. The JAX step draws its noise from
+of the train step's ``torch.Generator``; for AttnGAN every D and its Adam,
+and G's EMA (``train/state.py:AttnGanTrainState``). ``extra`` holds what
+else the run needs back, such as the AttnGAN train set's random state. The JAX step draws its noise from
 ``fold_in(rng, step)``, so a resumed JAX run draws what an uninterrupted
 one draws; the port's generator is carried from step to step instead, and
 its state is what makes the resumed run draw the same noise.
@@ -19,12 +22,15 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from multiple_objects_gan_tpu_torch.io.pycompat import torch_load
-from multiple_objects_gan_tpu_torch.train.state import GANTrainState
+from multiple_objects_gan_tpu_torch.train.state import (
+    AttnGanTrainState, GANTrainState)
+
+TrainState = Union[GANTrainState, AttnGanTrainState]
 
 STATE_FILE = "state.pth"
 MAX_TO_KEEP = 5             # the newest checkpoints a run keeps
@@ -47,19 +53,18 @@ class CheckpointManager:
         epochs = self.epochs()
         return epochs[-1] if epochs else None
 
-    def save(self, epoch: int, state: GANTrainState,
-             generator: Optional[torch.Generator] = None) -> str:
+    def save(self, epoch: int, state: TrainState,
+             generator: Optional[torch.Generator] = None,
+             extra: Optional[dict] = None) -> str:
         """Write ``epoch``'s checkpoint, then drop all but the newest
         ``MAX_TO_KEEP``. Returns its path."""
         path = self._path(epoch)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp"
-        torch.save({"epoch": epoch, "step": state.step,
-                    "g": state.g.state_dict(), "d": state.d.state_dict(),
-                    "g_opt": state.g_opt.state_dict(),
-                    "d_opt": state.d_opt.state_dict(),
+        torch.save({"epoch": epoch, **state.checkpoint_dict(),
                     "generator": (None if generator is None
-                                  else generator.get_state())}, tmp)
+                                  else generator.get_state()),
+                    "extra": extra or {}}, tmp)
         os.replace(tmp, path)
         for old in self.epochs()[:-MAX_TO_KEEP]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -74,17 +79,14 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         return torch_load(self._path(epoch)), epoch
 
-    def restore(self, state: GANTrainState,
+    def restore(self, state: TrainState,
                 generator: Optional[torch.Generator] = None,
-                epoch: Optional[int] = None) -> int:
+                epoch: Optional[int] = None) -> tuple[int, dict]:
         """Load ``epoch``'s checkpoint (default the latest) into ``state``
-        and ``generator`` in place, strictly; returns the epoch."""
+        and ``generator`` in place, strictly; returns the epoch and the
+        checkpoint's ``extra``."""
         ckpt, epoch = self.load(epoch)
-        state.g.load_state_dict(ckpt["g"])
-        state.d.load_state_dict(ckpt["d"])
-        state.g_opt.load_state_dict(ckpt["g_opt"])
-        state.d_opt.load_state_dict(ckpt["d_opt"])
-        state.step = int(ckpt["step"])
+        state.load_checkpoint_dict(ckpt)
         if generator is not None and ckpt["generator"] is not None:
             generator.set_state(ckpt["generator"])
-        return epoch
+        return epoch, ckpt.get("extra", {})

@@ -1,11 +1,13 @@
 """Weights for the port's Stage1G/Stage1D, Stage2G/Stage2D and the AttnGAN
-GNet and text encoder: carried across from the JAX package's Flax trees,
-loaded from reference ``.pth`` files, or drawn at random.
+GNet, discriminators and DAMSM encoders: carried across from the JAX
+package's Flax trees, loaded from reference ``.pth`` files, or drawn at
+random.
 
 :func:`stage1_g_state_dict_from_jax`, :func:`stage1_d_state_dict_from_jax`,
 :func:`stage2_g_state_dict_from_jax`, :func:`stage2_d_state_dict_from_jax`,
-:func:`attngan_g_state_dict_from_jax` and
-:func:`text_encoder_state_dict_from_jax` take the JAX modules' params and
+:func:`attngan_g_state_dict_from_jax`, :func:`attngan_d_state_dict_from_jax`,
+:func:`text_encoder_state_dict_from_jax` and
+:func:`image_encoder_state_dict_from_jax` take the JAX modules' params and
 batch_stats as numpy arrays and return state dicts with the reference's
 key names (code/multi-mnist/model.py:113-257, code/coco/stackgan/
 model.py:311-537, code/coco/attngan/model.py:120-204,478-528). Their mapping
@@ -256,6 +258,95 @@ def text_encoder_state_dict_from_jax(variables: Mapping[str, Any]
     return sd
 
 
+def _block3x3(sd: dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """Block3x3LeakReLU {Conv3x3_0: {Conv_0}, TorchBatchNorm_0} ->
+    Sequential [conv3x3, BN, LeakyReLU]."""
+    sd[f"{prefix}.0.weight"] = _conv(p["Conv3x3_0"]["Conv_0"]["kernel"])
+    _bn(sd, f"{prefix}.1", p["TorchBatchNorm_0"], s["TorchBatchNorm_0"])
+
+
+def attngan_d_state_dict_from_jax(params: Mapping[str, Any],
+                                  stats: Mapping[str, Any],
+                                  scale: int) -> dict[str, torch.Tensor]:
+    """JAX ``DNet64`` (``scale`` 64) or ``DNetScale`` (128, 256) (params,
+    batch_stats) -> the port's state dict, D_NET64/128/256's keys
+    (code/coco/attngan/model.py:616-760; JAX
+    ``io/torch_export.py:export_attngan_d``): the heads ``COND_DNET`` and
+    ``UNCOND_DNET``, then ``local``/``conv{i}``/``bn{i}`` (64) or the
+    ``img_code_*`` Sequentials."""
+    sd: dict[str, torch.Tensor] = {}
+    h = params["cond_head"]
+    _block3x3(sd, "COND_DNET.jointConv", h["jointConv"],
+              stats["cond_head"]["jointConv"])
+    sd["COND_DNET.outlogits.0.weight"] = _conv(h["outlogits"]["kernel"])
+    sd["COND_DNET.outlogits.0.bias"] = _t(h["outlogits"]["bias"])
+    u = params["uncond_head"]["outlogits"]
+    sd["UNCOND_DNET.outlogits.0.weight"] = _conv(u["kernel"])
+    sd["UNCOND_DNET.outlogits.0.bias"] = _t(u["bias"])
+    if scale == 64:
+        sd["local.0.weight"] = _conv(params["local_conv"]["kernel"])
+        _bn(sd, "local.1", params["local_bn"], stats["local_bn"])
+        for i in range(1, 5):
+            sd[f"conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
+        for i in (2, 3, 4):
+            _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+        return sd
+    p, s = params["img_code_s16"], stats["img_code_s16"]
+    for j, idx in enumerate((0, 2, 5, 8)):
+        sd[f"img_code_s16.{idx}.weight"] = _conv(p[f"Conv_{j}"]["kernel"])
+    for j, idx in enumerate((3, 6, 9)):
+        _bn(sd, f"img_code_s16.{idx}", p[f"TorchBatchNorm_{j}"],
+            s[f"TorchBatchNorm_{j}"])
+    for name in ("img_code_s32",) + (("img_code_s64",) if scale == 256
+                                     else ()):
+        sd[f"{name}.0.weight"] = _conv(params[name]["Conv_0"]["kernel"])
+        _bn(sd, f"{name}.1", params[name]["TorchBatchNorm_0"],
+            stats[name]["TorchBatchNorm_0"])
+    for name in (("img_code_s32_1",) if scale == 128
+                 else ("img_code_s64_1", "img_code_s64_2")):
+        _block3x3(sd, name, params[name], stats[name])
+    return sd
+
+
+def image_encoder_state_dict_from_jax(variables: Mapping[str, Any]
+                                      ) -> dict[str, torch.Tensor]:
+    """JAX ``CNNEncoder`` variables -> the port's CNNEncoder state dict,
+    torchvision's Inception-v3 keys plus ``emb_features`` (a 1x1 conv) and
+    ``emb_cnn_code`` (JAX ``io/damsm_import.py:import_image_encoder``,
+    inverted; every BatchNorm's ``num_batches_tracked`` 0)."""
+    sd: dict[str, torch.Tensor] = {}
+    params, stats = variables["params"], variables["batch_stats"]
+    sd["emb_features.weight"] = _linear(
+        params["emb_features"]["kernel"])[:, :, None, None]
+    sd["emb_cnn_code.weight"] = _linear(params["emb_cnn_code"]["kernel"])
+    sd["emb_cnn_code.bias"] = _t(params["emb_cnn_code"]["bias"])
+
+    def walk(p: Mapping, s: Mapping, prefix: str) -> None:
+        if "conv" in p and "bn" in p:         # a BasicConv2d
+            sd[f"{prefix}.conv.weight"] = _conv(p["conv"]["kernel"])
+            _bn(sd, f"{prefix}.bn", p["bn"], s["bn"])
+            return
+        for name, child in p.items():
+            walk(child, s[name], f"{prefix}.{name}" if prefix else name)
+
+    walk({k: v for k, v in params.items() if not k.startswith("emb_")},
+         stats, "")
+    return sd
+
+
+def load_image_encoder(path: str) -> dict[str, torch.Tensor]:
+    """A DAMSM ``image_encoder*.pth``: a bare CNN_ENCODER state dict (or a
+    pickled module), for the port's CNNEncoder to load with strict=True."""
+    return load_text_encoder(path)
+
+
+def load_reference_attngan_d(path: str) -> dict[str, torch.Tensor]:
+    """A reference ``netD{i}.pth`` (a bare D_NET64/128/256 state dict, as
+    code/coco/attngan/trainer.py:119-126 reads it, or ``{'netD': ...}``),
+    for :func:`build_attngan_d` to load with strict=True."""
+    return _reference_state_dict(path, "netD")
+
+
 def load_reference_attngan_g(path: str) -> dict[str, torch.Tensor]:
     """The G_NET state dict of a reference-format ``.pth`` (its ``netG``,
     as the reference saves it, code/coco/attngan/trainer.py:497-504, or a
@@ -267,7 +358,8 @@ def load_reference_attngan_g(path: str) -> dict[str, torch.Tensor]:
 def load_text_encoder(path: str) -> dict[str, torch.Tensor]:
     """A DAMSM ``text_encoder*.pth`` (NET_E): a bare RNN_ENCODER state dict
     (or a pickled module), for the port's RNNEncoder to load with
-    strict=True."""
+    strict=True. Also reads an ``image_encoder*.pth``, which has the same
+    form (:func:`load_image_encoder`)."""
     sd = torch_load(path)
     return dict(sd.state_dict() if hasattr(sd, "state_dict") else sd)
 

@@ -1,5 +1,6 @@
-"""The AttnGAN multi-stage generator, 64 -> 128 -> 256px (port of the JAX
-``models/attngan.py``: ``AttnGanConfig``, ``GNet`` and its stages).
+"""The AttnGAN multi-stage generator, 64 -> 128 -> 256px, and its three
+discriminators (port of the JAX ``models/attngan.py``: ``AttnGanConfig``,
+``GNet`` and its stages, ``DNet64``, ``DNetScale``, ``AttnDGetLogits``).
 
 Reference G_NET (code/coco/attngan/model.py:478-528):
 
@@ -21,6 +22,18 @@ Modules and state-dict keys are the reference's, so the reference's
 GF 48), ``gf_dim`` after it. The object pathway's BatchNorms and the label
 embedding's keep the reference's per-object statistics in train mode
 (``ObjectBatchNorm2d``, ``ObjectBatchNorm1d``).
+
+Reference D_NET64 (:646-711): the global path, four conv4x4/s2 (64 ->
+4), with the object pathway (``local``: each object's 16x16 patch of the
+image and its one-hot label, conv4x4/s1/p1 to 15x15, per-object BatchNorm
+and LeakyReLU, placed into its box on a 16x16 canvas by K1 and summed)
+joining at 16x16; D_NET128 and D_NET256 (:715-760): encode_image_by_16times
+and downBlocks to 4x4 and Block3x3_leakRelu back to 8 * ndf, no object
+pathway. Each has the conditional head ``COND_DNET`` (the 4x4 features and
+the sentence embedding tiled to 4x4, Block3x3_leakRelu ``jointConv``, then
+conv4x4/s4 and a sigmoid) and the unconditional ``UNCOND_DNET`` (conv4x4/s4
+and a sigmoid): the heads give probabilities (D_GET_LOGITS, :616-642), and
+the train step takes a plain BCE of them.
 
 ``compute_dtype`` (the JAX package's ``set_compute_dtype``) reaches the
 layers that honour it there: every conv (its ``conv_dt``, ``Conv3x3`` and
@@ -44,10 +57,11 @@ from torch import nn
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.nn.attention import GlobalAttention
 from multiple_objects_gan_tpu_torch.nn.blocks import (
-    GLU, BatchNorm1d, BatchNorm2d, Conv3x3, Linear, ObjectBatchNorm2d,
-    ResBlockGLU, UpBlockGLU)
+    GLU, BatchNorm1d, BatchNorm2d, Block3x3LeakReLU, Conv2d, Conv3x3,
+    DownBlock, EncodeImageBy16Times, Linear, ObjectBatchNorm2d, ResBlockGLU,
+    UpBlockGLU)
 from multiple_objects_gan_tpu_torch.nn.pathways import (
-    CANet, LabelEmbed, LayoutEncoder, object_pathway_g)
+    CANet, LabelEmbed, LayoutEncoder, ObjectPathwayD, object_pathway_g)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,9 +180,12 @@ class GNet(nn.Module):
 
     ``outputs(z (B, z_dim), sent_emb (B, nef), word_embs (B, L, nef), mask
     (B, L) bool (True at padding) or None, bbox (B, O, 4), label_onehot
-    (B, O, 81))`` returns :class:`AttnGanGOutput`; ``forward`` takes the
-    same and returns the last branch's image, in the compute dtype. The
-    condition is c = mu, as the JAX service's ``ca_rng=None``.
+    (B, O, 81), eps (B, condition_dim) or None)`` returns
+    :class:`AttnGanGOutput`; ``forward`` takes the same and returns the
+    last branch's image, in the compute dtype. The condition is c = mu +
+    eps * exp(logvar / 2) (the reference's CA_NET.reparametrize, which the
+    train step draws), or c = mu without ``eps``, as the JAX service's
+    ``ca_rng=None``.
     """
 
     def __init__(self, cfg: AttnGanConfig):
@@ -183,9 +200,9 @@ class GNet(nn.Module):
             setattr(self, f"h_net{i}", NextStageG(cfg))
             setattr(self, f"img_net{i}", GetImageG(cfg.gf_dim, dt))
 
-    def outputs(self, z, sent_emb, word_embs, mask, bbox,
-                label_onehot) -> AttnGanGOutput:
-        c_code, mu, logvar = self.ca_net(sent_emb)
+    def outputs(self, z, sent_emb, word_embs, mask, bbox, label_onehot,
+                eps: Optional[torch.Tensor] = None) -> AttnGanGOutput:
+        c_code, mu, logvar = self.ca_net(sent_emb, eps)
         h = self.h_net1(z, c_code, bbox, label_onehot)
         imgs, att_maps = [self.img_net1(h)], []
         for i in range(2, self.cfg.branch_num + 1):
@@ -196,22 +213,162 @@ class GNet(nn.Module):
             imgs = imgs[-1:]           # the single-head ablation (G_DCGAN)
         return AttnGanGOutput(imgs, att_maps, mu, logvar)
 
-    def forward(self, z, sent_emb, word_embs, mask, bbox,
-                label_onehot) -> torch.Tensor:
+    def forward(self, z, sent_emb, word_embs, mask, bbox, label_onehot,
+                eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.outputs(z, sent_emb, word_embs, mask, bbox,
-                            label_onehot).imgs[-1]
+                            label_onehot, eps).imgs[-1]
 
 
-def attngan_init_(model: nn.Module, seed: int) -> None:
+class AttnDGetLogits(nn.Module):
+    """D_GET_LOGITS (model.py:616-642; JAX ``AttnDGetLogits``): one
+    probability a sample from the (B, 8 * ndf, 4, 4) features. With
+    ``bcondition`` the sentence embedding (B, nef) is tiled to 4x4 and
+    concatenated first, then ``jointConv``. Keys ``jointConv.{0,1}`` and
+    ``outlogits.0``. The sigmoid runs in the compute dtype, as in the JAX
+    package; the loss takes the probabilities in float32."""
+
+    def __init__(self, ndf: int, nef: int, bcondition: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.bcondition = bcondition
+        if bcondition:
+            self.jointConv = Block3x3LeakReLU(ndf * 8 + nef, ndf * 8,
+                                              compute_dtype)
+        self.outlogits = nn.Sequential(
+            Conv2d(ndf * 8, 1, kernel_size=4, stride=4,
+                   compute_dtype=compute_dtype),
+            nn.Sigmoid())
+
+    def forward(self, h_code: torch.Tensor,
+                c_code: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = h_code
+        if self.bcondition and c_code is not None:
+            b, d = c_code.shape
+            c = c_code.to(x.dtype).reshape(b, d, 1, 1).expand(b, d, 4, 4)
+            x = self.jointConv(torch.cat([x, c], dim=1))
+        return self.outlogits(x).reshape(-1)
+
+
+class _AttnD(nn.Module):
+    """The two heads every AttnGAN D has (``COND_DNET``, ``UNCOND_DNET``)
+    and the train step's calls of them."""
+
+    def _heads(self, cfg: AttnGanConfig):
+        dt = cfg.compute_dtype
+        self.COND_DNET = AttnDGetLogits(cfg.df_dim, cfg.embedding_dim, True,
+                                        dt)
+        self.UNCOND_DNET = AttnDGetLogits(cfg.df_dim, cfg.embedding_dim,
+                                          False, dt)
+
+    def cond_logits(self, h_code: torch.Tensor,
+                    c_code: torch.Tensor) -> torch.Tensor:
+        return self.COND_DNET(h_code, c_code)
+
+    def uncond_logits(self, h_code: torch.Tensor) -> torch.Tensor:
+        return self.UNCOND_DNET(h_code)
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.leaky_relu(x, 0.2)
+
+
+class DNet64(_AttnD):
+    """D_NET64 with its object pathway: ``forward(image (B, 3, 64, 64),
+    labels (B, O, 81), bbox (B, O, 4))`` -> (B, 8 * ndf, 4, 4). Keys
+    ``local.{0,1}``, ``conv{1..4}``, ``bn{2,3,4}`` and the heads'."""
+
+    def __init__(self, cfg: AttnGanConfig):
+        super().__init__()
+        ndf, dt = cfg.df_dim, cfg.compute_dtype
+
+        def down(cin, cout):
+            return Conv2d(cin, cout, kernel_size=4, stride=2, padding=1,
+                          bias=False, compute_dtype=dt)
+
+        self.local = ObjectPathwayD(ndf, 3, cfg.label_dim, cfg.num_objects,
+                                    dt)
+        self.conv1 = down(3, ndf)
+        self.conv2 = down(ndf, ndf * 2)
+        self.bn2 = BatchNorm2d(ndf * 2)
+        self.conv3 = down(ndf * 4, ndf * 4)
+        self.bn3 = BatchNorm2d(ndf * 4)
+        self.conv4 = down(ndf * 4, ndf * 8)
+        self.bn4 = BatchNorm2d(ndf * 8)
+        self._heads(cfg)
+
+    def forward(self, image: torch.Tensor, labels: torch.Tensor,
+                bbox: torch.Tensor) -> torch.Tensor:
+        h_local = self.local(image, labels, bbox)             # 16x16, K1
+        h = _lrelu(self.conv1(image))                         # 32x32
+        h = _lrelu(self.bn2(self.conv2(h)))                   # 16x16
+        h = torch.cat([h, h_local], dim=1)
+        h = _lrelu(self.bn3(self.conv3(h)))                   # 8x8
+        return _lrelu(self.bn4(self.conv4(h)))                # 4x4
+
+
+class DNetScale(_AttnD):
+    """D_NET128 (``scale`` 128) or D_NET256 (256), without an object
+    pathway: ``forward(image (B, 3, scale, scale), labels=None,
+    bbox=None)`` -> (B, 8 * ndf, 4, 4). Keys ``img_code_s16``,
+    ``img_code_s32``, then ``img_code_s32_1`` (128) or ``img_code_s64``,
+    ``img_code_s64_1``, ``img_code_s64_2`` (256), and the heads'."""
+
+    def __init__(self, cfg: AttnGanConfig, scale: int = 128):
+        super().__init__()
+        if scale not in (128, 256):
+            raise ValueError(f"DNetScale takes 128 or 256, got {scale}")
+        self.scale = scale
+        ndf, dt = cfg.df_dim, cfg.compute_dtype
+        self.img_code_s16 = EncodeImageBy16Times(ndf, dt)
+        self.img_code_s32 = DownBlock(ndf * 8, ndf * 16, dt)
+        if scale == 128:
+            self.img_code_s32_1 = Block3x3LeakReLU(ndf * 16, ndf * 8, dt)
+        else:
+            self.img_code_s64 = DownBlock(ndf * 16, ndf * 32, dt)
+            self.img_code_s64_1 = Block3x3LeakReLU(ndf * 32, ndf * 16, dt)
+            self.img_code_s64_2 = Block3x3LeakReLU(ndf * 16, ndf * 8, dt)
+        self._heads(cfg)
+
+    def forward(self, image: torch.Tensor, labels=None,
+                bbox=None) -> torch.Tensor:
+        h = self.img_code_s32(self.img_code_s16(image))
+        if self.scale == 128:
+            return self.img_code_s32_1(h)
+        return self.img_code_s64_2(self.img_code_s64_1(self.img_code_s64(h)))
+
+
+D_NAMES = ("d64", "d128", "d256")    # a D a branch, the JAX state's keys
+
+
+def _orthogonal_(weight: torch.Tensor, gen: torch.Generator,
+                 qr_device) -> None:
+    """``nn.init.orthogonal_(weight, 1.0, generator=gen)``, with its QR
+    factorization on ``qr_device``: the normal draw stays on the CPU
+    generator, so the card gets the CPU's matrix up to the
+    QR's rounding, and D256's 3072 x 24576 factorization takes a fraction
+    of a second there instead of seconds on the host."""
+    rows = weight.shape[0]
+    flat = weight.new_empty((rows, weight.numel() // rows)).normal_(
+        0, 1, generator=gen)
+    if rows < flat.shape[1]:
+        flat.t_()
+    q, r = torch.linalg.qr(flat.to(qr_device))
+    q *= torch.diag(r, 0).sign()
+    if rows < weight.numel() // rows:
+        q.t_()
+    weight.view_as(q).copy_(q.to(weight.device))
+
+
+def attngan_init_(model: nn.Module, seed: int, qr_device) -> None:
     """AttnGAN's weights_init (code/coco/attngan/miscc/utils.py:321-331)
-    from ``seed``: conv and linear weights orthogonal (gain 1), linear
-    biases 0, BatchNorm weight N(1, 0.02) and bias 0, running statistics
-    mean 0, var 1."""
+    from ``seed``: conv and linear weights orthogonal (gain 1; the QR on
+    ``qr_device``, :func:`_orthogonal_`), linear biases 0, BatchNorm weight
+    N(1, 0.02) and bias 0, running statistics mean 0, var 1."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.orthogonal_(m.weight, 1.0, generator=gen)
+                _orthogonal_(m.weight, gen, qr_device)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
@@ -223,12 +380,26 @@ def attngan_init_(model: nn.Module, seed: int) -> None:
 def build_attngan_g(cfg: AttnGanConfig = COCO_ATTN, state_dict=None, *,
                     seed: int = 0, device="cuda") -> GNet:
     """An eval-mode GNet on ``device``: ``state_dict`` (reference keys)
-    loaded with strict=True, or :func:`attngan_init_` from ``seed`` when
-    there is none."""
+    loaded with strict=True, or :func:`attngan_init_` from ``seed`` (its
+    QR on ``device``) when there is none."""
     dev = resolve_device(device)
     model = GNet(cfg)
     if state_dict is None:
-        attngan_init_(model, seed)
+        attngan_init_(model, seed, dev)
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(dev).eval()
+
+
+def build_attngan_d(cfg: AttnGanConfig, scale: int, state_dict=None, *,
+                    seed: int = 0, device="cuda") -> nn.Module:
+    """``DNet64`` (``scale`` 64) or ``DNetScale`` on ``device``:
+    ``state_dict`` (the reference's ``netD{i}.pth`` keys) loaded with
+    strict=True, or :func:`attngan_init_` from ``seed``."""
+    dev = resolve_device(device)
+    model = DNet64(cfg) if scale == 64 else DNetScale(cfg, scale)
+    if state_dict is None:
+        attngan_init_(model, seed, dev)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(dev)

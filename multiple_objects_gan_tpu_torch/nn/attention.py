@@ -1,5 +1,6 @@
-"""Word attention of the AttnGAN generator (port of the JAX
-``nn/attention.py:GlobalAttention``).
+"""Word attention of the AttnGAN generator and of the DAMSM word loss
+(port of the JAX ``nn/attention.py``: ``GlobalAttention`` and
+``func_attention``).
 
 Reference: GlobalAttentionGeneral, ATT_NET (code/coco/attngan/
 GlobalAttention.py:72-123): the word embeddings are projected to the
@@ -13,6 +14,10 @@ before the softmax. The reference indexes its mask with
 (GlobalAttention.py:105-107), which misaligns the masks of a batch larger
 than 1 with ragged lengths; the JAX package fixed that, and so does the
 port (PARITY.md, known deviation 3).
+
+:func:`func_attention` is the DAMSM attention (GlobalAttention.py:31-69)
+that ``losses/damsm.py:words_loss`` runs between a caption's words and an
+image's 17x17 regions.
 
 The attention runs in float32 whatever the compute dtype, as the JAX
 package's does (its ``conv_context`` is a plain ``nn.Dense`` and its
@@ -59,3 +64,27 @@ class GlobalAttention(nn.Module):
                             attn.transpose(1, 2))           # (B, idf, HW)
         return (context.reshape(b, idf, h, w),
                 attn.reshape(b, h, w, attn.shape[-1]))
+
+
+def func_attention(query: torch.Tensor, context: torch.Tensor,
+                   gamma1: float, query_mask: Optional[torch.Tensor] = None):
+    """DAMSM attention (GlobalAttention.py:31-69; JAX ``func_attention``).
+
+    ``query`` (B, Lq, D) words, ``context`` (B, D, H, W) image regions,
+    ``query_mask`` (B, Lq) bool, True at a padded word. Returns the
+    region context of every word (B, Lq, D) and the attention (B, H, W,
+    Lq), in float32. A softmax over the words (the padded ones filled
+    with -1e9), then a ``gamma1``-sharpened softmax over the regions. The
+    reference slices each caption to its length instead of masking; a
+    padded word's column is then zero before the second softmax and
+    uniform after it, and ``words_loss`` leaves it out.
+    """
+    b, d, h, w = context.shape
+    src = context.float().reshape(b, d, h * w).transpose(1, 2)  # (B, HW, D)
+    attn = torch.bmm(src, query.float().transpose(1, 2))       # (B, HW, Lq)
+    if query_mask is not None:
+        attn = attn.masked_fill(query_mask[:, None, :], NEG_INF)
+    attn = torch.softmax(attn, dim=-1)
+    attn = torch.softmax(attn * gamma1, dim=1)
+    weighted = torch.bmm(attn.transpose(1, 2), src)            # (B, Lq, D)
+    return weighted, attn.reshape(b, h, w, attn.shape[-1])

@@ -1,6 +1,7 @@
 """Building blocks, NCHW, as the reference defines them: stage 1's
-(code/multi-mnist/model.py:9-22) and AttnGAN's GLU forms
-(code/coco/attngan/model.py:24-81).
+(code/multi-mnist/model.py:9-22), AttnGAN's GLU forms
+(code/coco/attngan/model.py:24-81) and its discriminators' blocks
+(model.py:586-613).
 
 The JAX package's ``TorchBatchNorm`` and ``Dense`` are :class:`BatchNorm1d`,
 :class:`BatchNorm2d` (eps 1e-5, momentum 0.1) and :class:`Linear` here; its
@@ -327,3 +328,53 @@ class ResBlockGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x) + x
+
+
+def _leaky() -> nn.Module:
+    return nn.LeakyReLU(0.2, inplace=True)
+
+
+class Block3x3LeakReLU(nn.Sequential):
+    """AttnGAN's Block3x3_leakRelu: conv3x3 + BN + LeakyReLU 0.2
+    (model.py:586-593; JAX ``Block3x3LeakReLU``). Keys ``.0.weight`` and
+    ``.1.*``."""
+
+    def __init__(self, in_planes: int, out_planes: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(Conv3x3(in_planes, out_planes,
+                                 compute_dtype=compute_dtype),
+                         BatchNorm2d(out_planes), _leaky())
+
+
+def _down_conv(in_planes: int, out_planes: int,
+               compute_dtype: Optional[torch.dtype]) -> Conv2d:
+    """conv4x4, stride 2, pad 1, no bias: half the side."""
+    return Conv2d(in_planes, out_planes, kernel_size=4, stride=2, padding=1,
+                  bias=False, compute_dtype=compute_dtype)
+
+
+class DownBlock(nn.Sequential):
+    """AttnGAN's downBlock: conv4x4/s2 + BN + LeakyReLU 0.2
+    (model.py:596-603; JAX ``DownBlock``). Keys ``.0.weight`` and
+    ``.1.*``."""
+
+    def __init__(self, in_planes: int, out_planes: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(_down_conv(in_planes, out_planes, compute_dtype),
+                         BatchNorm2d(out_planes), _leaky())
+
+
+class EncodeImageBy16Times(nn.Sequential):
+    """AttnGAN's encode_image_by_16times: four conv4x4/s2 with LeakyReLU
+    0.2, the last three with BN, 3 -> 8 * ndf channels (model.py:606-613;
+    JAX ``EncodeImageBy16Times``). Keys ``.{0,2,5,8}.weight`` (the convs)
+    and ``.{3,6,9}.*`` (the BNs)."""
+
+    def __init__(self, ndf: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        dt = compute_dtype
+        layers = [_down_conv(3, ndf, dt), _leaky()]
+        for mult in (1, 2, 4):
+            layers += [_down_conv(ndf * mult, ndf * mult * 2, dt),
+                       BatchNorm2d(ndf * mult * 2), _leaky()]
+        super().__init__(*layers)

@@ -1,5 +1,5 @@
-"""The DAMSM text encoder of AttnGAN (port of the JAX
-``nn/encoders.py:RNNEncoder``).
+"""The DAMSM text and image encoders of AttnGAN (port of the JAX
+``nn/encoders.py``: ``RNNEncoder`` and ``CNNEncoder``).
 
 Reference RNN_ENCODER (code/coco/attngan/model.py:120-204): a word
 embedding of ``ninput`` (300) and a one-layer bidirectional LSTM with
@@ -17,17 +17,36 @@ reference's (``encoder.weight``, ``rnn.{weight,bias}_{ih,hh}_l0`` and
 ``..._reverse``), so a DAMSM ``text_encoder*.pth`` loads with strict=True.
 The encoder runs in float32 whatever the generator's compute dtype, as in
 the JAX package.
+
+Reference CNN_ENCODER (code/coco/attngan/model.py:207-313): the
+Inception-v3 backbone up to ``Mixed_7c``, written out here (the card's
+machine has no torchvision) with torchvision's module names
+(``Conv2d_1a_3x3.conv.weight``, ``Mixed_5b.branch1x1.bn.running_var``, ...),
+which are the keys of a DAMSM ``image_encoder*.pth``; ``emb_features``, a
+1x1 conv of ``Mixed_6e``'s 17x17 map to ``nef`` channels, gives the
+regions, and ``emb_cnn_code``, a linear map of the pooled 2048 features,
+the image code. Each ``BasicConv2d`` is conv (no bias) + BatchNorm (eps
+1e-3) + ReLU. The input is resized to 299x299 bilinearly with half-pixel
+centres, as ``jax.image.resize`` does from 64 and from 256 (both
+upsamples, so no antialiasing; tests/test_torch_port_attngan_d.py holds
+``F.interpolate(align_corners=False)`` to it). The backbone's convs compute
+in ``compute_dtype``, as the JAX ``BasicConv2d`` follows the global one
+(nn/encoders.py:176-186 of the JAX package); the two embeddings and the
+outputs are float32.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from multiple_objects_gan_tpu_torch import resolve_device
+from multiple_objects_gan_tpu_torch.nn.blocks import BatchNorm2d, Conv2d
 
 
 class RNNEncoder(nn.Module):
@@ -84,3 +103,226 @@ def build_text_encoder(ntoken: int, nhidden: int = 256, state_dict=None, *,
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.to(dev).eval()
+
+
+# ------------------------------------------------------------ image encoder
+
+
+class BasicConv2d(nn.Module):
+    """torchvision's BasicConv2d: conv without bias, BatchNorm (eps 1e-3),
+    ReLU; keys ``conv.weight`` and ``bn.*``."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
+                 padding=0, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                           bias=False, compute_dtype=compute_dtype)
+        self.bn = BatchNorm2d(cout, eps=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x)))
+
+
+def _avg_pool3(x: torch.Tensor) -> torch.Tensor:
+    return F.avg_pool2d(x, 3, stride=1, padding=1)
+
+
+def _max_pool3_s2(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 3, stride=2)
+
+
+class InceptionA(nn.Module):
+    def __init__(self, cin: int, pool_features: int, dt=None):
+        super().__init__()
+        self.branch1x1 = BasicConv2d(cin, 64, 1, compute_dtype=dt)
+        self.branch5x5_1 = BasicConv2d(cin, 48, 1, compute_dtype=dt)
+        self.branch5x5_2 = BasicConv2d(48, 64, 5, padding=2,
+                                       compute_dtype=dt)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1, compute_dtype=dt)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1,
+                                          compute_dtype=dt)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, padding=1,
+                                          compute_dtype=dt)
+        self.branch_pool = BasicConv2d(cin, pool_features, 1,
+                                       compute_dtype=dt)
+
+    def forward(self, x):
+        b5 = self.branch5x5_2(self.branch5x5_1(x))
+        b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch1x1(x), b5, b3,
+                          self.branch_pool(_avg_pool3(x))], dim=1)
+
+
+class InceptionB(nn.Module):
+    def __init__(self, cin: int, dt=None):
+        super().__init__()
+        self.branch3x3 = BasicConv2d(cin, 384, 3, stride=2, compute_dtype=dt)
+        self.branch3x3dbl_1 = BasicConv2d(cin, 64, 1, compute_dtype=dt)
+        self.branch3x3dbl_2 = BasicConv2d(64, 96, 3, padding=1,
+                                          compute_dtype=dt)
+        self.branch3x3dbl_3 = BasicConv2d(96, 96, 3, stride=2,
+                                          compute_dtype=dt)
+
+    def forward(self, x):
+        bd = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
+        return torch.cat([self.branch3x3(x), bd, _max_pool3_s2(x)], dim=1)
+
+
+class InceptionC(nn.Module):
+    def __init__(self, cin: int, c7: int, dt=None):
+        super().__init__()
+        conv = BasicConv2d
+        self.branch1x1 = conv(cin, 192, 1, compute_dtype=dt)
+        self.branch7x7_1 = conv(cin, c7, 1, compute_dtype=dt)
+        self.branch7x7_2 = conv(c7, c7, (1, 7), padding=(0, 3),
+                                compute_dtype=dt)
+        self.branch7x7_3 = conv(c7, 192, (7, 1), padding=(3, 0),
+                                compute_dtype=dt)
+        self.branch7x7dbl_1 = conv(cin, c7, 1, compute_dtype=dt)
+        self.branch7x7dbl_2 = conv(c7, c7, (7, 1), padding=(3, 0),
+                                   compute_dtype=dt)
+        self.branch7x7dbl_3 = conv(c7, c7, (1, 7), padding=(0, 3),
+                                   compute_dtype=dt)
+        self.branch7x7dbl_4 = conv(c7, c7, (7, 1), padding=(3, 0),
+                                   compute_dtype=dt)
+        self.branch7x7dbl_5 = conv(c7, 192, (1, 7), padding=(0, 3),
+                                   compute_dtype=dt)
+        self.branch_pool = conv(cin, 192, 1, compute_dtype=dt)
+
+    def forward(self, x):
+        b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x)))
+        bd = self.branch7x7dbl_1(x)
+        for i in range(2, 6):
+            bd = getattr(self, f"branch7x7dbl_{i}")(bd)
+        return torch.cat([self.branch1x1(x), b7, bd,
+                          self.branch_pool(_avg_pool3(x))], dim=1)
+
+
+class InceptionD(nn.Module):
+    def __init__(self, cin: int, dt=None):
+        super().__init__()
+        conv = BasicConv2d
+        self.branch3x3_1 = conv(cin, 192, 1, compute_dtype=dt)
+        self.branch3x3_2 = conv(192, 320, 3, stride=2, compute_dtype=dt)
+        self.branch7x7x3_1 = conv(cin, 192, 1, compute_dtype=dt)
+        self.branch7x7x3_2 = conv(192, 192, (1, 7), padding=(0, 3),
+                                  compute_dtype=dt)
+        self.branch7x7x3_3 = conv(192, 192, (7, 1), padding=(3, 0),
+                                  compute_dtype=dt)
+        self.branch7x7x3_4 = conv(192, 192, 3, stride=2, compute_dtype=dt)
+
+    def forward(self, x):
+        b3 = self.branch3x3_2(self.branch3x3_1(x))
+        b7 = self.branch7x7x3_1(x)
+        for i in range(2, 5):
+            b7 = getattr(self, f"branch7x7x3_{i}")(b7)
+        return torch.cat([b3, b7, _max_pool3_s2(x)], dim=1)
+
+
+class InceptionE(nn.Module):
+    def __init__(self, cin: int, dt=None):
+        super().__init__()
+        conv = BasicConv2d
+        self.branch1x1 = conv(cin, 320, 1, compute_dtype=dt)
+        self.branch3x3_1 = conv(cin, 384, 1, compute_dtype=dt)
+        self.branch3x3_2a = conv(384, 384, (1, 3), padding=(0, 1),
+                                 compute_dtype=dt)
+        self.branch3x3_2b = conv(384, 384, (3, 1), padding=(1, 0),
+                                 compute_dtype=dt)
+        self.branch3x3dbl_1 = conv(cin, 448, 1, compute_dtype=dt)
+        self.branch3x3dbl_2 = conv(448, 384, 3, padding=1, compute_dtype=dt)
+        self.branch3x3dbl_3a = conv(384, 384, (1, 3), padding=(0, 1),
+                                    compute_dtype=dt)
+        self.branch3x3dbl_3b = conv(384, 384, (3, 1), padding=(1, 0),
+                                    compute_dtype=dt)
+        self.branch_pool = conv(cin, 192, 1, compute_dtype=dt)
+
+    def forward(self, x):
+        b3 = self.branch3x3_1(x)
+        b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], dim=1)
+        bd = self.branch3x3dbl_2(self.branch3x3dbl_1(x))
+        bd = torch.cat([self.branch3x3dbl_3a(bd), self.branch3x3dbl_3b(bd)],
+                       dim=1)
+        return torch.cat([self.branch1x1(x), b3, bd,
+                          self.branch_pool(_avg_pool3(x))], dim=1)
+
+
+class CNNEncoder(nn.Module):
+    """CNN_ENCODER, the DAMSM image encoder.
+
+    ``forward(x (B, 3, H, W) in [-1, 1])`` returns (regions (B, nef, 17,
+    17), image code (B, nef)), both float32.
+    """
+
+    def __init__(self, nef: int = 256,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dt = compute_dtype
+        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2, compute_dtype=dt)
+        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3, compute_dtype=dt)
+        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1,
+                                         compute_dtype=dt)
+        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1, compute_dtype=dt)
+        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3, compute_dtype=dt)
+        self.Mixed_5b = InceptionA(192, 32, dt)
+        self.Mixed_5c = InceptionA(256, 64, dt)
+        self.Mixed_5d = InceptionA(288, 64, dt)
+        self.Mixed_6a = InceptionB(288, dt)
+        self.Mixed_6b = InceptionC(768, 128, dt)
+        self.Mixed_6c = InceptionC(768, 160, dt)
+        self.Mixed_6d = InceptionC(768, 160, dt)
+        self.Mixed_6e = InceptionC(768, 192, dt)
+        self.Mixed_7a = InceptionD(768, dt)
+        self.Mixed_7b = InceptionE(1280, dt)
+        self.Mixed_7c = InceptionE(2048, dt)
+        self.emb_features = nn.Conv2d(768, nef, 1, bias=False)
+        self.emb_cnn_code = nn.Linear(2048, nef)
+
+    def forward(self, x: torch.Tensor):
+        x = F.interpolate(x, size=(299, 299), mode="bilinear",
+                          align_corners=False)
+        x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
+        x = self.Conv2d_4a_3x3(self.Conv2d_3b_1x1(_max_pool3_s2(x)))
+        x = _max_pool3_s2(x)
+        for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
+                     "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"):
+            x = getattr(self, name)(x)
+        features = x                                      # (B, 768, 17, 17)
+        x = self.Mixed_7c(self.Mixed_7b(self.Mixed_7a(x)))
+        code = F.avg_pool2d(x, 8).flatten(1).float()      # (B, 2048)
+        return self.emb_features(features.float()), self.emb_cnn_code(code)
+
+
+def image_encoder_init_(model: CNNEncoder, seed: int) -> None:
+    """Random weights from ``seed`` where no DAMSM file is given: convs
+    N(0, 2 / fan_in), BatchNorm weight 1, bias 0 and running statistics
+    mean 0, var 1, and the two embeddings uniform in [-0.1, 0.1], the
+    reference's init_trainable_weights (model.py:237-240)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name in ("emb_features", "emb_cnn_code"):
+                m.weight.uniform_(-0.1, 0.1, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Conv2d):
+                m.weight.normal_(0.0, math.sqrt(2.0 / m.weight[0].numel()),
+                                 generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
+def build_image_encoder(nef: int = 256, state_dict=None, *, seed: int = 0,
+                        compute_dtype: Optional[torch.dtype] = None,
+                        device="cuda") -> CNNEncoder:
+    """An eval-mode CNNEncoder on ``device`` without gradients for its
+    parameters: ``state_dict`` (a DAMSM ``image_encoder*.pth``'s keys)
+    loaded with strict=True, or :func:`image_encoder_init_` from ``seed``
+    when there is none."""
+    dev = resolve_device(device)
+    model = CNNEncoder(nef, compute_dtype)
+    if state_dict is None:
+        image_encoder_init_(model, seed)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(dev).eval().requires_grad_(False)

@@ -68,12 +68,16 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
                lr_decay_epochs: int = 0, snapshot_every: int = 0,
                ckpt: Optional[CheckpointManager] = None,
                writer: Optional[MetricWriter] = None,
-               epoch_end_fn: Optional[Callable] = None) -> list[dict]:
+               epoch_end_fn: Optional[Callable] = None,
+               step_hook: Optional[Callable] = None,
+               checkpoint_extra: Optional[Callable] = None) -> list[dict]:
     """Train epochs ``start_epoch`` .. ``n_epochs - 1`` over
     ``loader.epoch(epoch)``. ``step_fn(state, batch, generator, lr_g,
-    lr_d) -> metrics`` updates ``state`` in place; ``epoch_end_fn(state,
-    last_batch, epoch)`` runs after each epoch. Returns one dict of mean
-    losses (floats) per epoch, with its step count and wall time."""
+    lr_d) -> metrics`` updates ``state`` in place; ``step_hook(state,
+    batch, step)`` runs after every step, with the global step it took; ``epoch_end_fn(state, last_batch, epoch)`` runs after each
+    epoch; ``checkpoint_extra()`` gives a checkpoint's ``extra``. Returns
+    one dict of mean losses (floats) per epoch, with its step count and
+    wall time."""
     if len(loader) == 0:
         raise ValueError(f"the loader makes no batch of {loader.bs}: no "
                          "training would run")
@@ -91,6 +95,8 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
             if writer is not None and i % LOG_EVERY == 0:
                 writer.scalars(step, {k: float(v)
                                       for k, v in metrics.items()})
+            if step_hook is not None:
+                step_hook(state, batch, step)
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
             last_batch, n_steps = batch, n_steps + 1
@@ -106,7 +112,9 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
             epoch_end_fn(state, last_batch, epoch)
         if ckpt is not None and snapshot_every and (
                 (epoch + 1) % snapshot_every == 0 or epoch == n_epochs - 1):
-            ckpt.save(epoch, state, generator)
+            ckpt.save(epoch, state, generator,
+                      None if checkpoint_extra is None
+                      else checkpoint_extra())
     return history
 
 
@@ -141,7 +149,7 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
     if resume_dir:
         prev = CheckpointManager(os.path.join(resume_dir, "models"))
         if prev.latest_epoch() is not None:
-            start_epoch = prev.restore(state, generator) + 1
+            start_epoch = prev.restore(state, generator)[0] + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
     n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)

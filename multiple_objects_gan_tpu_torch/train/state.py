@@ -1,5 +1,5 @@
-"""Training state of the GAN, either stage (port of the JAX
-``train/state.py``).
+"""Training state of the GAN, either stage and AttnGAN (port of the JAX
+``train/state.py`` and ``train/attngan_step.py:create_attngan_state``).
 
 The JAX package keeps one immutable pytree; here the state is the two
 modules, their two Adams and the step counter. The optimizers update the
@@ -7,6 +7,14 @@ modules' parameters in place, and the BatchNorm running statistics live in
 the modules' buffers, as in the reference. Stage 2's state holds the
 stage-2 G and D only: the frozen stage-1 G stays outside it, as in the JAX
 package (``train/step.py:303-336``), so a checkpoint holds stage 2 alone.
+
+AttnGAN's state (:class:`AttnGanTrainState`) holds G, one D a branch
+(``d64``, ``d128``, ``d256``), G's Adam and one Adam a D (the reference's
+per-D optimizers, code/coco/attngan/trainer.py:137-159), and the EMA of
+G's parameters (trainer.py:341-342); the frozen DAMSM encoders stay
+outside it. Each state gives its checkpoint contents
+(:meth:`checkpoint_dict`) and takes them back
+(:meth:`load_checkpoint_dict`).
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Iterable, Optional, Union
 
 import torch
 
+from multiple_objects_gan_tpu_torch.models.attngan import (
+    D_NAMES, AttnGanConfig, GNet, build_attngan_d, build_attngan_g)
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import (
     Stage1D, Stage1G, build_stage1_d, build_stage1_g)
@@ -30,6 +40,53 @@ class GANTrainState:
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
     step: int = 0
+
+    def checkpoint_dict(self) -> dict:
+        return {"step": self.step, "g": self.g.state_dict(),
+                "d": self.d.state_dict(), "g_opt": self.g_opt.state_dict(),
+                "d_opt": self.d_opt.state_dict()}
+
+    def load_checkpoint_dict(self, ckpt: dict) -> None:
+        """Strict, in place."""
+        self.g.load_state_dict(ckpt["g"])
+        self.d.load_state_dict(ckpt["d"])
+        self.g_opt.load_state_dict(ckpt["g_opt"])
+        self.d_opt.load_state_dict(ckpt["d_opt"])
+        self.step = int(ckpt["step"])
+
+
+@dataclasses.dataclass
+class AttnGanTrainState:
+    g: GNet
+    ds: dict                         # name ("d64", ...) -> D
+    g_opt: torch.optim.Adam
+    d_opts: dict                     # name -> that D's Adam
+    g_ema: dict                      # G's parameter name -> its EMA
+    step: int = 0
+
+    def checkpoint_dict(self) -> dict:
+        return {"step": self.step, "g": self.g.state_dict(),
+                "d": {n: d.state_dict() for n, d in self.ds.items()},
+                "g_opt": self.g_opt.state_dict(),
+                "d_opt": {n: o.state_dict() for n, o in self.d_opts.items()},
+                "g_ema": dict(self.g_ema)}
+
+    def load_checkpoint_dict(self, ckpt: dict) -> None:
+        """Strict, in place; the EMA tensors are copied into place."""
+        self.g.load_state_dict(ckpt["g"])
+        if sorted(ckpt["d"]) != sorted(self.ds):
+            raise KeyError(f"checkpoint Ds {sorted(ckpt['d'])}, state Ds "
+                           f"{sorted(self.ds)}")
+        for n, d in self.ds.items():
+            d.load_state_dict(ckpt["d"][n])
+            self.d_opts[n].load_state_dict(ckpt["d_opt"][n])
+        self.g_opt.load_state_dict(ckpt["g_opt"])
+        if sorted(ckpt["g_ema"]) != sorted(self.g_ema):
+            raise KeyError("checkpoint EMA keys differ from G's parameters")
+        with torch.no_grad():
+            for k, v in self.g_ema.items():
+                v.copy_(ckpt["g_ema"][k])
+        self.step = int(ckpt["step"])
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
@@ -70,3 +127,24 @@ def create_state_stage2(cfg: Stage1Config, *, seed: int = 0,
     fresh Adams and step 0 (JAX ``create_state_stage2``)."""
     return _with_adams(build_stage2_g(cfg, seed=seed, device=device),
                        build_stage2_d(cfg, seed=seed + 1, device=device))
+
+
+def ema_of(g: torch.nn.Module) -> dict:
+    """A copy of every parameter of ``g``, the EMA's start."""
+    return {k: p.detach().clone() for k, p in g.named_parameters()}
+
+
+def create_attngan_state(cfg: AttnGanConfig, *, seed: int = 0,
+                         device="cuda") -> AttnGanTrainState:
+    """G (from ``seed``) and a D a branch (``d64`` from ``seed + 1``,
+    ``d128`` from ``seed + 2``, ``d256`` from ``seed + 3``) on ``device``
+    in train mode, from AttnGAN's orthogonal init, with fresh Adams, step 0
+    and the EMA equal to G's parameters (JAX ``create_attngan_state``)."""
+    g = build_attngan_g(cfg, seed=seed, device=device).train()
+    ds = {name: build_attngan_d(cfg, 64 * 2 ** i, seed=seed + 1 + i,
+                                device=device).train()
+          for i, name in enumerate(D_NAMES[:cfg.branch_num])}
+    return AttnGanTrainState(
+        g=g, ds=ds, g_opt=make_optimizer(g.parameters()),
+        d_opts={n: make_optimizer(d.parameters()) for n, d in ds.items()},
+        g_ema=ema_of(g))

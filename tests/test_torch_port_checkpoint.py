@@ -111,7 +111,7 @@ def test_checkpoint_round_trip_gives_back_every_tensor(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "models"))
     mgr.save(3, state, gen)
     back, gen2 = _stepped_state(1)
-    assert mgr.restore(back, gen2) == 3
+    assert mgr.restore(back, gen2)[0] == 3
     _assert_states_equal(state, back)
     assert any(k.endswith("exp_avg_sq") for k in _tensors(back))
     assert any("running_var" in k for k in _tensors(back))
@@ -153,7 +153,7 @@ def test_a_save_cut_before_its_rename_leaves_the_latest_intact(
     assert os.path.isfile(tmp_path / "2" / "state.pth.tmp")
     assert mgr.latest_epoch() == 1
     back, gen2 = _stepped_state(1)
-    assert mgr.restore(back, gen2) == 1
+    assert mgr.restore(back, gen2)[0] == 1
     for k, v in _tensors(back).items():
         assert torch.equal(v, saved[k]), k
     with pytest.raises(FileNotFoundError):
