@@ -11,10 +11,12 @@ weights, 21-24 the host side of stage 1: data on disk, checkpoints
 and resume, and sampling, and 25-29 COCO StackGAN stage 2 at the widths
 of cfg/coco_s2_train.yml, from seeded weights, 30-32 serve the trained
 COCO AttnGAN (runs_r5/attngan_flagship: netG_ema_final.pth and
-damsm/DAMSMencoders/text_encoder29.pth), and 33-36 train it at the widths
+damsm/DAMSMencoders/text_encoder29.pth), 33-36 train it at the widths
 of cfg/coco_attn_train.yml from the flagship's EMA G, its DAMSM encoders
-(image_encoder29.pth too) and seeded Ds. The train entries' data and runs
-go to a temporary directory, removed at the end. Phases, each logged with the
+(image_encoder29.pth too) and seeded Ds, 37-39 pretrain the DAMSM
+encoders at cfg/coco_damsm.yml's widths, and 40 runs AttnGAN's eval modes
+sample and gen_example from the flagship files. The train entries' data
+and runs go to a temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
@@ -190,7 +192,35 @@ elapsed time:
                 montages, grids, run_flags.json provenance and
                 checkpoints; a resume from its epoch-1 checkpoint to epoch
                 3 held against it (the resumed epoch's first step, then
-                the parameters); one epoch with --bf16; K1/K2 launches.
+                the parameters); one epoch with --bf16; K1/K2 launches;
+ 37. damsmstep - one DAMSM step (text_encoder29.pth, image_encoder29.pth,
+                batch 4 of the flagship set's test split, 256px, an
+                injected dropout mask) on the card against the same step
+                on the CPU from warm Adams, with the clip of 0.25 biting
+                and a clip of 1e6 that does not: losses and the norm
+                before the clip, per-tensor update cosines, the frozen
+                backbone bit-identical;
+ 38. damsmtime - the DAMSM step at batch 48, float32 and bf16: median of
+                CUDA events, images/s, peak memory, GFLOP a step
+                (torch.utils.flop_counter) and the device's busy share and
+                kernel groups (torch.profiler);
+ 39. damsmentry - cli/main.py --variant damsm --cfg cfg/coco_damsm.yml
+                --synthetic on a set of 192 items (a test split of 48, so
+                the eval runs): 3 epochs with their .pth pairs, eval
+                records and checkpoints; a resume from the epoch-1
+                checkpoint held against it; one epoch with --bf16; no K1
+                or K2 launch; the exported pair loaded as AttnGAN's NET_E
+                through cli/attngan_runner.py:init_encoders and one
+                full-width AttnGAN train step from it;
+ 40. attneval - cli/main.py --variant coco-attngan with TRAIN.FLAG False
+                from a copy of coco_attn_sampling.yml naming the flagship
+                files: sample (25 rows of 10 tiles, one K1 launch a row)
+                and --eval_mode gen_example (8 captions, one K1 launch);
+                the first row again card against CPU at its z and against
+                the entry's PNG; K1 at the sampler's (9,3,192,16²) with the
+                third object padded and gen_example's (8,3,192,16²) held
+                against its plain version, timed cold in turns and on the
+                device alone beside the bound.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -220,17 +250,20 @@ import zlib
 import numpy as np
 import torch
 
+from multiple_objects_gan_tpu_torch.cli import attngan_runner
 from multiple_objects_gan_tpu_torch.cli import main as train_main
-from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
+from multiple_objects_gan_tpu_torch.cli.sample import (
+    _draw_white_bbox_edges, sample_noise, sample_stage1)
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, Stage2Service, _item_boxes_s2, _item_layout, _png_b64,
     attngan_images, build_service, parse_args as serve_parse_args, serve)
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
-    attngan_model_config, cfg_from_file, stage1_model_config,
-    stage2_model_config, train_settings)
+    attngan_model_config, attngan_train_settings, cfg_from_file,
+    stage1_model_config, stage2_model_config, train_settings)
 from multiple_objects_gan_tpu_torch.data.attngan import (
-    AttnGanDataset, write_synthetic_attngan)
+    AttnGanDataset, AttnGanTrainSet, synthetic_train_images,
+    write_synthetic_attngan)
 from multiple_objects_gan_tpu_torch.data.datasets import (
     ClevrDataset, MemoryLoader, MultiMnistDataset, write_synthetic_clevr,
     write_synthetic_multimnist)
@@ -258,13 +291,15 @@ from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
+from multiple_objects_gan_tpu_torch.train.damsm_step import (
+    make_damsm_train_step)
 from multiple_objects_gan_tpu_torch.train.state import (
-    AttnGanTrainState, create_state, create_state_stage2, ema_of,
-    make_optimizer)
+    AttnGanTrainState, create_damsm_state, create_state, create_state_stage2,
+    ema_of, make_optimizer)
 from multiple_objects_gan_tpu_torch.train.step import (
     frozen_forward, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
-    PNG_SIGNATURE, png_chunk, to_uint8)
+    PNG_SIGNATURE, make_grid, png_chunk, to_uint8)
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -439,7 +474,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/36 device")
+    log("phase 1/40 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -457,7 +492,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/36 build")
+    log("phase 2/40 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -502,7 +537,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/36 kernel against its plain version, on the card")
+    log("phase 3/40 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -637,7 +672,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/36 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/40 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -720,7 +755,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/36 serve: the port's main path over HTTP, on the card")
+    log("phase 5/40 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -867,7 +902,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/36 grad: K2 (place backward) against its plain version, "
+    log("phase 6/40 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -974,7 +1009,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/36 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/40 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1130,7 +1165,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/36 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/40 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1164,7 +1199,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/36 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/40 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1244,7 +1279,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/36 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/40 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1343,7 +1378,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/36 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/40 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1378,7 +1413,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/36 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/40 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1440,7 +1475,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/36 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/40 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1484,7 +1519,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/36 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/40 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1608,7 +1643,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/36 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/40 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1683,7 +1718,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/36 fstep: one full-width float32 train step of each "
+    log(f"phase 17/40 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1722,7 +1757,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/36 ftime: each family's train step at batch "
+    log("phase 18/40 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1730,13 +1765,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/36 ftime, {key}",
+                                       f"18/40 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/36 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/40 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1773,7 +1808,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/36 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/40 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1925,7 +1960,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/36 probe: the image decoders this machine has, read only "
+    log("phase 21/40 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2179,7 +2214,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/36 disk: the train entries from disk (cli/main.py "
+    log("phase 22/40 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2359,7 +2394,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/36 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/40 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2402,7 +2437,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/36 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/40 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2581,7 +2616,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/36 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/40 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2599,11 +2634,16 @@ def warm_adam(state):
     d_opts = (list(state.d_opts.values()) if hasattr(state, "d_opts")
               else [state.d_opt])
     for opt in (state.g_opt, *d_opts):
-        for group in opt.param_groups:
-            for p in group["params"]:
-                opt.state[p] = {"step": torch.tensor(float(ADAM_WARM_COUNT)),
-                                "exp_avg": torch.zeros_like(p),
-                                "exp_avg_sq": torch.ones_like(p)}
+        warm_opt(opt)
+
+
+def warm_opt(opt: torch.optim.Adam) -> None:
+    """One Adam at :func:`warm_adam`'s state."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            opt.state[p] = {"step": torch.tensor(float(ADAM_WARM_COUNT)),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.ones_like(p)}
 
 
 def he_randomize(module: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -2689,7 +2729,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/36 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/40 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2734,7 +2774,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/36 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/40 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2807,7 +2847,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/36 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/40 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2878,7 +2918,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/36 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/40 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3041,7 +3081,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/36 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/40 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3131,7 +3171,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/36 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/40 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3240,7 +3280,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/36 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/40 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3385,7 +3425,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/36 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/40 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3418,18 +3458,22 @@ def _attn_train_batch(ds, b, seed):
     return batch
 
 
-def _attn_nets(device, mcfg, g_sd, d_sds, vocab, e_sd, i_sd):
+def _attn_state(device, mcfg, g_sd, d_sds):
     """An AttnGAN train state on ``device`` holding ``g_sd`` and
-    ``d_sds``, with fresh Adams and the EMA at G's parameters, and the
-    frozen text and image encoders."""
+    ``d_sds``, with fresh Adams and the EMA at G's parameters."""
     g = build_attngan_g(mcfg, g_sd, device=device).train()
     ds = {n: build_attngan_d(mcfg, 64 * 2 ** i, d_sds[n],
                              device=device).train()
           for i, n in enumerate(d_sds)}
-    state = AttnGanTrainState(
+    return AttnGanTrainState(
         g=g, ds=ds, g_opt=make_optimizer(g.parameters()),
         d_opts={n: make_optimizer(d.parameters()) for n, d in ds.items()},
         g_ema=ema_of(g))
+
+
+def _attn_nets(device, mcfg, g_sd, d_sds, vocab, e_sd, i_sd):
+    """:func:`_attn_state`, and the frozen text and image encoders."""
+    state = _attn_state(device, mcfg, g_sd, d_sds)
     text = build_text_encoder(vocab, mcfg.embedding_dim, e_sd,
                               device=device)
     image = build_image_encoder(mcfg.embedding_dim, i_sd,
@@ -3486,7 +3530,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/36 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/40 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3556,7 +3600,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/36 attntime: the AttnGAN step at batch "
+    log(f"phase 35/40 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3663,9 +3707,25 @@ def _attn_gap(run, ref, epoch, steps):
     b = CheckpointManager(os.path.join(ref, "models")).load(epoch)[0]
     first = a["step"] - steps
     la, lb = _logged(run, first), _logged(ref, first)
-    cos, dist, norm = {}, 0.0, 0.0
     pairs = [("g", a["g"], b["g"]), ("g_ema", a["g_ema"], b["g_ema"])]
     pairs += [(n, a["d"][n], b["d"][n]) for n in b["d"]]
+    cos, worst, rel_dist = _tensor_gap(pairs)
+    return {"first_step": max(abs(la[k] - lb[k]) for k in lb),
+            "first_step_rel": max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12)
+                                  for k in lb),
+            "first_step_held": all(
+                abs(la[k] - lb[k]) <= RESUME_FIRST_STEP_ATOL
+                + ATTN_LOSS_RTOL * abs(lb[k]) for k in lb),
+            "min_cosine": cos, "worst_tensor": worst,
+            "rel_dist": rel_dist, "steps": (a["step"], b["step"])}
+
+
+def _tensor_gap(pairs):
+    """Two runs' state dicts as ``(net, run's, reference's)`` pairs: the lowest
+    per-tensor cosine of their floating tensors other than BatchNorm's
+    running statistics, its tensor, and their distance over the second's
+    norm."""
+    cos, dist, norm = {}, 0.0, 0.0
     for net, sa, sb in pairs:
         for k, v in sa.items():
             if not v.is_floating_point() or "running_" in k:
@@ -3674,18 +3734,11 @@ def _attn_gap(run, ref, epoch, steps):
             dist += float((v.double() - sb[k].double()).square().sum())
             norm += float(sb[k].double().square().sum())
     worst = min(cos, key=cos.get)
-    return {"first_step": max(abs(la[k] - lb[k]) for k in lb),
-            "first_step_rel": max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12)
-                                  for k in lb),
-            "first_step_held": all(
-                abs(la[k] - lb[k]) <= RESUME_FIRST_STEP_ATOL
-                + ATTN_LOSS_RTOL * abs(lb[k]) for k in lb),
-            "min_cosine": cos[worst], "worst_tensor": worst,
-            "rel_dist": (dist / norm) ** 0.5, "steps": (a["step"], b["step"])}
+    return cos[worst], worst, (dist / norm) ** 0.5
 
 
 def phase_attn_entry():
-    log("phase 36/36 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/40 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3771,6 +3824,432 @@ def phase_attn_entry():
                       "bf16_epoch_s": hist_b[0]["seconds"]}
 
 
+# ------------------------------------------ DAMSM pretraining, eval modes
+
+
+DAMSM_CFG = os.path.join(ROOT, "cfg", "coco_damsm.yml")
+DAMSM_BATCH = 48            # cfg/coco_damsm.yml TRAIN.BATCH_SIZE
+DAMSM_CHECK_BATCH = 4       # the DAMSM step card vs CPU (phase 37)
+DAMSM_TIME_RUNS = 20        # CUDA-event readings a DAMSM step time
+DAMSM_SET = (192, 7)        # the entry's set: a test split of 48 (phase 39)
+DAMSM_EPOCHS = 3
+# the DAMSM step card vs CPU: losses and the norm before the clip within
+# DAMSM_RTOL of their value, and per-tensor update cosines from warm Adams
+# (an update linear in the gradient) above MIN_UPDATE_COSINE
+DAMSM_RTOL = 1e-4
+MIN_UPDATE_COSINE = 0.999
+DAMSM_CLIPS = ((0.25, True), (1e6, False))   # (clip, whether it bites)
+EVAL_CAPTIONS = 8           # gen_example's captions (phase 40)
+
+
+def _damsm_smooth():
+    return attngan_train_settings(cfg_from_file(DAMSM_CFG, "damsm")).smooth
+
+
+def _damsm_state(device, dtype=None):
+    """The flagship DAMSM pair (text_encoder29.pth, image_encoder29.pth)
+    in a DAMSM train state on ``device``, its Adam warm (warm_adam's
+    moments)."""
+    state = create_damsm_state(
+        build_text_encoder(ATTN_WORDS, 256, load_text_encoder(ATTN_NET_E),
+                           device=device),
+        build_image_encoder(256, load_image_encoder(ATTN_IMAGE_E),
+                            compute_dtype=dtype, device=device))
+    warm_opt(state.opt)
+    return state
+
+
+def damsm_once(device, batch, keep, clip):
+    """One DAMSM step on ``device`` from :func:`_damsm_state` with the
+    dropout mask ``keep``: (metrics, the trained tensors before and after
+    on the CPU, whether every other tensor of the image encoder is
+    unchanged bit for bit, host seconds)."""
+    state = _damsm_state(device)
+    trained = {**{f"text.{k}": p for k, p in state.text.named_parameters()},
+               **{f"image.{k}": p for k, p in state.image.named_parameters()
+                  if p.requires_grad}}
+    pre = {k: p.detach().cpu().clone() for k, p in trained.items()}
+    frozen = {k: v.clone() for k, v in state.image.state_dict().items()
+              if f"image.{k}" not in trained}
+    dev_batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    t = time.perf_counter()
+    metrics = make_damsm_train_step(_damsm_smooth(), clip)(
+        state, dev_batch, None, LR, keep=keep.to(device))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t
+    post = {k: p.detach().cpu() for k, p in trained.items()}
+    same = all(torch.equal(v, frozen[k])
+               for k, v in state.image.state_dict().items() if k in frozen)
+    return metrics, pre, post, same, seconds
+
+
+def phase_damsm_step():
+    log(f"phase 37/40 damsmstep: one full-width DAMSM step (the flagship "
+        f"text_encoder29.pth and image_encoder29.pth, batch "
+        f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
+        "with the clip biting and not")
+    _, ds = _attn_set()
+    batch = _attn_train_batch(ds, DAMSM_CHECK_BATCH, 37)
+    keep = torch.from_numpy(np.random.RandomState(37).rand(
+        DAMSM_CHECK_BATCH, batch["captions"].shape[1], 300) < 0.5)
+    out = {}
+    for clip, bites in DAMSM_CLIPS:
+        cpu = damsm_once("cpu", batch, keep, clip)
+        card = damsm_once(DEVICE, batch, keep, clip)
+        rel = {k: abs(card[0][k] - cpu[0][k]) / max(abs(cpu[0][k]), 1e-12)
+               for k in cpu[0]}
+        cos = {k: _cosine(card[2][k] - card[1][k], cpu[2][k] - cpu[1][k])
+               for k in cpu[1]}
+        worst = min(cos, key=cos.get)
+        log(f"  clip {clip:g}: card / CPU " + "; ".join(
+            f"{k} {card[0][k]:.6f} / {cpu[0][k]:.6f}" for k in sorted(cpu[0]))
+            + f"; worst relative gap {max(rel.values()):.2e} (limit "
+            f"{DAMSM_RTOL:g}); lowest update cosine {cos[worst]:.8f} "
+            f"({worst}; limit {MIN_UPDATE_COSINE:g}); the backbone "
+            f"unchanged: card {card[3]}, CPU {cpu[3]}; the step {cpu[4]:.2f}"
+            f" s on the CPU, {card[4]:.2f} s on the card (host clock, first "
+            "call)")
+        check(max(rel.values()) <= DAMSM_RTOL, f"DAMSM step card vs CPU "
+              f"(clip {clip:g}): {rel}")
+        check(cos[worst] > MIN_UPDATE_COSINE, f"DAMSM update {worst}")
+        check(card[3] and cpu[3], "the frozen backbone changed")
+        check((cpu[0]["rnn_grad_norm"] > clip) == bites,
+              f"clip {clip:g}: the norm {cpu[0]['rnn_grad_norm']:.4f} should"
+              f"{'' if bites else ' not'} exceed it")
+        out[f"clip_{clip:g}"] = {"rel": max(rel.values()),
+                                 "update_cosine": cos[worst],
+                                 "rnn_grad_norm": card[0]["rnn_grad_norm"]}
+    return out
+
+
+def phase_damsm_step_time():
+    log(f"phase 38/40 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+        "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
+        "device's busy share")
+    _, ds = _attn_set()
+    dev = torch.device(DEVICE)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             _attn_train_batch(ds, DAMSM_BATCH, 38).items()
+             if k not in ("image64", "image128")}
+    out = {}
+    for dtype in (None, torch.bfloat16):
+        kind = "bf16" if dtype else "f32"
+        state = _damsm_state(dev, dtype)
+        step = make_damsm_train_step(_damsm_smooth(), 0.25)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def one():
+            return step(state, batch, gen, LR)
+
+        for _ in range(3):
+            one()
+        flops = _flop_count(one)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DAMSM_TIME_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = one()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times)
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+              f"non-finite DAMSM losses while timing ({kind})")
+        wall, busy, groups, top = _profile_forward(one)
+        log(f"damsm step at batch {DAMSM_BATCH}, 256px -> 299, {kind}"
+            f"{'' if dtype else ' (TF32 off)'}: {ms:.2f} ms (CUDA events, "
+            f"median of {DAMSM_TIME_RUNS}; min {min(times):.2f}, max "
+            f"{max(times):.2f}) = {DAMSM_BATCH * 1e3 / ms:.0f} images/s; peak "
+            f"memory {peak:.2f} GiB; {flops:.1f} GFLOP a step "
+            f"({flops / DAMSM_BATCH:.2f} an image; torch.utils.flop_counter),"
+            f" {flops / ms:.1f} TFLOP/s of them; traced (torch.profiler, 3 "
+            f"steps): {wall:.2f} ms a step on the host clock, the device busy"
+            f" {busy:.2f} ms ({busy / wall:.1%}); by kernel group: "
+            + ", ".join(f"{g} {v:.2f}" for g, v in sorted(
+                groups.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(
+                f"{v:.2f} ms {name[:70]}" for v, name in top))
+        out[kind] = {"ms": ms, "min_ms": min(times), "max_ms": max(times),
+                     "images_per_s": DAMSM_BATCH * 1e3 / ms,
+                     "peak_gib": peak, "gflop_per_step": flops,
+                     "busy_share": busy / wall, "groups_ms": groups}
+        del state, step
+        torch.cuda.empty_cache()
+    log(f"DAMSM step bf16 {out['bf16']['ms']:.2f} ms beside float32 "
+        f"{out['f32']['ms']:.2f} ms: {out['f32']['ms'] / out['bf16']['ms']:.2f}"
+        "x")
+    return out
+
+
+def _state_gap(run, ref, epoch):
+    """The DAMSM states of two runs at ``epoch``: :func:`_tensor_gap` of
+    both encoders, and both step counts."""
+    a = CheckpointManager(os.path.join(run, "models")).load(epoch)[0]
+    b = CheckpointManager(os.path.join(ref, "models")).load(epoch)[0]
+    return (*_tensor_gap([(n, a[n], b[n]) for n in ("text", "image")]),
+            (a["step"], b["step"]))
+
+
+def phase_damsm_entry(attn_weights):
+    log(f"phase 39/40 damsmentry: cli/main.py --variant damsm --cfg "
+        f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
+        f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
+        f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
+        "the exported pair as AttnGAN's NET_E for one train step")
+    data = os.path.join(WORK, "damsm_data")
+    t = time.perf_counter()
+    write_synthetic_attngan(data, n=DAMSM_SET[0], seed=DAMSM_SET[1])
+    log(f"  write_synthetic_attngan(n={DAMSM_SET[0]}, seed={DAMSM_SET[1]}): "
+        f"{time.perf_counter() - t:.2f} s (host clock)")
+    runs = {n: os.path.join(WORK, "runs", f"damsm_{n}")
+            for n in ("straight", "resumed", "bf16")}
+    steps = DAMSM_SET[0] // DAMSM_BATCH
+    base = ["--variant", "damsm", "--cfg", DAMSM_CFG, "--data_dir", data,
+            "--synthetic", "--manualSeed", str(DAMSM_SET[1])]
+    launches, seconds = {}, {}
+
+    def entry(key, name, out, epochs, *extra):
+        hist, launches[key], seconds[key] = _entry(
+            name, [*base, "--output_dir", out, "--max_epochs", str(epochs),
+                   *extra])
+        check(launches[key] == (0, 0), f"{name}: K1/K2 launches "
+              f"{launches[key]}; DAMSM places nothing")
+        for h in hist:
+            check(h["steps"] == steps and all(np.isfinite(v)
+                                              for v in h.values())
+                  and h["rnn_grad_norm"] > 0, f"{name}: epoch {h}")
+        return hist
+
+    hist = entry("train_damsm", f"damsm, {DAMSM_EPOCHS} epochs",
+                 runs["straight"], DAMSM_EPOCHS, "--snapshot_interval", "1")
+    out = runs["straight"]
+    want = [os.path.join("logs", "metrics.jsonl"), "run_flags.json",
+            os.path.basename(DAMSM_CFG),
+            os.path.join("src_snapshot", "cli", "damsm_runner.py")]
+    want += [os.path.join("DAMSMencoders", f"{k}_encoder{e}.pth")
+             for k in ("text", "image") for e in range(DAMSM_EPOCHS)]
+    want += [os.path.join("models", str(e), "state.pth")
+             for e in range(DAMSM_EPOCHS)]
+    missing = [w for w in want if not os.path.isfile(os.path.join(out, w))]
+    check(not missing, f"{out}: missing {missing}")
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    evals = [r for r in records if "eval_damsm_loss" in r]
+    check([r["step"] for r in evals] == list(range(DAMSM_EPOCHS))
+          and all(np.isfinite(r["eval_damsm_loss"]) for r in evals),
+          f"eval records {evals}")
+    log("  losses by epoch (mean, train): " + "; ".join(
+        f"{h['damsm_loss']:.4f} (w {h['w_loss']:.4f}, s {h['s_loss']:.4f}, "
+        f"norm {h['rnn_grad_norm']:.3f})" for h in hist)
+        + "; eval: " + ", ".join(f"{r['eval_damsm_loss']:.4f}" for r in evals)
+        + "; epoch times (host clock, {} steps of {}): {}".format(
+            steps, DAMSM_BATCH, ", ".join(f"{h['seconds']:.2f}"
+                                          for h in hist)))
+    _resume_copy(out, 1, runs["resumed"])
+    hist_r = entry("train_damsm_resume", "damsm, resumed from epoch 1 to "
+                   f"{DAMSM_EPOCHS}", runs["resumed"], DAMSM_EPOCHS,
+                   "--resume", runs["resumed"], "--snapshot_interval", "1")
+    check(len(hist_r) == DAMSM_EPOCHS - 2, f"the resume ran {len(hist_r)} "
+          "epochs")
+    first = 2 * steps
+    la, lb = _logged(runs["resumed"], first), _logged(out, first)
+    gap = max(abs(la[k] - lb[k]) for k in lb)
+    cos, worst, dist, done = _state_gap(runs["resumed"], out, 2)
+    log(f"  resumed against the straight run after epoch 2: the first "
+        f"step's losses max |diff| {gap:.3e} (limit "
+        f"{RESUME_FIRST_STEP_ATOL:g}), lowest tensor cosine {cos:.8f} "
+        f"({worst}), distance {dist:.3e} of the norm, steps {done}")
+    check(gap <= RESUME_FIRST_STEP_ATOL, "the resumed epoch's first step "
+          "strays")
+    check(dist <= MAX_RESUME_DIST and cos > MIN_RESUME_COSINE
+          and done == (DAMSM_EPOCHS * steps,) * 2,
+          "the resumed run strays from the straight one")
+    hist_b = entry("train_damsm_bf16", "damsm --bf16, 1 epoch", runs["bf16"],
+                   1, "--bf16", "--snapshot_interval", "0")
+    check(os.path.isfile(os.path.join(runs["bf16"], "DAMSMencoders",
+                                      "image_encoder0.pth")),
+          "the bf16 run exported no pair")
+
+    # the exported pair as AttnGAN's NET_E: one full-width train step
+    net_e = os.path.join(out, "DAMSMencoders",
+                         f"text_encoder{DAMSM_EPOCHS - 1}.pth")
+    text_ds = AttnGanDataset(data, split="test", captions_per_image=5)
+    mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG,
+                                              "coco-attngan"))
+    text, image, prov = attngan_runner.init_encoders(
+        net_e, text_ds.n_words, mcfg, seed=7, device=DEVICE)
+    check(prov == {"text_encoder": "imported", "image_encoder": "imported"},
+          f"NET_E provenance {prov}")
+    exported = load_text_encoder(net_e)
+    check(all(torch.equal(v.cpu(), exported[k])
+              for k, v in text.state_dict().items()),
+          "init_encoders did not load the exported text encoder")
+    state = _attn_state(DEVICE, mcfg, attn_weights[0], attn_weights[1])
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             _attn_train_batch(text_ds, ATTN_STEP_BATCH, 39).items()}
+    k1.reset_launch_count()
+    metrics = make_attngan_train_step(mcfg, text, image)(
+        state, batch, torch.Generator(device=DEVICE).manual_seed(7), LR, LR)
+    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    step_launches = (k1.launch_count(), k1.grad_launch_count())
+    log(f"  AttnGAN step from the exported pair (NET_E {net_e}), batch "
+        f"{ATTN_STEP_BATCH}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                           sorted(metrics.items()))
+        + f"; K1/K2 launches {step_launches}")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and metrics["w_loss"] > 0 and metrics["s_loss"] > 0
+          and step_launches == ATTN_LAUNCHES,
+          "the AttnGAN step from the exported pair")
+    del state, text, image
+    torch.cuda.empty_cache()
+    for path in runs.values():
+        shutil.rmtree(path, ignore_errors=True)
+    return launches, {"epoch_s": [h["seconds"] for h in hist],
+                      "bf16_epoch_s": hist_b[0]["seconds"],
+                      "resume_first_step": gap, "resume_rel_dist": dist,
+                      "entry_s": seconds}
+
+
+def _attn_eval_cfg(data):
+    """A copy of the flagship's sampling cfg in the work directory naming
+    netG_ema_final.pth, text_encoder29.pth and ``data``."""
+    subs = {"NET_G": ATTN_NET_G, "NET_E": ATTN_NET_E, "DATA_DIR": data}
+    with open(ATTN_CFG) as f:
+        lines = f.read().splitlines()
+    path = os.path.join(WORK, "coco_attn_eval.yml")
+    with open(path, "w") as f:
+        for line in lines:
+            key = line.strip().split(":")[0]
+            if key in subs:
+                line = f"{line[:line.index(key)]}{key}: '{subs[key]}'"
+            f.write(line + "\n")
+    return path
+
+
+def phase_attn_eval(model):
+    log("phase 40/40 attneval: cli/main.py --variant coco-attngan with "
+        "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
+        f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
+        "against CPU; K1 at the sampler's and gen_example's shapes")
+    data, ds = model["data"], model["ds"]
+    cfg_file = _attn_eval_cfg(data)
+    base = ["--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
+            data, "--manualSeed", str(ATTN_SET[1])]
+    captions = [" ".join(ds.ixtoword[i] for i in ds.captions[5 * j])
+                for j in range(EVAL_CAPTIONS)]
+    with open(os.path.join(data, "example_captions.txt"), "w") as f:
+        f.write("\n".join(captions) + "\n")
+    out = {n: os.path.join(WORK, "attn_eval", n)
+           for n in ("sample", "gen_example")}
+    launches, seconds = {}, {}
+    _, launches["sample_coco-attngan"], seconds["sample"] = _entry(
+        "coco-attngan sample", [*base, "--output_dir", out["sample"]])
+    rows = sorted(os.listdir(os.path.join(out["sample"], "samples")))
+    check(len(rows) == attngan_runner.SAMPLE_ROWS, f"{len(rows)} rows")
+    check(launches["sample_coco-attngan"] == (len(rows), 0),
+          f"sample K1/K2 launches {launches['sample_coco-attngan']}: one K1 "
+          "a row expected")
+    pngs = {n: read_png(os.path.join(out["sample"], "samples", n), "RGB")
+            for n in rows}
+    check(all(p.shape == (260, 10 * 258 + 2, 3) for p in pngs.values()),
+          "rows of 10 tiles of 256px")
+    _, launches["gen_example_coco-attngan"], seconds["gen_example"] = _entry(
+        "coco-attngan gen_example", [*base, "--output_dir",
+                                     out["gen_example"], "--eval_mode",
+                                     "gen_example"])
+    check(launches["gen_example_coco-attngan"] == (1, 0),
+          f"gen_example K1/K2 launches {launches['gen_example_coco-attngan']}"
+          ": one K1 a caption file expected")
+    caption_files = [d for d in os.listdir(out["gen_example"])
+                     if os.path.isdir(os.path.join(out["gen_example"], d))]
+    check(caption_files == ["example_captions"],
+          f"gen_example's caption files {caption_files}")
+    key_dir = os.path.join(out["gen_example"], "example_captions")
+    files = sorted(os.listdir(key_dir))
+    check(files == sorted(f"0_s_{j}_{k}.png" for j in range(EVAL_CAPTIONS)
+                          for k in ("g0", "g1", "g2", "a0", "a1")),
+          f"gen_example files {files}")
+    check(read_png(os.path.join(key_dir, "0_s_0_g2.png"), "RGB").shape
+          == (256, 256, 3), "gen_example's 256px image")
+    log(f"  sample: {len(rows)} rows in {seconds['sample']:.2f} s, "
+        f"gen_example: {EVAL_CAPTIONS} captions in "
+        f"{seconds['gen_example']:.2f} s (host clock, the whole entry: G "
+        "load, the test split's pixels, PNGs)")
+
+    # the first sample row again, card against CPU, from the same z
+    test = AttnGanTrainSet(
+        data, synthetic_train_images(data, ATTN_SET[1], split="test"),
+        captions_per_image=5, seed=ATTN_SET[1], split="test")
+    item = test.get_batch([0])        # the entry's first row's draws
+    z = torch.from_numpy(sample_noise(ATTN_SET[1], 0, 9, 100))
+    card_nets = (build_text_encoder(ATTN_WORDS, 256,
+                                    load_text_encoder(ATTN_NET_E),
+                                    device=DEVICE),
+                 build_attngan_g(model["mcfg"],
+                                 load_reference_attngan_g(ATTN_NET_G),
+                                 device=DEVICE))
+    fakes = {}
+    for dev, (enc, g) in ((DEVICE, card_nets),
+                          ("cpu", (model["enc_cpu"], model["g_cpu"]))):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in item.items()}
+        fakes[dev] = attngan_runner.sample_row(enc, g, b, z.to(dev)).cpu()
+    err = float((fakes[DEVICE] - fakes["cpu"]).abs().max())
+    first = [n for n in rows if n.endswith("_0.png")][0]
+    tiles = np.concatenate([item["image256"][:1].astype(np.float32) / 127.5
+                            - 1.0, fakes[DEVICE].permute(0, 2, 3, 1).numpy()])
+    _draw_white_bbox_edges(tiles, item["bbox"][0], 256)
+    levels = int(np.abs(make_grid(tiles, nrow=10).astype(np.int16)
+                        - pngs[first]).max())
+    log(f"  sample row 0 ({first}) card against CPU at the same z: max "
+        f"|diff| {err:.3e} (atol {MODEL_ATOL:g}); the entry's PNG against "
+        f"the card's row: {levels} levels of 255 (limit {SAMPLE_LEVELS}); "
+        f"fake pixel std {float(fakes['cpu'].std()):.4f}")
+    check(err <= MODEL_ATOL, "the sample row: card and CPU disagree")
+    check(levels <= SAMPLE_LEVELS, "the entry's first row is not the "
+          "card's row")
+
+    # K1 at the sampler's and gen_example's shapes
+    rs = np.random.RandomState(40)
+    dev = torch.device(DEVICE)
+    c, hw = model["mcfg"].ngf // 4, (16, 16)
+    box = np.array(item["bbox"][0], np.float32)
+    box[2] = -1.0                               # a padded third object
+    shapes = {
+        "sample": np.repeat(box[None], 9, axis=0),
+        "gen_example": np.tile(np.array(attngan_runner.EXAMPLE_BOX,
+                                        np.float32), (EVAL_CAPTIONS, 3, 1))}
+    k1_rows, worst = {}, 0.0
+    for name, bbox in shapes.items():
+        bbox = torch.from_numpy(bbox).to(dev)
+        feats = torch.from_numpy(rs.randn(bbox.shape[0], 3, c, *hw).astype(
+            np.float32)).to(dev)
+        label = f"{name} {tuple(feats.shape)} -> {hw}"
+        worst = max(worst, _held(k1.stn_place_multi_nchw(feats, bbox, hw),
+                                 k1.stn_place_multi_plain(feats, bbox, hw),
+                                 torch.float32, "K1", label))
+        row = time_place(feats, bbox, hw, f"K1 AttnGAN {name}")
+        k1_rows[name] = {k: row[k] for k in (
+            "ms", "plain_ms", "graph_ms", "bound_ms", "bound_by",
+            "share_of_bound", "graph_share_of_bound")}
+    with open(os.path.join(data, "example_captions.txt")) as f:
+        check(len(f.read().splitlines()) == EVAL_CAPTIONS, "captions file")
+    os.remove(os.path.join(data, "example_captions.txt"))
+    for path in out.values():
+        shutil.rmtree(path, ignore_errors=True)
+    return launches, {"max_abs_err": worst, **k1_rows,
+                      "k1_launches_per_row":
+                          launches["sample_coco-attngan"][0] / len(rows),
+                      "k1_launches_per_caption_file":
+                          launches["gen_example_coco-attngan"][0]
+                          / len(caption_files),
+                      "sample_row_card_vs_cpu": err, "seconds": seconds}
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -3808,7 +4287,7 @@ def run_phases() -> int:
     normconv = phase_normconv()
     bf16 = phase_bf16_kernels()
     phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/36 time16")
+    step16 = phase_step_time(BF16, "14/40 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -3835,17 +4314,22 @@ def run_phases() -> int:
     attn_step = phase_attn_step()
     attn_time = phase_attn_step_time(attn_step)
     attn_entry, attn_run = phase_attn_entry()
+    phase_damsm_step()
+    phase_damsm_step_time()
+    damsm_entry, _ = phase_damsm_entry(attn_step["weights"])
+    attn_eval_paths, attn_eval = phase_attn_eval(attn_model)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
-               **attn_entry}
+               **attn_entry, **damsm_entry, **attn_eval_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
-                 "train_coco-attngan", "train_coco-attngan_resume")
+                 "train_coco-attngan", "train_coco-attngan_resume",
+                 "train_damsm", "train_damsm_resume", *attn_eval_paths)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
-                  "train_coco-attngan_bf16")
+                  "train_coco-attngan_bf16", "train_damsm_bf16")
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -3869,7 +4353,8 @@ def run_phases() -> int:
                            batch9["max_abs_err"],
                            s2_kernels["place"]["max_abs_err"],
                            attn_kernels["max_abs_err"],
-                           attn_places["place"]["max_abs_err"]),
+                           attn_places["place"]["max_abs_err"],
+                           attn_eval["max_abs_err"]),
         **place["serve"],
         "train_g_shape": place["train G"],
         "train_d_shape": place["train D"],
@@ -3889,6 +4374,7 @@ def run_phases() -> int:
                           "step_ms": {k: v["ms"]
                                       for k, v in attn_time.items()},
                           "entry": attn_run},
+        "attngan_eval": attn_eval,
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

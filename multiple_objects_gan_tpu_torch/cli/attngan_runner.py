@@ -1,10 +1,11 @@
-"""COCO AttnGAN training with the PyTorch port (the port's counterpart of
-the train path of the JAX package's ``cli/attngan_runner.py:run``).
+"""COCO AttnGAN training and evaluation with the PyTorch port (the port's
+counterpart of the JAX package's ``cli/attngan_runner.py``).
 
-Parity target: condGANTrainer.train (code/coco/attngan/trainer.py:249-366):
-the frozen DAMSM encoders of cfg ``NET_E`` (:func:`init_encoders`), G and a
-D a branch with their Adams and G's EMA, the warm start from a NET_G
-``.pth`` (:func:`maybe_warm_start_attngan`), and per run:
+Parity target for training: condGANTrainer.train (code/coco/attngan/
+trainer.py:249-366): the frozen DAMSM encoders of cfg ``NET_E``
+(:func:`init_encoders`), G and a D a branch with their Adams and G's EMA,
+the warm start from a NET_G ``.pth`` (:func:`maybe_warm_start_attngan`),
+and per run:
 
 * ``logs/metrics.jsonl``: the losses at the first step of every epoch and
   every 500 steps;
@@ -23,9 +24,27 @@ them). The montages' z is drawn from (seed, step) and (seed, 1000000 +
 epoch); they and the epoch grids key on the global step, so a resumed run
 writes what an uninterrupted one writes (the JAX loop counts the steps of
 each process from 0). The data are the in-memory synthetic train set
-(``data/attngan.py:AttnGanTrainSet``). Left for later (ROADMAP Queue 1):
-the eval modes ``sample``, ``sampling`` and ``gen_example``, and
-``--profile``.
+(``data/attngan.py:AttnGanTrainSet``).
+
+With ``TRAIN.FLAG: False`` (:func:`run_attngan_eval`) the EMA G of cfg
+NET_G (:func:`restore_g`) and the text encoder of NET_E run one of the
+eval modes, picked as the reference's main.py:153-160 picks them under
+``--eval_mode auto``:
+
+* ``sample`` (B_VALIDATION True; trainer.py:474-579): for each of the
+  first 25 test items, one row of 10 tiles, the real image and 9 fakes of
+  its caption and layout with fresh z, the boxes' edges white on every
+  tile, named after the caption's words (``samples/<words>_<i>.png``);
+* ``gen_example`` (trainer.py:581-667): the captions of DATA_DIR's
+  example files (:func:`load_example_captions`), every object's box at
+  (0.3, 0.3, 0.4, 0.4), each scale's image and each attention stage's
+  montage a caption (``<key>/0_s_<j>_g<k>.png``, ``..._a<k>.png``) and
+  ``<key>.png``, the last scale 4 a row.
+
+z is the stage-1 sampler's draw from (seed, row), ``cli/sample.py:
+sample_noise`` (row 0 for gen_example, whose caption files share it, as
+in the JAX runner). ``sampling``, the FID/IS dump, waits for the pt_inception
+weights (ROADMAP item 13), and ``--profile`` is not ported.
 """
 
 from __future__ import annotations
@@ -34,37 +53,47 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
+from multiple_objects_gan_tpu_torch.cli.sample import (
+    N_VARIATIONS, _draw_white_bbox_edges, sample_noise)
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_train_settings)
 from multiple_objects_gan_tpu_torch.data.attngan import (
-    AttnGanTrainSet, synthetic_train_images)
+    AttnGanDataset, AttnGanTrainSet, synthetic_split, tokenize)
 from multiple_objects_gan_tpu_torch.data.datasets import Loader
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
     load_image_encoder, load_reference_attngan_d, load_reference_attngan_g,
     load_text_encoder)
-from multiple_objects_gan_tpu_torch.models.attngan import AttnGanConfig
+from multiple_objects_gan_tpu_torch.models.attngan import (
+    AttnGanConfig, GNet, build_attngan_g)
 from multiple_objects_gan_tpu_torch.nn.encoders import (
     build_image_encoder, build_text_encoder)
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
-from multiple_objects_gan_tpu_torch.train.loop import grid_noise, run_epochs
+from multiple_objects_gan_tpu_torch.train.loop import (
+    grid_noise, run_epochs, to_device)
 from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, create_attngan_state)
 from multiple_objects_gan_tpu_torch.utils.attention_viz import (
     save_attention_montage)
-from multiple_objects_gan_tpu_torch.utils.images import save_grid
+from multiple_objects_gan_tpu_torch.utils.images import save_grid, save_image
 from multiple_objects_gan_tpu_torch.utils.logging import MetricWriter
 
 VIZ_ITEMS = 8            # items of a montage (JAX :284)
 VIZ_EVERY = 1000         # steps between montages (trainer.py:345-353)
 EPOCH_NOISE_KEY = 1_000_000
+EVAL_MODES = ("auto", "sample", "gen_example", "sampling")
+SAMPLE_ROWS = 25         # sample()'s rows (JAX num_samples)
+EXAMPLE_BOX = (0.3, 0.3, 0.4, 0.4)   # gen_example's box of every object
+BUILT_IN_CAPTIONS = ["a man riding a horse on a beach",
+                     "two dogs playing with a ball in a park"]
 
 
 def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
-                  device):
+                  device, with_image: bool = True):
     """The frozen DAMSM text and image encoders (JAX ``init_encoders``,
     :65-102) and their provenance, ``{"text_encoder": "imported" |
     "random", "image_encoder": ...}``. The text encoder is NET_E's
@@ -73,7 +102,9 @@ def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
     by ``image_encoder`` beside it, else random after a WARNING. An
     imported text encoder keeps its own embedding rows, as the JAX import
     does; it must have one for every word of the vocabulary. The image
-    encoder's backbone computes in ``mcfg.compute_dtype``."""
+    encoder's backbone computes in ``mcfg.compute_dtype``. Without
+    ``with_image`` (the eval modes) no image encoder is built: it is
+    None."""
     prov = {"text_encoder": "random", "image_encoder": "random"}
     text_sd = image_sd = None
     if net_e and os.path.exists(net_e):
@@ -86,11 +117,11 @@ def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
         prov["text_encoder"] = "imported"
         print(f"Load text encoder from: {net_e}", flush=True)
         img_path = net_e.replace("text_encoder", "image_encoder")
-        if os.path.exists(img_path):
+        if with_image and os.path.exists(img_path):
             image_sd = load_image_encoder(img_path)
             prov["image_encoder"] = "imported"
             print(f"Load image encoder from: {img_path}", flush=True)
-        else:
+        elif with_image:
             print(f"WARNING: {img_path!r} not found: the DAMSM image encoder "
                   "uses random weights", flush=True)
     else:
@@ -98,9 +129,12 @@ def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
               "random weights", flush=True)
     text_enc = build_text_encoder(n_words, mcfg.embedding_dim, text_sd,
                                   seed=seed, device=device)
-    image_enc = build_image_encoder(mcfg.embedding_dim, image_sd, seed=seed,
-                                    compute_dtype=mcfg.compute_dtype,
-                                    device=device)
+    image_enc = None
+    if with_image:
+        image_enc = build_image_encoder(mcfg.embedding_dim, image_sd,
+                                        seed=seed,
+                                        compute_dtype=mcfg.compute_dtype,
+                                        device=device)
     return text_enc.requires_grad_(False), image_enc, prov
 
 
@@ -156,12 +190,7 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
     :185-331). Returns the per-epoch mean losses."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
-    ds = AttnGanTrainSet(cfg.DATA_DIR,
-                         synthetic_train_images(cfg.DATA_DIR, seed,
-                                                st.captions_per_image),
-                         base_size=st.base_size, branch_num=st.branch_num,
-                         captions_per_image=st.captions_per_image,
-                         words_num=st.words_num, seed=seed)
+    ds = synthetic_split(cfg.DATA_DIR, st, seed)
     text_enc, image_enc, prov = init_encoders(st.net_e, ds.n_words, mcfg,
                                               seed=seed, device=device)
     _record_encoders(output_dir, prov, st.net_e,
@@ -232,3 +261,224 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
             checkpoint_extra=lambda: {"data_rng": ds.rng_state()})
     finally:
         writer.close()
+
+
+# ------------------------------------------------------------ eval modes
+
+
+def restore_g(net_g: str, mcfg: AttnGanConfig, *, seed: int,
+              device) -> GNet:
+    """The eval-mode G of cfg NET_G (JAX ``restore_g``, :105-142): a
+    reference-format ``.pth`` (``{'netG': ...}`` or a bare state dict,
+    such as the flagship's ``netG_ema_final.pth``), or a port run
+    directory (or its ``models/``), whose latest checkpoint's EMA weights
+    replace G's parameters, as the reference samples from its EMA-swapped
+    G. Otherwise random from ``seed`` after a WARNING, as the JAX runner
+    does (the reference prints an error, trainer.py:480-481)."""
+    if net_g and os.path.isfile(net_g) and net_g.endswith(".pth"):
+        g = build_attngan_g(mcfg, load_reference_attngan_g(net_g),
+                            device=device)
+        print(f"Load G from: {net_g}", flush=True)
+        return g
+    if net_g and os.path.isdir(net_g):
+        mdir = os.path.join(net_g, "models")
+        mgr = CheckpointManager(mdir if os.path.isdir(mdir) else net_g)
+        if mgr.latest_epoch() is not None:
+            ckpt, epoch = mgr.load()
+            g = build_attngan_g(mcfg, {**ckpt["g"], **ckpt["g_ema"]},
+                                device=device)
+            print(f"Load G from: {net_g} (epoch {epoch}, EMA weights)",
+                  flush=True)
+            return g
+    print(f"WARNING: TRAIN.NET_G={net_g!r} not found: G uses random "
+          "weights", flush=True)
+    return build_attngan_g(mcfg, seed=seed, device=device)
+
+
+def _tile(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.repeat(n, *([1] * (t.dim() - 1)))
+
+
+def sample_row(text_enc, g: GNet, batch: dict, z: torch.Tensor
+               ) -> torch.Tensor:
+    """The fakes of a 1-item ``batch`` (captions, cap_lens, bbox,
+    label_onehot on the device): its caption encoded once, the conditioning
+    tiled to z's batch (trainer.py:525-546), c = mu; returns the last
+    branch's images (n, 3, H, W) in float32."""
+    n = z.shape[0]
+    caps = batch["captions"]
+    with torch.inference_mode():
+        words, sent = text_enc(caps, batch["cap_lens"])
+        return g(z, _tile(sent, n), _tile(words, n), _tile(caps == 0, n),
+                 _tile(batch["bbox"], n),
+                 _tile(batch["label_onehot"], n)).float()
+
+
+def caption_words(caption_ids, ixtoword: dict) -> str:
+    """A caption's words up to its first ``<end>`` (id 0), or "empty"
+    (trainer.py:571-578)."""
+    words = []
+    for c in caption_ids:
+        if c == 0:
+            break
+        words.append(str(ixtoword.get(int(c), "?")))
+    return " ".join(words) or "empty"
+
+
+def sample(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
+           output_dir: str, *, seed: int, device) -> str:
+    """The qualitative rows of the test split (JAX ``sample``, :333-400):
+    for each of its first :data:`SAMPLE_ROWS` items in order, at batch 1, the
+    real image and N_VARIATIONS fakes of z from (seed, item) at the last
+    scale, the boxes' edges white on every tile, saved as
+    ``samples/<caption words>_<item>.png`` (10 tiles a row). Returns the
+    directory."""
+    device = torch.device(device)
+    imsize = ds.imsizes[-1]
+    save_dir = os.path.join(output_dir, "samples")
+    os.makedirs(save_dir, exist_ok=True)
+    n_written = 0
+    for step in range(min(SAMPLE_ROWS, len(ds))):
+        batch = ds.get_batch([step])      # the unshuffled loader's batch
+        z = torch.from_numpy(sample_noise(seed, step, N_VARIATIONS,
+                                          mcfg.z_dim)).to(device)
+        fakes = sample_row(text_enc, g, to_device(batch, device), z)
+        real = batch[f"image{imsize}"][:1].astype(np.float32) / 127.5 - 1.0
+        tiles = np.concatenate(
+            [real, fakes.permute(0, 2, 3, 1).cpu().numpy()])
+        _draw_white_bbox_edges(tiles, batch["bbox"][0], imsize)
+        sentence = caption_words(batch["captions"][0], ds.ixtoword)
+        save_grid(tiles, os.path.join(save_dir, f"{sentence}_{step}.png"),
+                  nrow=10)
+        n_written += 1
+    print(f"Saved {n_written} files to {save_dir}", flush=True)
+    return save_dir
+
+
+def encode_captions(captions_text: list, wordtoix: dict, words_num: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Free-text captions -> (ids (B, words_num) int64, zero-padded;
+    lengths (B,), at least 1): the tokenizer's words in the vocabulary,
+    cut at ``words_num`` (JAX ``gen_example``, :550-556)."""
+    caps = np.zeros((len(captions_text), words_num), np.int64)
+    lens = np.ones((len(captions_text),), np.int64)
+    for i, text in enumerate(captions_text):
+        ids = [wordtoix[t] for t in tokenize(text) if t in wordtoix]
+        ids = ids[:words_num]
+        caps[i, :len(ids)] = ids
+        lens[i] = max(len(ids), 1)
+    return caps, lens
+
+
+def gen_example(captions_text: list, ds, mcfg: AttnGanConfig, g: GNet,
+                text_enc, output_dir: str, *, words_num: int, seed: int,
+                device, key: str = "gen_example",
+                z: Optional[torch.Tensor] = None):
+    """Free-text captions -> images and attention maps (JAX
+    ``gen_example``, :542-602; trainer.py:581-667): every object's box at
+    :data:`EXAMPLE_BOX` with label 0, z from (seed, 0) unless given, c =
+    mu. Writes ``<output_dir>/<key>/0_s_<j>_g<k>.png`` (caption j, scale
+    k), ``..._a<k>.png`` (attention stage k over the next scale's image)
+    and ``<output_dir>/<key>.png`` (the last scale, 4 a row). Returns the
+    images (B, H, W, 3) a scale and the attention maps (B, h, w, T) a
+    stage, float32 numpy."""
+    device = torch.device(device)
+    caps_np, lens_np = encode_captions(captions_text, ds.wordtoix,
+                                       words_num)
+    b, o = len(captions_text), mcfg.num_objects
+    bbox = torch.tensor(EXAMPLE_BOX, device=device).repeat(b, o, 1)
+    labels = torch.zeros((b, o, mcfg.label_dim), device=device)
+    labels[:, :, 0] = 1.0
+    if z is None:
+        z = torch.from_numpy(sample_noise(seed, 0, b, mcfg.z_dim))
+    caps = torch.from_numpy(caps_np).to(device)
+    with torch.inference_mode():
+        words, sent = text_enc(caps, torch.from_numpy(lens_np))
+        out = g.outputs(z.to(device), sent, words, caps == 0, bbox, labels)
+    imgs = [im.float().permute(0, 2, 3, 1).cpu().numpy() for im in out.imgs]
+    atts = [a.float().cpu().numpy() for a in out.att_maps]
+    base = os.path.join(output_dir, key)
+    os.makedirs(base, exist_ok=True)
+    for j in range(b):
+        name = os.path.join(base, f"0_s_{j}")
+        for k, im in enumerate(imgs):
+            save_image(im[j], f"{name}_g{k}.png")
+        for k, att in enumerate(atts):
+            im_for_att = imgs[k + 1] if len(imgs) > 1 else imgs[0]
+            save_attention_montage(f"{name}_a{k}.png", im_for_att[j:j + 1],
+                                   att[j:j + 1], caps_np[j:j + 1],
+                                   ds.ixtoword, lens_np[j:j + 1])
+    path = os.path.join(output_dir, f"{key}.png")
+    save_grid(imgs[-1], path, nrow=4)
+    print(f"wrote {path} + per-caption images/attention maps in {base}",
+          flush=True)
+    return imgs, atts
+
+
+def load_example_captions(data_dir: str) -> dict:
+    """The reference's gen_example caption sources (main.py:39-60; JAX
+    ``load_example_captions``, :605-640): ``<DATA_DIR>/
+    example_filenames.txt`` names caption files (relative to DATA_DIR, no
+    extension), each ``<name>.txt`` one sentence a line and one key, the
+    file's stem; else ``example_captions.txt``; else two built-in
+    captions."""
+    index = os.path.join(data_dir, "example_filenames.txt")
+    if os.path.isfile(index):
+        data = {}
+        with open(index) as f:
+            names = [line.strip() for line in f if line.strip()]
+        for name in names:
+            path = os.path.join(data_dir, f"{name}.txt")
+            if not os.path.isfile(path):
+                print(f"WARNING: caption file {path} not found — skipped",
+                      flush=True)
+                continue
+            with open(path) as f:
+                sents = [line.strip() for line in f if line.strip()]
+            if sents:
+                print(f"Load from: {name}", flush=True)
+                data[os.path.basename(name)] = sents
+        if data:
+            return data
+    cap_file = os.path.join(data_dir, "example_captions.txt")
+    if os.path.isfile(cap_file):
+        with open(cap_file) as f:
+            captions = [line.strip() for line in f if line.strip()]
+        if captions:
+            return {"example_captions": captions}
+    print(f"no example caption files under {data_dir} - using built-in "
+          "example captions", flush=True)
+    return {"gen_example": list(BUILT_IN_CAPTIONS)}
+
+
+def eval_mode(mode: str, cfg) -> str:
+    """``--eval_mode``: ``auto`` is ``sample`` under B_VALIDATION, else
+    ``gen_example`` (the reference's main.py:153-160)."""
+    if mode == "auto":
+        return "sample" if bool(cfg.B_VALIDATION) else "gen_example"
+    return mode
+
+
+def run_attngan_eval(cfg, mcfg: AttnGanConfig, output_dir: str, mode: str,
+                     *, device, seed: int = 0) -> str:
+    """The eval mode ``mode`` (``sample`` or ``gen_example``) from cfg
+    NET_G's EMA G and NET_E's text encoder, on the synthetic set of
+    DATA_DIR (its test split for ``sample``, its vocabulary for both).
+    Returns the directory written."""
+    device = torch.device(device)
+    st = attngan_train_settings(cfg)
+    if mode == "sample":
+        ds = synthetic_split(cfg.DATA_DIR, st, seed, "test")
+    else:
+        ds = AttnGanDataset(cfg.DATA_DIR, "test", st.captions_per_image)
+    text_enc, _, _ = init_encoders(st.net_e, ds.n_words, mcfg, seed=seed,
+                                   device=device, with_image=False)
+    g = restore_g(st.net_g, mcfg, seed=seed, device=device)
+    if mode == "sample":
+        return sample(ds, mcfg, g, text_enc, output_dir, seed=seed,
+                      device=device)
+    for key, captions in load_example_captions(cfg.DATA_DIR).items():
+        gen_example(captions, ds, mcfg, g, text_enc, output_dir,
+                    words_num=st.words_num, seed=seed, device=device,
+                    key=key)
+    return output_dir

@@ -1,15 +1,16 @@
 """Train or sample with the PyTorch port (the port's counterpart of the JAX
 package's ``cli/main.py``, for the three stage-1 families, COCO StackGAN
-stage 2 and COCO AttnGAN).
+stage 2, COCO AttnGAN and DAMSM pretraining).
 
     python -m multiple_objects_gan_tpu_torch.cli.main \\
         --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2|\\
-coco-attngan \\
+coco-attngan|damsm \\
         --cfg CFG \\
         [--data_dir D] [--output_dir O] [--synthetic] [--resume RUN_DIR] \\
         [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
         [--device cuda|cpu] [--bf16] [--bn_groups G] \\
-        [--num_objects N] [--bbox_scale S]
+        [--num_objects N] [--bbox_scale S] \\
+        [--eval_mode auto|sample|gen_example|sampling]
 
 ``TRAIN.FLAG`` in the cfg picks training or sampling, as in the reference
 (code/multi-mnist/main.py:27-95). Training reads Multi-MNIST and CLEVR
@@ -19,11 +20,13 @@ missing train split is first written there, at the JAX CLI's sizes
 both stages train on a synthetic set held on the device (stage 2's at
 256px, its stage-2 boxes the stage-1 ones), stage 2 through
 ``cli/stage2_runner.py`` with the frozen stage-1 G of cfg ``STAGE1_G``.
-COCO AttnGAN trains through ``cli/attngan_runner.py`` on the synthetic set
-of DATA_DIR: ``--synthetic`` writes its text side there when missing, at
-the JAX CLI's size (max(2 * batch, 32) items, ``multiple_objects_gan_tpu/
-cli/main.py:352-361``), and the images are held in memory; the DAMSM
-encoders come from cfg ``TRAIN.NET_E``. A
+COCO AttnGAN (``cli/attngan_runner.py``) and DAMSM pretraining
+(``cli/damsm_runner.py``, cfg/coco_damsm.yml) run on the synthetic set of
+DATA_DIR: ``--synthetic`` writes its text side there when missing, at the
+JAX CLI's size (max(2 * batch, 32) items, ``multiple_objects_gan_tpu/
+cli/main.py:352-373``), and the images are held in memory; AttnGAN's
+DAMSM encoders come from cfg ``TRAIN.NET_E``, which DAMSM pretraining
+writes (``DAMSMencoders/``). A
 run leaves, under ``--output_dir`` (default
 ``output/<DATASET>_<time>``), ``run_flags.json``, a copy of the cfg, the
 port's sources (``src_snapshot/``), ``logs/metrics.jsonl``, epoch grids in
@@ -32,7 +35,11 @@ continues from that run's latest checkpoint; cfg ``NET_G``/``NET_D``
 ``.pth`` files warm-start G and D; a resume without ``--manualSeed``
 takes the seed of the resumed run's ``run_flags.json``, so its shuffles
 and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
-samples 25 grids from ``NET_G`` (``cli/sample.py``; not yet for COCO).
+samples from ``NET_G``: 25 grids for Multi-MNIST and CLEVR
+(``cli/sample.py``); for COCO AttnGAN the eval mode ``--eval_mode``
+names (``auto``: ``sample`` under cfg B_VALIDATION, else
+``gen_example``; ``sampling`` waits for ROADMAP item 13); COCO StackGAN
+sampling waits for the COCO reader (item 9b).
 The run is on the card unless ``--device cpu`` is given; without a card it
 raises. A float32 run on the card computes in float32: TF32 is turned off
 (``float32_policy``, as the server does).
@@ -54,7 +61,9 @@ import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch import float32_policy, resolve_device
-from multiple_objects_gan_tpu_torch.cli.attngan_runner import run_attngan
+from multiple_objects_gan_tpu_torch.cli.attngan_runner import (
+    EVAL_MODES, eval_mode, run_attngan, run_attngan_eval)
+from multiple_objects_gan_tpu_torch.cli.damsm_runner import run_damsm
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
 from multiple_objects_gan_tpu_torch.cli.stage2_runner import run_stage2
 from multiple_objects_gan_tpu_torch.config.config import (
@@ -70,7 +79,9 @@ from multiple_objects_gan_tpu_torch.data.synthetic import (
 from multiple_objects_gan_tpu_torch.train.loop import train
 
 VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2",
-            "coco-attngan")
+            "coco-attngan", "damsm")
+# the AttnGAN set's variants: the text side on disk, the images in memory
+ATTNGAN_SETS = ("coco-attngan", "damsm")
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's sources that define a run, copied into src_snapshot/
 SNAPSHOT_DIRS = ("cli", "config", "models", "train", "losses", "nn", "ops",
@@ -82,21 +93,22 @@ SYNTHETIC_ITEMS = {"multi-mnist": 512, "clevr": 256}
 def synthetic_items(variant: str, batch: int) -> int:
     """The items of ``variant``'s --synthetic train set: the on-disk sizes,
     and for COCO at least 2 full batches (else the drop-last loop is
-    empty), at least 64 for StackGAN and 32 for AttnGAN."""
-    least = 32 if variant == "coco-attngan" else 64
+    empty), at least 64 for StackGAN and 32 for AttnGAN and DAMSM."""
+    least = 32 if variant in ATTNGAN_SETS else 64
     return SYNTHETIC_ITEMS.get(variant, max(2 * batch, least))
 
 
 def attngan_data(args, cfg, seed: int) -> None:
     """AttnGAN's synthetic set in DATA_DIR: written there (text side) with
-    ``--synthetic`` when its train split is missing."""
+    ``--synthetic`` when its train split is missing (for DAMSM and the
+    eval modes too, as the JAX CLI writes it)."""
     if os.path.isfile(os.path.join(cfg.DATA_DIR, "train",
                                    "filenames.pickle")):
         return
     if not args.synthetic:
         sys.exit(f"no AttnGAN train split under {cfg.DATA_DIR!r}; pass "
                  "--synthetic (the port has no COCO JPEG reader yet)")
-    n = synthetic_items("coco-attngan", int(cfg.TRAIN.BATCH_SIZE))
+    n = synthetic_items(args.variant, int(cfg.TRAIN.BATCH_SIZE))
     write_synthetic_attngan(cfg.DATA_DIR, n=n, seed=seed)
 
 
@@ -134,6 +146,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bbox_scale", type=float, default=None,
                    help="sampling: scale every box's w and h (ref "
                         "trainer.py:245-253)")
+    p.add_argument("--eval_mode", default="auto", choices=EVAL_MODES,
+                   help="coco-attngan with TRAIN.FLAG False: auto = sample "
+                        "under B_VALIDATION, else gen_example (ref "
+                        "main.py:153-160); sampling (the FID/IS dump) is "
+                        "not ported yet")
     return p.parse_args(argv)
 
 
@@ -282,23 +299,34 @@ def main(argv=None) -> list[dict]:
     dtype = torch.bfloat16 if args.bf16 else None
     float32_policy(device, dtype)
     stage2 = args.variant == "coco-stackgan-2"
-    attn = args.variant == "coco-attngan"
+    attn = args.variant in ATTNGAN_SETS
+    damsm = args.variant == "damsm"
+    training = bool(cfg.TRAIN.FLAG) or damsm
+    mode = None
     if attn:
         if args.bn_groups != 1:
-            sys.exit("--bn_groups is not ported for coco-attngan yet")
+            sys.exit(f"--bn_groups is not ported for {args.variant} yet")
         mcfg = attngan_model_config(cfg, compute_dtype=dtype)
+        if not training:
+            mode = eval_mode(args.eval_mode, cfg)
+            if mode == "sampling":
+                sys.exit("--eval_mode sampling (the FID/IS dump) is not "
+                         "ported yet: it needs the pt_inception weights, "
+                         "ROADMAP item 13")
     elif stage2:
         s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
                                            bn_groups=args.bn_groups)
     else:
         mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dtype,
                                    bn_groups=args.bn_groups)
-    if not cfg.TRAIN.FLAG and args.variant not in ("multi-mnist", "clevr"):
-        sys.exit(f"sampling {args.variant} is not ported yet")
+    if not training and not attn and args.variant not in ("multi-mnist",
+                                                           "clevr"):
+        sys.exit(f"sampling {args.variant} is not ported yet: it waits for "
+                 "the COCO reader (ROADMAP item 9b)")
     loader = None
-    if attn and cfg.TRAIN.FLAG:
+    if attn:
         attngan_data(args, cfg, seed)
-    elif cfg.TRAIN.FLAG:
+    elif training:
         loader = train_loader(args, cfg, args.variant, seed, device)
     now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     output_dir = args.output_dir or os.path.join(
@@ -312,12 +340,32 @@ def main(argv=None) -> list[dict]:
             and os.path.samefile(args.cfg_file, cfg_copy)):
         shutil.copyfile(args.cfg_file, cfg_copy)
 
-    if not cfg.TRAIN.FLAG:
+    if mode is not None:
+        print(f"coco-attngan {mode} on {device}: gf {mcfg.gf_dim}, "
+              f"{mcfg.branch_num} branches, seed {seed}, "
+              f"{'bf16' if args.bf16 else 'float32'}; data {cfg.DATA_DIR}; "
+              f"output {output_dir}", flush=True)
+        run_attngan_eval(cfg, mcfg, output_dir, mode, device=device,
+                         seed=seed)
+        return []
+    if not training:
         sample_stage1(args, cfg, mcfg, output_dir, args.variant, seed,
                       device=device)
         return []
     if not args.resume:
         snapshot_sources(output_dir)
+    if damsm:
+        print(f"damsm on {device}: embedding {mcfg.embedding_dim}, "
+              f"{cfg.TEXT.WORDS_NUM} words, "
+              f"{cfg.TREE.BASE_SIZE * 2 ** (cfg.TREE.BRANCH_NUM - 1)}px, "
+              f"batch {cfg.TRAIN.BATCH_SIZE}, ENCODER_LR "
+              f"{cfg.TRAIN.ENCODER_LR:g}, RNN_GRAD_CLIP "
+              f"{cfg.TRAIN.RNN_GRAD_CLIP:g}, seed {seed}, "
+              f"{'bf16' if args.bf16 else 'float32'}; data {cfg.DATA_DIR}; "
+              f"output {output_dir}", flush=True)
+        return run_damsm(cfg, output_dir, device=device, seed=seed,
+                         compute_dtype=dtype, max_epochs=args.max_epochs,
+                         resume_dir=args.resume or None)
     if attn:
         print(f"coco-attngan on {device}: gf {mcfg.gf_dim}, df "
               f"{mcfg.df_dim}, R_NUM {mcfg.r_num}, {mcfg.branch_num} "

@@ -11,8 +11,10 @@ with the standard library, so the port needs no PyYAML (the card's machine
 has none).
 
 Variants are named as the CLIs name them (``multi-mnist``, ``clevr``,
-``coco-stackgan-1``, ``coco-stackgan-2``, ``coco-attngan``); the default tree of both COCO
-stages is the stackgan one, ``coco-stackgan``, as in the JAX package.
+``coco-stackgan-1``, ``coco-stackgan-2``, ``coco-attngan``, ``damsm``);
+the default tree of both COCO stages is the stackgan one,
+``coco-stackgan``, and DAMSM pretraining reads AttnGAN's, as in the JAX
+package (``cli/main.py:196-201``).
 """
 
 from __future__ import annotations
@@ -161,7 +163,8 @@ DEFAULTS: dict[str, dict] = {
 # the CLIs' variant names -> default trees and model presets
 _TREES = {"multi-mnist": "multi-mnist", "clevr": "clevr",
           "coco-stackgan-1": "coco-stackgan",
-          "coco-stackgan-2": "coco-stackgan", "coco-attngan": "coco-attngan"}
+          "coco-stackgan-2": "coco-stackgan", "coco-attngan": "coco-attngan",
+          "damsm": "coco-attngan"}
 _PRESETS = {"multi-mnist": common.MNIST, "clevr": common.CLEVR,
             "coco-stackgan-1": common.COCO_S1}
 
@@ -371,7 +374,10 @@ class AttnGanTrainSettings:
     ``cli/attngan_runner.py:185-331``): the TRAIN block's batch, epochs,
     learning rates (never decayed), snapshot interval, SMOOTH (the DAMSM
     gammas and LAMBDA), NET_G, NET_E and B_NET_D, and the data's TEXT and
-    TREE settings."""
+    TREE settings. DAMSM pretraining (``cli/damsm_runner.py``; its cfg
+    reads the coco-attngan tree) reads the same, and besides the encoders'
+    learning rate ENCODER_LR (x0.98 an epoch, floored at a tenth), the
+    text encoder's gradient clip RNN_GRAD_CLIP and EMBEDDING_DIM."""
     batch_size: int
     max_epoch: int
     generator_lr: float
@@ -385,6 +391,9 @@ class AttnGanTrainSettings:
     captions_per_image: int
     base_size: int
     branch_num: int
+    encoder_lr: float
+    rnn_grad_clip: float
+    embedding_dim: int
 
 
 def attngan_train_settings(cfg: Config) -> AttnGanTrainSettings:
@@ -399,4 +408,7 @@ def attngan_train_settings(cfg: Config) -> AttnGanTrainSettings:
         words_num=int(cfg.TEXT.WORDS_NUM),
         captions_per_image=int(cfg.TEXT.CAPTIONS_PER_IMAGE),
         base_size=int(cfg.TREE.BASE_SIZE),
-        branch_num=int(cfg.TREE.BRANCH_NUM))
+        branch_num=int(cfg.TREE.BRANCH_NUM),
+        encoder_lr=float(t.ENCODER_LR), rnn_grad_clip=float(t.RNN_GRAD_CLIP),
+        embedding_dim=int(cfg.TEXT.EMBEDDING_DIM))
+

@@ -15,7 +15,8 @@ JAX package writes.
 
 COCO's JPEGs wait for the JPEG reader: the card's machine has no JPEG
 decoder or encoder, so :func:`write_synthetic_attngan` writes no image.
-Training runs on :class:`AttnGanTrainSet`: the synthetic set's 268x268
+Training, DAMSM pretraining and its eval split, and the sampler run on
+:class:`AttnGanTrainSet`, one split of the synthetic set: its 268x268
 pixels as the JAX writer draws them before its JPEG encode
 (:func:`synthetic_attngan_images`), held in memory, and per item the
 reader's draws from its ``RandomState`` in its order (get_imgs and
@@ -237,23 +238,24 @@ def synthetic_attngan_images(n: int = 32, seed: int = 0,
 
 
 def synthetic_train_images(data_dir: str, seed: int,
-                           captions_per_image: int = 5,
-                           vocab: int = 50) -> np.ndarray:
-    """The train images of the synthetic set in ``data_dir``, written by
-    :func:`write_synthetic_attngan` with ``seed``: its stream drawn again
-    for as many items as the split holds. Raises ``ValueError`` when the
-    boxes drawn are not the split's (another seed, or a set this writer did
-    not write, such as COCO's, whose JPEGs the port cannot read yet)."""
-    split_dir = os.path.join(data_dir, "train")
+                           captions_per_image: int = 5, vocab: int = 50,
+                           split: str = "train") -> np.ndarray:
+    """The images of ``split`` (the train split by default) of the
+    synthetic set in ``data_dir``, written by :func:`write_synthetic_attngan`
+    with ``seed``: its stream drawn again for as many items as the train
+    split holds. Raises ``ValueError`` when the boxes drawn are not the
+    split's (another seed, or a set this writer did not write, such as
+    COCO's, whose JPEGs the port cannot read yet)."""
+    split_dir = os.path.join(data_dir, split)
     n = len(_load_filenames(data_dir, "train"))
-    if n == 0:
-        raise ValueError(f"no train split under {data_dir}")
+    if n == 0 or not os.path.isdir(split_dir):
+        raise ValueError(f"no train or {split} split under {data_dir}")
     want = np.array(load_pickle(os.path.join(split_dir, "bboxes.pickle")),
                     np.float32)
     images, boxes = [], []
     for s, _, img, bb, *_ in _synthetic_items(n, seed, captions_per_image,
                                               vocab):
-        if s == "train":
+        if s == split:
             images.append(img)
             boxes.append(bb)
     if not np.array_equal(np.stack(boxes), want):
@@ -298,15 +300,19 @@ def _scale_bbox(bbox: np.ndarray, h1: int, w1: int, flip: bool
 
 
 class AttnGanTrainSet:
-    """The train split held in memory, batched in the JAX reader's order.
+    """One split (``train`` or ``test``) held in memory, batched in the JAX
+    reader's order.
 
     ``images`` (items, 268, 268, 3) uint8 are the split's pixels in
     filename order (:func:`synthetic_attngan_images`); the captions, boxes
-    and labels are :class:`AttnGanDataset`'s. :meth:`get_batch` gives what
+    and labels are :class:`AttnGanDataset`'s. Each split draws its crops,
+    flips and captions as the JAX reader of that split does, from its own
+    ``RandomState``. :meth:`get_batch` gives what
     the JAX reader's ``get_batch`` gives for the same indices:
     ``image{64,128,256}`` (uint8 NHWC), ``bbox``, ``label_onehot``,
     ``captions`` (B, words_num) int64 zero-padded, ``cap_lens`` and
-    ``class_ids`` (arange, or ``class_info.pickle`` where there is one).
+    ``class_ids`` (arange, or the split's ``class_info.pickle`` where there
+    is one); with BASE_SIZE 256 and BRANCH_NUM 1 ``image256`` alone.
     The draws come from one ``RandomState(seed)`` carried across epochs;
     :meth:`rng_state` and :meth:`set_rng_state` carry it through a
     checkpoint, so a resumed run draws what an uninterrupted one draws.
@@ -315,8 +321,8 @@ class AttnGanTrainSet:
     def __init__(self, data_dir: str, images: np.ndarray,
                  base_size: int = 64, branch_num: int = 3,
                  captions_per_image: int = 5, words_num: int = 12,
-                 seed: int = 0):
-        self.text = AttnGanDataset(data_dir, "train", captions_per_image)
+                 seed: int = 0, split: str = "train"):
+        self.text = AttnGanDataset(data_dir, split, captions_per_image)
         if images.shape[1:] != (LOAD_SIZE, LOAD_SIZE, 3) or \
                 len(images) != len(self.text):
             raise ValueError(f"{len(self.text)} images of {LOAD_SIZE}x"
@@ -326,7 +332,7 @@ class AttnGanTrainSet:
         self.words_num = words_num
         self.imsizes = [base_size * (2 ** i) for i in range(branch_num)]
         self._rng = np.random.RandomState(seed)
-        cls_path = os.path.join(data_dir, "train", "class_info.pickle")
+        cls_path = os.path.join(data_dir, split, "class_info.pickle")
         self.class_id = (np.asarray(load_pickle(cls_path))
                          if os.path.isfile(cls_path)
                          else np.arange(len(self.text)))
@@ -337,6 +343,10 @@ class AttnGanTrainSet:
     @property
     def ixtoword(self) -> dict:
         return self.text.ixtoword
+
+    @property
+    def wordtoix(self) -> dict:
+        return self.text.wordtoix
 
     @property
     def n_words(self) -> int:
@@ -395,3 +405,16 @@ class AttnGanTrainSet:
                              state["keys"].numpy().astype(np.uint32),
                              state["pos"], state["has_gauss"],
                              state["cached_gaussian"]))
+
+
+def synthetic_split(data_dir: str, st, seed: int,
+                    split: str = "train") -> AttnGanTrainSet:
+    """``split`` of the synthetic set in ``data_dir`` (written with
+    ``seed``) held in memory, at the TEXT and TREE settings of ``st`` (a
+    ``config.AttnGanTrainSettings``), its draws from ``seed``."""
+    return AttnGanTrainSet(
+        data_dir, synthetic_train_images(data_dir, seed,
+                                         st.captions_per_image, split=split),
+        base_size=st.base_size, branch_num=st.branch_num,
+        captions_per_image=st.captions_per_image, words_num=st.words_num,
+        seed=seed, split=split)

@@ -131,21 +131,24 @@ class ClevrDataset:
 
 
 class Loader:
-    """Shuffled (``seed + epoch``), drop-last batches of numpy arrays,
-    assembled by a prefetch thread ``PREFETCH`` batches ahead. An error in
-    the thread is raised in the consumer."""
+    """Shuffled (``seed + epoch``; in order without ``shuffle``), drop-last
+    batches of numpy arrays, assembled by a prefetch thread ``PREFETCH``
+    batches ahead. An error in the thread is raised in the consumer."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 shuffle: bool = True):
         self.ds = dataset
         self.bs = batch_size
         self.seed = seed
+        self.shuffle = shuffle
 
     def __len__(self) -> int:
         return len(self.ds) // self.bs
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
         order = np.arange(len(self.ds))
-        np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch_idx).shuffle(order)
         n_batches = len(self)
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         get_batch = getattr(self.ds, "get_batch", None)

@@ -1,14 +1,16 @@
 """Checkpoints of a training run, newest five kept (the port's counterpart
 of the JAX package's orbax ``io/checkpoint.py:CheckpointManager``), for
-the stage-1 and stage-2 state and AttnGAN's.
+the stage-1 and stage-2 state, AttnGAN's and DAMSM pretraining's.
 
 Parity target: the reference's save_model with its keep-newest-5 rotation
 (code/multi-mnist/miscc/utils.py:160-174). As in the JAX package the whole
 training state is saved, so a resume continues exactly: G and D with every
 BatchNorm buffer, both Adam states, the step and the epoch, and the state
 of the train step's ``torch.Generator``; for AttnGAN every D and its Adam,
-and G's EMA (``train/state.py:AttnGanTrainState``). ``extra`` holds what
-else the run needs back, such as the AttnGAN train set's random state. The JAX step draws its noise from
+and G's EMA (``train/state.py:AttnGanTrainState``); for DAMSM both
+encoders, the frozen backbone's buffers included, and the one Adam
+(``DamsmTrainState``). ``extra`` holds what else the run needs back, such
+as the AttnGAN train set's random state (and DAMSM's eval split's). The JAX step draws its noise from
 ``fold_in(rng, step)``, so a resumed JAX run draws what an uninterrupted
 one draws; the port's generator is carried from step to step instead, and
 its state is what makes the resumed run draw the same noise.
@@ -28,9 +30,9 @@ import torch
 
 from multiple_objects_gan_tpu_torch.io.pycompat import torch_load
 from multiple_objects_gan_tpu_torch.train.state import (
-    AttnGanTrainState, GANTrainState)
+    AttnGanTrainState, DamsmTrainState, GANTrainState)
 
-TrainState = Union[GANTrainState, AttnGanTrainState]
+TrainState = Union[GANTrainState, AttnGanTrainState, DamsmTrainState]
 
 STATE_FILE = "state.pth"
 MAX_TO_KEEP = 5             # the newest checkpoints a run keeps

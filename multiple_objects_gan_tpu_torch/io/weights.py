@@ -340,6 +340,46 @@ def load_image_encoder(path: str) -> dict[str, torch.Tensor]:
     return load_text_encoder(path)
 
 
+# a torchvision inception_v3 state dict's modules the image encoder lacks
+INCEPTION_EXTRA_PREFIXES = ("AuxLogits.", "fc.")
+DAMSM_HEADS = ("emb_features.", "emb_cnn_code.")
+
+
+def load_inception_backbone(image_encoder: nn.Module, path: str) -> None:
+    """Load a torchvision ``inception_v3`` state dict (ImageNet weights,
+    ``$INCEPTION_V3_WEIGHTS``) into the CNNEncoder's backbone, in place:
+    its ``AuxLogits.`` and ``fc.`` keys are dropped and the two heads keep
+    their values (JAX ``io/damsm_import.py:import_image_encoder`` with
+    ``skip_prefixes``). Any other key the two do not share raises."""
+    sd = {k: v for k, v in load_text_encoder(path).items()
+          if not k.startswith(INCEPTION_EXTRA_PREFIXES)}
+    missing, unexpected = image_encoder.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.startswith(DAMSM_HEADS)]
+    if missing or unexpected:
+        raise KeyError(f"{path}: not an inception_v3 backbone (missing "
+                       f"{missing[:5]}, unexpected {unexpected[:5]})")
+
+
+def export_damsm_encoders(text_encoder: nn.Module, image_encoder: nn.Module,
+                          directory: str, epoch: int) -> tuple[str, str]:
+    """Write ``<directory>/text_encoder<epoch>.pth`` and
+    ``image_encoder<epoch>.pth``: each encoder's state dict on the CPU
+    (the reference's keys, ``num_batches_tracked`` kept), the format of the
+    published DAMSM files, which :func:`load_text_encoder` and
+    :func:`load_image_encoder` read for ``build_text_encoder`` and
+    ``build_image_encoder`` with strict=True, and JAX ``io/damsm_import``
+    reads too. Returns the two paths."""
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for name, module in (("text_encoder", text_encoder),
+                         ("image_encoder", image_encoder)):
+        path = os.path.join(directory, f"{name}{epoch}.pth")
+        torch.save({k: v.detach().cpu().clone()
+                    for k, v in module.state_dict().items()}, path)
+        paths.append(path)
+    return paths[0], paths[1]
+
+
 def load_reference_attngan_d(path: str) -> dict[str, torch.Tensor]:
     """A reference ``netD{i}.pth`` (a bare D_NET64/128/256 state dict, as
     code/coco/attngan/trainer.py:119-126 reads it, or ``{'netD': ...}``),

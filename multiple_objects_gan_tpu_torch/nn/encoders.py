@@ -3,8 +3,9 @@
 
 Reference RNN_ENCODER (code/coco/attngan/model.py:120-204): a word
 embedding of ``ninput`` (300) and a one-layer bidirectional LSTM with
-``nhidden // 2`` (128) units a direction. Its dropout acts in training
-only, which waits for the train slice. The words' embeddings
+``nhidden // 2`` (128) units a direction, and ``nn.Dropout(0.5)`` on the
+word embedding, which acts in ``train()`` mode only (DAMSM pretraining;
+every other path keeps the encoder in ``eval()``). The words' embeddings
 are the LSTM's outputs at every step, the sentence's the two directions'
 final states side by side.
 
@@ -48,6 +49,10 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.nn.blocks import BatchNorm2d, Conv2d
 
+# The embedding dropout's probability: upstream RNN_ENCODER's
+# nn.Dropout(0.5), JAX ``RNNEncoder``'s 0.5.
+DROP_PROB = 0.5
+
 
 class RNNEncoder(nn.Module):
     """Bi-LSTM text encoder.
@@ -55,6 +60,14 @@ class RNNEncoder(nn.Module):
     ``forward(captions (B, T) int64, cap_lens (B,))`` returns (words_emb
     (B, T, nhidden), sent_emb (B, nhidden)); padded word positions are
     zero. Every length must be in 1..T.
+
+    In ``train()`` mode the embedding goes through dropout with
+    ``DROP_PROB``: a keep mask of the embedding's shape (B, T, ninput),
+    drawn from ``generator`` on the embedding's device, or the ``keep``
+    given (the tests pass the JAX mask, ``jax.random.bernoulli(rng, 1 -
+    DROP_PROB, shape)``); the kept values are scaled by 1 / (1 -
+    DROP_PROB), as JAX ``RNNEncoder(train=True)`` and ``nn.Dropout`` do.
+    The LSTM has one layer and so no dropout of its own.
     """
 
     def __init__(self, ntoken: int, ninput: int = 300, nhidden: int = 256):
@@ -63,13 +76,21 @@ class RNNEncoder(nn.Module):
         self.rnn = nn.LSTM(ninput, nhidden // 2, num_layers=1,
                            batch_first=True, bidirectional=True)
 
-    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor):
+    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor, *,
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         t = captions.shape[1]
         lens = cap_lens.to("cpu", torch.int64)
         if int(lens.min()) < 1 or int(lens.max()) > t:
             raise ValueError(f"caption lengths must be in 1..{t}, got "
                              f"{lens.tolist()}")
         emb = self.encoder(captions.long())
+        if self.training:
+            if keep is None:
+                keep = torch.rand(emb.shape, generator=generator,
+                                  device=emb.device) < 1.0 - DROP_PROB
+            emb = torch.where(keep.to(emb.device),
+                              emb / (1.0 - DROP_PROB), 0.0)
         packed = pack_padded_sequence(emb, lens, batch_first=True,
                                       enforce_sorted=False)
         out, (h_n, _) = self.rnn(packed)

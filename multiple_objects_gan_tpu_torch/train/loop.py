@@ -5,7 +5,8 @@ Parity target: GANTrainer.train (code/multi-mnist/trainer.py:75-206):
 
 * both learning rates are halved every ``lr_decay_epochs`` epochs,
   computed from the epoch index, so a resumed run lands where a fresh run
-  would be (trainer.py:105-111);
+  would be (trainer.py:105-111), or set by an ``lr_fn(epoch)`` (DAMSM's
+  x0.98 an epoch);
 * scalars at the first step of every epoch and every ``LOG_EVERY`` steps
   within it, keyed by the global step (``utils/logging.py``);
 * one line an epoch, with the mean of each loss over its steps;
@@ -70,28 +71,35 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
                writer: Optional[MetricWriter] = None,
                epoch_end_fn: Optional[Callable] = None,
                step_hook: Optional[Callable] = None,
-               checkpoint_extra: Optional[Callable] = None) -> list[dict]:
+               checkpoint_extra: Optional[Callable] = None,
+               lr_fn: Optional[Callable] = None) -> list[dict]:
     """Train epochs ``start_epoch`` .. ``n_epochs - 1`` over
     ``loader.epoch(epoch)``. ``step_fn(state, batch, generator, lr_g,
     lr_d) -> metrics`` updates ``state`` in place; ``step_hook(state,
-    batch, step)`` runs after every step, with the global step it took; ``epoch_end_fn(state, last_batch, epoch)`` runs after each
-    epoch; ``checkpoint_extra()`` gives a checkpoint's ``extra``. Returns
-    one dict of mean losses (floats) per epoch, with its step count and
-    wall time."""
+    batch, step)`` runs after every step, with the global step it took;
+    ``epoch_end_fn(state, last_batch, epoch)`` runs after each epoch;
+    ``checkpoint_extra()`` gives a checkpoint's ``extra``; ``lr_fn(epoch)
+    -> (lr_g, lr_d)``, when given, replaces ``lr_g``, ``lr_d`` and their
+    halving. Returns one dict of mean losses (floats) per epoch, with its
+    step count and wall time."""
     if len(loader) == 0:
         raise ValueError(f"the loader makes no batch of {loader.bs}: no "
                          "training would run")
-    device = next(state.g.parameters()).device
+    device = state_device(state)
     history = []
     for epoch in range(start_epoch, n_epochs):
         t0 = time.perf_counter()
-        f = 0.5 ** (epoch // lr_decay_epochs) if lr_decay_epochs else 1.0
+        if lr_fn is not None:
+            lr_g_e, lr_d_e = lr_fn(epoch)
+        else:
+            f = 0.5 ** (epoch // lr_decay_epochs) if lr_decay_epochs else 1.0
+            lr_g_e, lr_d_e = lr_g * f, lr_d * f
         sums: dict = {}
         last_batch, n_steps = None, 0
         for i, batch in enumerate(loader.epoch(epoch)):
             batch = to_device(batch, device)
             step = state.step
-            metrics = step_fn(state, batch, generator, lr_g * f, lr_d * f)
+            metrics = step_fn(state, batch, generator, lr_g_e, lr_d_e)
             if writer is not None and i % LOG_EVERY == 0:
                 writer.scalars(step, {k: float(v)
                                       for k, v in metrics.items()})
@@ -106,7 +114,7 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
         history.append(means)
         print(f"[{epoch}/{n_epochs}] "
               + " ".join(f"{k}={means[k]:.4f}" for k in sorted(sums))
-              + f" lr_g={lr_g * f:g} lr_d={lr_d * f:g} steps={n_steps}"
+              + f" lr_g={lr_g_e:g} lr_d={lr_d_e:g} steps={n_steps}"
               f" time={means['seconds']:.1f}s", flush=True)
         if epoch_end_fn is not None:
             epoch_end_fn(state, last_batch, epoch)
@@ -116,6 +124,14 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
                       None if checkpoint_extra is None
                       else checkpoint_extra())
     return history
+
+
+def state_device(state) -> torch.device:
+    """The device of a train state: that of the first module it holds."""
+    for value in vars(state).values():
+        if isinstance(value, torch.nn.Module):
+            return next(value.parameters()).device
+    raise ValueError(f"{type(state).__name__} holds no module")
 
 
 def grid_noise(seed: int, epoch: int, b: int, z_dim: int,

@@ -12,7 +12,14 @@ AttnGAN's state (:class:`AttnGanTrainState`) holds G, one D a branch
 (``d64``, ``d128``, ``d256``), G's Adam and one Adam a D (the reference's
 per-D optimizers, code/coco/attngan/trainer.py:137-159), and the EMA of
 G's parameters (trainer.py:341-342); the frozen DAMSM encoders stay
-outside it. Each state gives its checkpoint contents
+outside it.
+
+DAMSM pretraining's state (:class:`DamsmTrainState`, JAX
+``train/damsm_step.py:DAMSMTrainState``) holds the text encoder, the whole
+image encoder (its frozen Inception backbone and BatchNorm buffers too, so
+that a checkpoint restores it byte for byte) and one Adam over the text
+encoder's parameters and the image encoder's two heads alone
+(:data:`TRAINABLE_IMAGE_KEYS`). Each state gives its checkpoint contents
 (:meth:`checkpoint_dict`) and takes them back
 (:meth:`load_checkpoint_dict`).
 """
@@ -31,6 +38,11 @@ from multiple_objects_gan_tpu_torch.models.stage1 import (
     Stage1D, Stage1G, build_stage1_d, build_stage1_g)
 from multiple_objects_gan_tpu_torch.models.stage2 import (
     Stage2D, Stage2G, build_stage2_d, build_stage2_g)
+from multiple_objects_gan_tpu_torch.nn.encoders import CNNEncoder, RNNEncoder
+
+# the image encoder's modules DAMSM pretraining trains (upstream
+# pretrain_DAMSM.py re-enables these two; JAX damsm_step.py:41)
+TRAINABLE_IMAGE_KEYS = ("emb_features", "emb_cnn_code")
 
 
 @dataclasses.dataclass
@@ -86,6 +98,26 @@ class AttnGanTrainState:
         with torch.no_grad():
             for k, v in self.g_ema.items():
                 v.copy_(ckpt["g_ema"][k])
+        self.step = int(ckpt["step"])
+
+
+@dataclasses.dataclass
+class DamsmTrainState:
+    text: RNNEncoder
+    image: CNNEncoder
+    opt: torch.optim.Adam
+    step: int = 0
+
+    def checkpoint_dict(self) -> dict:
+        return {"step": self.step, "text": self.text.state_dict(),
+                "image": self.image.state_dict(),
+                "opt": self.opt.state_dict()}
+
+    def load_checkpoint_dict(self, ckpt: dict) -> None:
+        """Strict, in place."""
+        self.text.load_state_dict(ckpt["text"])
+        self.image.load_state_dict(ckpt["image"])
+        self.opt.load_state_dict(ckpt["opt"])
         self.step = int(ckpt["step"])
 
 
@@ -148,3 +180,17 @@ def create_attngan_state(cfg: AttnGanConfig, *, seed: int = 0,
         g=g, ds=ds, g_opt=make_optimizer(g.parameters()),
         d_opts={n: make_optimizer(d.parameters()) for n, d in ds.items()},
         g_ema=ema_of(g))
+
+
+def create_damsm_state(text: RNNEncoder, image: CNNEncoder
+                       ) -> DamsmTrainState:
+    """DAMSM pretraining's state over the given encoders (JAX
+    ``create_damsm_state``): every parameter of ``text`` and of the image
+    encoder's :data:`TRAINABLE_IMAGE_KEYS` heads takes a gradient, the
+    backbone none; one fresh Adam over those, step 0."""
+    text.requires_grad_(True)
+    image.requires_grad_(False)
+    heads = [p for k in TRAINABLE_IMAGE_KEYS
+             for p in getattr(image, k).requires_grad_(True).parameters()]
+    return DamsmTrainState(text=text, image=image,
+                           opt=make_optimizer([*text.parameters(), *heads]))

@@ -111,6 +111,15 @@ def save_grid(images, path: str, nrow: int = 8) -> None:
         f.write(png_bytes(make_grid(images, nrow=nrow)))
 
 
+def save_image(img, path: str) -> None:
+    """One (H, W, C) image in [-1, 1] (or uint8) written to ``path`` as a
+    PNG, its pixels rounded as the JAX package's ``to_uint8`` rounds them
+    before PIL saves them (``cli/attngan_runner.py:gen_example``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png_bytes(_tile_uint8(img)))
+
+
 def draw_bboxes(img_uint8: np.ndarray, bboxes, color=(220, 30, 30)
                 ) -> np.ndarray:
     """A copy of (H, W, 3) uint8 with the 1-pixel outline of each
