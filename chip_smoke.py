@@ -14,9 +14,12 @@ COCO AttnGAN (runs_r5/attngan_flagship: netG_ema_final.pth and
 damsm/DAMSMencoders/text_encoder29.pth), 33-36 train it at the widths
 of cfg/coco_attn_train.yml from the flagship's EMA G, its DAMSM encoders
 (image_encoder29.pth too) and seeded Ds, 37-39 pretrain the DAMSM
-encoders at cfg/coco_damsm.yml's widths, and 40 runs AttnGAN's eval modes
-sample and gen_example from the flagship files. The train entries' data
-and runs go to a temporary directory, removed at the end. Phases, each logged with the
+encoders at cfg/coco_damsm.yml's widths, 40 runs AttnGAN's eval modes
+sample and gen_example from the flagship files, and 41-43 read COCO from
+disk: the JPEG codecs, both StackGAN stages, AttnGAN and DAMSM trained
+from disk, and stage-2 sampling. Every COCO entry reads its JPEGs from
+disk (nvjpeg on the card). The train entries' data and runs go to a
+temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
@@ -90,7 +93,8 @@ elapsed time:
                 median of FAMILY_TIME_RUNS CUDA-event readings, peak
                 memory, K1 and K2 launches per step;
  19. fentry   - the train entry for one synthetic epoch of clevr (float32)
-                and of coco-stackgan-1 (--bf16), with K1, K2 and K4 launches;
+                and of coco-stackgan-1 (--bf16, its JPEGs from disk), with
+                K1, K2 and K4 launches;
  20. fserve   - each family's Stage1G card against CPU at batch 64, and its
                 service over HTTP on the card (clevr: four two-hot objects;
                 coco: text embeddings), the served PNGs against the CPU
@@ -136,8 +140,9 @@ elapsed time:
                 CUDA events, images/s, peak memory, K1 and K2 launches a
                 step (5 and 4), the frozen G1's share;
  28. s2entry  - cli/main.py --variant coco-stackgan-2 --synthetic for one
-                epoch on the card, STAGE1_G a reference-format .pth the
-                phase writes, its artifacts, and a resume to epoch 2;
+                epoch on the card from disk, STAGE1_G a reference-format
+                .pth the phase writes, its artifacts, and a resume to epoch
+                2 (the run is kept for phase 43);
  29. s2serve  - G1 + G2 eval card against CPU at batch 4, and
                 Stage2Service over HTTP: 256px PNGs against the CPU's
                 images of the same items and draws, a bboxes_s2 override,
@@ -186,7 +191,8 @@ elapsed time:
                 events, images/s, peak memory, K1 and K2 launches a step (4
                 and 4), GFLOP a step (torch.utils.flop_counter) and the
                 device's time by kernel group (torch.profiler);
- 36. attnentry - cli/main.py --variant coco-attngan --synthetic from a
+ 36. attnentry - cli/main.py --variant coco-attngan --synthetic (JPEGs on
+                disk) from a
                 copy of coco_attn_full.yml (the flagship EMA G as NET_G,
                 B_NET_D False, the flagship NET_E): 3 epochs with their
                 montages, grids, run_flags.json provenance and
@@ -205,7 +211,8 @@ elapsed time:
                 (torch.utils.flop_counter) and the device's busy share and
                 kernel groups (torch.profiler);
  39. damsmentry - cli/main.py --variant damsm --cfg cfg/coco_damsm.yml
-                --synthetic on a set of 192 items (a test split of 48, so
+                --synthetic on a set of 192 items on disk (a test split of
+                48, so
                 the eval runs): 3 epochs with their .pth pairs, eval
                 records and checkpoints; a resume from the epoch-1
                 checkpoint held against it; one epoch with --bf16; no K1
@@ -220,9 +227,33 @@ elapsed time:
                 the entry's PNG; K1 at the sampler's (9,3,192,16²) with the
                 third object padded and gen_example's (8,3,192,16²) held
                 against its plain version, timed cold in turns and on the
-                device alone beside the bound.
+                device alone beside the bound;
+ 41. jpeg     - the writers' images (96x96, 268x268, gray, 4:4:4, 4:2:2,
+                odd sizes): nvjpeg's decode against the numpy decoder (max
+                and mean levels, and against chroma replicated), the same
+                pixels on an idle card and behind a queue of work, the round
+                trip through both encoders, a truncated and a progressive
+                file raising on the card and the CPU, a garbled scan, and
+                the decode ms an image at batch 128 of 96x96 and 14 of
+                268x268 with the PIL-exact resize on the card and the host;
+ 42. cocodisk - both StackGAN stages, AttnGAN and DAMSM at full width, one
+                epoch each from disk (nvjpeg in the Loader's thread) in
+                turns with the same epoch held on the card, host clock; the
+                card reader's boxes, labels, captions and embeddings equal
+                to the numpy path's from the same seed, its images within
+                the nvjpeg bound; K1/K2 launches an epoch;
+ 43. s2sample - cli/main.py --variant coco-stackgan-2 with TRAIN.FLAG False
+                from phase 28's run directory: the val_captions.t7 branch
+                and the test-split branch, 25 grids each, timed, two K1
+                launches a grid; the first grid's fakes card against CPU
+                and against the entry's PNG; K1 at the sampler's
+                (9,3,384,16²) -> 16² and (9,3,192,64²) -> 64² held and
+                timed cold in turns and on the device alone.
 
-The line before the last is {"kernels": [...]}; the last is
+After the phases come three lines: {"kernel_details": ...} (every
+kernel reading), {"summary": ...} (under 4 KB: the step medians of every
+path, decode and from-disk epoch times, each phase's wall time) and
+{"kernels": [...]}, the line before the last; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero; without a card it exits non-zero and prints no result.
 """
@@ -261,14 +292,21 @@ from multiple_objects_gan_tpu_torch.cli.stage2_runner import stage2_images
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_model_config, attngan_train_settings, cfg_from_file,
     stage1_model_config, stage2_model_config, train_settings)
+from multiple_objects_gan_tpu_torch.cli.stage2_runner import (
+    sample_inputs, sampling_generators)
+from multiple_objects_gan_tpu_torch.data import attngan as attn_data
+from multiple_objects_gan_tpu_torch.data import coco as coco_data
+from multiple_objects_gan_tpu_torch.data import jpeg, nvjpeg
 from multiple_objects_gan_tpu_torch.data.attngan import (
-    AttnGanDataset, AttnGanTrainSet, synthetic_train_images,
-    write_synthetic_attngan)
+    AttnGanDataset, AttnGanTrainSet, write_synthetic_attngan)
+from multiple_objects_gan_tpu_torch.data.coco import (
+    CocoStackganDataset, write_synthetic_coco)
 from multiple_objects_gan_tpu_torch.data.datasets import (
-    ClevrDataset, MemoryLoader, MultiMnistDataset, write_synthetic_clevr,
-    write_synthetic_multimnist)
+    ClevrDataset, Loader, MemoryLoader, MultiMnistDataset,
+    write_synthetic_clevr, write_synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.data.png import (
-    decode_png, read_png, resize_bilinear)
+    decode_png, read_png, resize_bilinear, resize_bilinear_batch,
+    resize_bilinear_tensor)
 from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_clevr, synthetic_coco, synthetic_coco_stage2,
     synthetic_multimnist)
@@ -299,7 +337,7 @@ from multiple_objects_gan_tpu_torch.train.state import (
 from multiple_objects_gan_tpu_torch.train.step import (
     frozen_forward, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
-    PNG_SIGNATURE, make_grid, png_chunk, to_uint8)
+    PNG_SIGNATURE, draw_bboxes, make_grid, png_chunk, tile_uint8, to_uint8)
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -474,7 +512,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/40 device")
+    log("phase 1/43 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -492,7 +530,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/40 build")
+    log("phase 2/43 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -537,7 +575,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/40 kernel against its plain version, on the card")
+    log("phase 3/43 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -672,7 +710,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/40 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/43 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -755,7 +793,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/40 serve: the port's main path over HTTP, on the card")
+    log("phase 5/43 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -902,7 +940,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/40 grad: K2 (place backward) against its plain version, "
+    log("phase 6/43 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1009,7 +1047,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/40 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/43 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1165,7 +1203,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/40 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/43 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1199,7 +1237,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/40 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/43 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1256,6 +1294,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
                             "--synthetic", "--max_epochs", "1",
                             "--manualSeed", "7", "--device", DEVICE,
                             "--data_dir", os.path.join(WORK, "data", variant),
+                            "--img_dir", os.path.join(WORK, "imgs", variant),
                             "--output_dir", out, *flags])
     torch.cuda.synchronize()
     launches = (k1.launch_count(), k1.grad_launch_count(), k4.launch_count())
@@ -1279,7 +1318,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/40 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/43 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1378,7 +1417,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/40 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/43 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1413,7 +1452,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/40 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/43 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1475,7 +1514,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/40 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/43 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1519,7 +1558,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/40 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/43 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1643,7 +1682,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/40 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/43 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1718,7 +1757,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/40 fstep: one full-width float32 train step of each "
+    log(f"phase 17/43 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1757,7 +1796,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/40 ftime: each family's train step at batch "
+    log("phase 18/43 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1765,13 +1804,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/40 ftime, {key}",
+                                       f"18/43 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/40 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/43 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1808,7 +1847,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/40 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/43 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1960,7 +1999,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/40 probe: the image decoders this machine has, read only "
+    log("phase 21/43 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2214,7 +2253,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/40 disk: the train entries from disk (cli/main.py "
+    log("phase 22/43 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2394,7 +2433,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/40 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/43 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2437,7 +2476,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/40 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/43 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2616,7 +2655,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/40 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/43 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2729,7 +2768,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/40 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/43 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2774,7 +2813,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/40 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/43 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2847,7 +2886,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/40 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/43 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2860,6 +2899,8 @@ def phase_stage2_entry():
         "{'netG': ...}, loaded back strict=True")
     cfg_file = _stage2_cfg_file(stage1_g)
     out = os.path.join(WORK, "entry", "coco-stackgan-2")
+    data = os.path.join(WORK, "data", "coco-stackgan-2")
+    imgs = os.path.join(WORK, "imgs", "coco-stackgan-2")
     batch = train_settings(cfg_from_file(cfg_file,
                                          "coco-stackgan-2")).batch_size
     steps = train_main.synthetic_items("coco-stackgan-2", batch) // batch
@@ -2873,7 +2914,8 @@ def phase_stage2_entry():
             f"coco-stackgan-2, epochs to {epochs}",
             ["--variant", "coco-stackgan-2", "--cfg", cfg_file, "--synthetic",
              "--max_epochs", str(epochs), "--manualSeed", "7",
-             "--output_dir", out, *extra])
+             "--data_dir", data, "--img_dir", imgs, "--output_dir", out,
+             *extra])
         launches[key] = (*got, k4.launch_count())
         check(len(hist) == 1 and hist[0]["steps"] == steps,
               f"one epoch of {steps} steps expected, got {hist}")
@@ -2905,9 +2947,10 @@ def phase_stage2_entry():
     check(CheckpointManager(os.path.join(out, "models")).load()[0]["step"]
           == 2 * steps, "the resumed run's checkpoint step")
     log(f"  artifacts: {', '.join(want_files)}; the epoch grid "
-        f"{grid.shape[1]}x{grid.shape[0]} (4 x 4 tiles of 256px)")
-    shutil.rmtree(out)
-    return launches
+        f"{grid.shape[1]}x{grid.shape[0]} (4 x 4 tiles of 256px); the run "
+        "is kept for phase 43's sampler")
+    return launches, {"run": out, "stage1_g": stage1_g, "data": data,
+                      "imgs": imgs}
 
 
 def _png_rgb(b64):
@@ -2918,7 +2961,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/40 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/43 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3043,13 +3086,15 @@ FLAGSHIP_SEPARATION = 0.987  # runs_r5/attngan_flagship/result.json
 
 
 def _attn_set():
-    """The flagship's synthetic set, text side, in the work directory:
-    write_synthetic_attngan(n=2048, seed=7), the vocabulary held to the
-    encoder's 140 rows."""
+    """The flagship's synthetic set in the work directory:
+    write_synthetic_attngan(n=2048, seed=7) with its JPEGs (nvjpeg's
+    encoder, ``<data>_imgs``), the vocabulary held to the encoder's 140
+    rows."""
     data = os.path.join(WORK, "attngan_data")
     t = time.perf_counter()
     if not os.path.isdir(data):
-        write_synthetic_attngan(data, n=ATTN_SET[0], seed=ATTN_SET[1])
+        write_synthetic_attngan(data, data + "_imgs", n=ATTN_SET[0],
+                                seed=ATTN_SET[1], device=DEVICE)
     ds = AttnGanDataset(data, split="test", captions_per_image=5)
     rows = load_text_encoder(ATTN_NET_E)["encoder.weight"].shape[0]
     log(f"  write_synthetic_attngan(n={ATTN_SET[0]}, seed={ATTN_SET[1]}) "
@@ -3081,7 +3126,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/40 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/43 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3171,7 +3216,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/40 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/43 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3280,7 +3325,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/40 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/43 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3425,7 +3470,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/40 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/43 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3530,7 +3575,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/40 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/43 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3600,7 +3645,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/40 attntime: the AttnGAN step at batch "
+    log(f"phase 35/43 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3738,7 +3783,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/40 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/43 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3749,7 +3794,8 @@ def phase_attn_entry():
     items = train_main.synthetic_items("coco-attngan", ATTN_TRAIN_BATCH)
     steps = items // ATTN_TRAIN_BATCH
     base = ["--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
-            data, "--synthetic", "--manualSeed", "7"]
+            data, "--img_dir", data + "_imgs", "--synthetic", "--manualSeed",
+            "7"]
     launches = {}
 
     def entry(key, name, out, epochs, *extra):
@@ -3884,7 +3930,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/40 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/43 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -3923,7 +3969,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/40 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/43 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -3995,21 +4041,23 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/40 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/43 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
         "the exported pair as AttnGAN's NET_E for one train step")
     data = os.path.join(WORK, "damsm_data")
     t = time.perf_counter()
-    write_synthetic_attngan(data, n=DAMSM_SET[0], seed=DAMSM_SET[1])
+    write_synthetic_attngan(data, data + "_imgs", n=DAMSM_SET[0],
+                            seed=DAMSM_SET[1], device=DEVICE)
     log(f"  write_synthetic_attngan(n={DAMSM_SET[0]}, seed={DAMSM_SET[1]}): "
         f"{time.perf_counter() - t:.2f} s (host clock)")
     runs = {n: os.path.join(WORK, "runs", f"damsm_{n}")
             for n in ("straight", "resumed", "bf16")}
     steps = DAMSM_SET[0] // DAMSM_BATCH
     base = ["--variant", "damsm", "--cfg", DAMSM_CFG, "--data_dir", data,
-            "--synthetic", "--manualSeed", str(DAMSM_SET[1])]
+            "--img_dir", data + "_imgs", "--synthetic", "--manualSeed",
+            str(DAMSM_SET[1])]
     launches, seconds = {}, {}
 
     def entry(key, name, out, epochs, *extra):
@@ -4118,7 +4166,8 @@ def phase_damsm_entry(attn_weights):
 def _attn_eval_cfg(data):
     """A copy of the flagship's sampling cfg in the work directory naming
     netG_ema_final.pth, text_encoder29.pth and ``data``."""
-    subs = {"NET_G": ATTN_NET_G, "NET_E": ATTN_NET_E, "DATA_DIR": data}
+    subs = {"NET_G": ATTN_NET_G, "NET_E": ATTN_NET_E, "DATA_DIR": data,
+            "IMG_DIR": data + "_imgs"}
     with open(ATTN_CFG) as f:
         lines = f.read().splitlines()
     path = os.path.join(WORK, "coco_attn_eval.yml")
@@ -4132,7 +4181,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/40 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/43 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4182,10 +4231,11 @@ def phase_attn_eval(model):
         "load, the test split's pixels, PNGs)")
 
     # the first sample row again, card against CPU, from the same z
-    test = AttnGanTrainSet(
-        data, synthetic_train_images(data, ATTN_SET[1], split="test"),
-        captions_per_image=5, seed=ATTN_SET[1], split="test")
-    item = test.get_batch([0])        # the entry's first row's draws
+    test = AttnGanTrainSet(data, data + "_imgs", captions_per_image=5,
+                           seed=ATTN_SET[1], split="test", device=DEVICE)
+    # the entry's first row's draws, its pixels decoded as the entry's were
+    item = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in test.get_batch([0]).items()}
     z = torch.from_numpy(sample_noise(ATTN_SET[1], 0, 9, 100))
     card_nets = (build_text_encoder(ATTN_WORDS, 256,
                                     load_text_encoder(ATTN_NET_E),
@@ -4250,6 +4300,515 @@ def phase_attn_eval(model):
                       "sample_row_card_vs_cpu": err, "seconds": seconds}
 
 
+# ------------------------------------------------------- COCO from disk
+
+# nvjpeg against the numpy decoder (PERF.md section 6). Its IDCT rounds
+# apart from libjpeg's islow: within JPEG_BOX_LEVELS of the numpy decoder
+# with chroma replicated, as nvjpeg upsamples it (4 measured). At a chroma
+# edge libjpeg's triangle filter and replication part by up to 7/16 of
+# the chroma step, times 1.772 into blue: the synthetic boxes' steps of up
+# to ~70 give up to ~54 levels, so JPEG_FANCY_LEVELS against PIL's pixels
+# (25 measured on phase 41's files, 30-44 on phase 42's 268-pixel crops);
+# the mean stays under a level (0.98 measured)
+JPEG_BOX_LEVELS = 6
+JPEG_FANCY_LEVELS = 64
+JPEG_FANCY_MEAN = 1.5       # mean level difference an image
+JPEG_DECODE_BATCHES = ((128, 96), (14, 268))  # (batch, side) timed
+JPEG_DECODE_RUNS = 5        # host-clock readings a decode time
+DISK_SEED = 7
+SUMMARY: dict = {}          # the closing {"summary": ...} line's numbers
+
+
+def _jpeg_cases():
+    """The synthetic writers' images as PIL's encoder writes them (the
+    numpy encoder): write_synthetic_coco's 96x96 (4:2:0),
+    write_synthetic_attngan's 268x268, a grayscale file, 4:4:4 and 4:2:2
+    files and odd sizes. Returns {name: (file bytes, source pixels)}."""
+    d = os.path.join(WORK, "jpeg")
+    write_synthetic_coco(d, d + "_coco", n=4, seed=41)
+    write_synthetic_attngan(d, d + "_attn", n=4, seed=41)
+    src96 = jpeg.read_jpeg(os.path.join(d + "_coco", "synthetic_000000.jpg"))
+    src268 = jpeg.read_jpeg(os.path.join(d + "_attn", "train_00000.jpg"))
+    cases = {}
+    for i in range(4):
+        for name, path in ((f"coco96 {i}", os.path.join(
+                d + "_coco", f"synthetic_{i:06d}.jpg")),
+                           (f"attngan268 {i}", os.path.join(
+                d + "_attn", f"train_{i:05d}.jpg"))):
+            with open(path, "rb") as f:
+                data = f.read()
+            cases[name] = (data, jpeg.decode_jpeg(data))
+    for name, img, kw in (("gray 96", src96[..., 1], {}),
+                          ("4:4:4 268", src268, {"subsampling": "4:4:4"}),
+                          ("4:2:2 96", src96, {"subsampling": "4:2:2"}),
+                          ("odd 131x77", src268[:131, :77], {}),
+                          ("odd 33x17", src96[:33, :17], {})):
+        cases[name] = (jpeg.encode_jpeg(img, **kw), img)
+    return cases
+
+
+def _levels(a, b):
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b))
+    return int(d.max()), float(d.mean()), int((d > 8).sum())
+
+
+def phase_jpeg():
+    log("phase 41/43 jpeg: nvjpeg's decode against the numpy decoder on "
+        "the writers' images, both encoders' round trips, the refusals, "
+        "and decode times")
+    cases = _jpeg_cases()
+    rows, worst = {}, {"box": 0, "fancy": 0, "fancy_mean": 0.0}
+    for name, (data, _) in cases.items():
+        card = nvjpeg.decode_nvjpeg(data, name, DEVICE).cpu().numpy()
+        fancy = jpeg.decode_jpeg(data, name)
+        box = jpeg.decode_jpeg(data, name, fancy=False)
+        f_max, f_mean, f_n8 = _levels(card, fancy)
+        b_max, b_mean, _ = _levels(card, box)
+        rows[name] = {"max": f_max, "mean": round(f_mean, 4),
+                      "over_8": f_n8, "box_max": b_max,
+                      "box_mean": round(b_mean, 4)}
+        worst["box"] = max(worst["box"], b_max)
+        worst["fancy"] = max(worst["fancy"], f_max)
+        worst["fancy_mean"] = max(worst["fancy_mean"], f_mean)
+        log(f"  {name} {fancy.shape[1]}x{fancy.shape[0]}: nvjpeg against the "
+            f"numpy decoder (PIL's pixels) max {f_max} levels, mean "
+            f"{f_mean:.3f}, {f_n8} values past 8 levels; against the numpy "
+            f"decoder with replicated chroma max {b_max}, mean {b_mean:.3f}")
+    # the same files decoded on an idle card and behind a queue of work
+    # (as the Loader's thread decodes behind a train step): the same pixels
+    names = [n for n in cases if n.startswith(("coco96", "attngan268"))]
+    idle = [nvjpeg.decode_nvjpeg(cases[n][0], n, DEVICE) for n in names]
+    a = torch.randn(4096, 4096, device=DEVICE)
+    for _ in range(40):
+        a = torch.tanh(a @ a)
+    busy = [nvjpeg.decode_nvjpeg(cases[n][0], n, DEVICE) for n in names]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(idle, busy)),
+          "nvjpeg's pixels change when the card is busy")
+    log(f"  worst: {worst['fancy']} levels against PIL's pixels (mean "
+        f"{worst['fancy_mean']:.3f}), {worst['box']} against replicated "
+        "chroma: the values past 8 levels sit where chroma changes, where "
+        "libjpeg's triangle filter and nvjpeg's upsampling part")
+    check(worst["box"] <= JPEG_BOX_LEVELS and worst["fancy"] <=
+          JPEG_FANCY_LEVELS and worst["fancy_mean"] <= JPEG_FANCY_MEAN,
+          f"nvjpeg against the numpy decoder: {worst}")
+
+    trips = {}
+    for name in ("coco96 0", "attngan268 0"):
+        src = cases[name][1]
+        by_numpy = jpeg.encode_jpeg(src)
+        by_card = nvjpeg.encode_nvjpeg(torch.from_numpy(src).to(DEVICE))
+        jpeg.probe_jpeg(by_card, f"{name} (nvjpeg's file)")
+        trips[name] = {}
+        for enc, data in (("numpy", by_numpy), ("nvjpeg", by_card)):
+            np_dec = jpeg.decode_jpeg(data)
+            nv_dec = nvjpeg.decode_nvjpeg(data, name, DEVICE).cpu().numpy()
+            trips[name][enc] = {
+                "bytes": len(data),
+                "numpy_vs_source": _levels(np_dec, src)[:2],
+                "nvjpeg_vs_numpy": _levels(nv_dec, np_dec)[:2]}
+            check(_levels(nv_dec, np_dec)[0] <= JPEG_FANCY_LEVELS,
+                  f"{name}, {enc}'s file: the decoders disagree")
+        log(f"  round trip {name}: " + "; ".join(
+            f"{enc}'s encoder {v['bytes']} bytes, numpy decode vs source "
+            f"max/mean {v['numpy_vs_source'][0]}/"
+            f"{v['numpy_vs_source'][1]:.3f}, nvjpeg vs numpy decode "
+            f"{v['nvjpeg_vs_numpy'][0]}/{v['nvjpeg_vs_numpy'][1]:.3f}"
+            for enc, v in trips[name].items()))
+
+    data = cases["attngan268 0"][0]
+    sof = data.index(b"\xff\xc0")
+    bad = {"truncated": data[:len(data) // 2],
+           "progressive": data[:sof] + b"\xff\xc2" + data[sof + 2:]}
+    for name, blob in bad.items():
+        path = os.path.join(WORK, "jpeg", f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(blob)
+        for dev in (DEVICE, "cpu"):
+            try:
+                nvjpeg.decode_batch([path], dev)
+            except ValueError as e:
+                log(f"  {name} file on {dev}: raised {e}")
+                continue
+            check(False, f"the {name} file decoded on {dev}")
+    garbled = data[:700] + bytes(np.random.RandomState(41).randint(
+        0, 255, 4000).astype(np.uint8)).replace(b"\xff", b"\x00") + b"\xff\xd9"
+    try:
+        nvjpeg.decode_nvjpeg(garbled, "garbled", DEVICE)
+        torch.cuda.synchronize()
+        nv_garbled = "decoded (nvjpeg does not check the entropy-coded data)"
+    except (ValueError, nvjpeg.NvjpegError) as e:
+        nv_garbled = f"raised {e}"
+    try:
+        jpeg.decode_jpeg(garbled, "garbled")
+        np_garbled = "decoded"
+    except ValueError as e:
+        np_garbled = f"raised {e}"
+    log(f"  garbled scan with its markers intact: nvjpeg {nv_garbled}; the "
+        f"numpy decoder {np_garbled}")
+    # held, so that a change in nvjpeg or in probe_jpeg shows: this class
+    # of file lies outside what the card refuses
+    check(nv_garbled.startswith("decoded") and np_garbled.startswith(
+        "raised"), f"garbled scan: nvjpeg {nv_garbled}, the numpy decoder "
+          f"{np_garbled}; held: nvjpeg decodes it, the numpy decoder raises")
+
+    times = {}
+    d = os.path.join(WORK, "jpeg_timing")
+    os.makedirs(d, exist_ok=True)
+    for n, side in JPEG_DECODE_BATCHES:
+        src = cases["coco96 0" if side == 96 else "attngan268 0"][0]
+        paths = []
+        for i in range(n):
+            paths.append(os.path.join(d, f"{side}_{i}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(src)
+        nvjpeg.decode_batch(paths[:4], DEVICE)
+        nv = []
+        for _ in range(JPEG_DECODE_RUNS):
+            t = time.perf_counter()
+            nvjpeg.decode_batch(paths, DEVICE)
+            nv.append((time.perf_counter() - t) * 1e3 / n)
+        t = time.perf_counter()
+        nvjpeg.decode_batch(paths[:8], "cpu")
+        cpu = (time.perf_counter() - t) * 1e3 / 8
+        decoded = torch.stack(nvjpeg.decode_batch(paths, DEVICE))
+        resize = {}
+        for out in ((76, 268) if side == 96 else (76,)):
+            resize_bilinear_tensor(decoded[:2], (out, out))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            on_card = resize_bilinear_tensor(decoded, (out, out))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t) * 1e3 / n
+            t = time.perf_counter()
+            on_host = torch.from_numpy(resize_bilinear_batch(
+                decoded.cpu().numpy(), (out, out))).to(DEVICE)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t) * 1e3 / n
+            check(torch.equal(on_card, on_host), f"resize to {out}: the "
+                  "card's and the host's disagree")
+            resize[out] = {"card_ms": card_ms, "host_ms": host_ms}
+        times[f"{n}x{side}"] = {"nvjpeg_ms": statistics.median(nv),
+                                "numpy_ms": cpu, "resize": resize}
+        log(f"  decode {n} x {side}x{side}: nvjpeg {statistics.median(nv):.4f}"
+            f" ms an image (host clock around decode_batch and its "
+            f"synchronize, median of {JPEG_DECODE_RUNS}; min {min(nv):.4f}), "
+            f"the numpy decoder {cpu:.3f} ms an image on the host; the "
+            "PIL-exact bilinear resize of the decoded batch, an image: "
+            + ", ".join(f"to {o}: on the card {r['card_ms']:.4f} ms, on the "
+                        f"host (there and back) {r['host_ms']:.4f} ms"
+                        for o, r in resize.items()))
+    SUMMARY["decode_ms"] = {k: round(v["nvjpeg_ms"], 4)
+                            for k, v in times.items()}
+    SUMMARY["decode_numpy_ms"] = {k: round(v["numpy_ms"], 3)
+                                  for k, v in times.items()}
+    shutil.rmtree(d, ignore_errors=True)
+    return {"levels": worst, "rows": rows, "round_trips": trips,
+            "decode": times, "garbled": nv_garbled}
+
+
+def _host_batch(batch):
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
+
+
+class _Held:
+    """``decode_resized`` of the COCO readers served from decoded batches
+    held on the card: an epoch with the same draws and no decode."""
+
+    def __init__(self, paths, size):
+        self.cache = dict(zip(paths, nvjpeg.decode_resized(paths, size,
+                                                           DEVICE)))
+
+    def __call__(self, paths, size, device):
+        return torch.stack([self.cache[p] for p in paths])
+
+
+def _disk_path(name, make_ds, bs, step, per_step, paths, size):
+    """One path's epoch from disk against the same epoch held on the card:
+    the card reader's batches against the CPU reader's (the numpy path)
+    from the same seed, then epochs timed in turns (memory, disk, disk,
+    memory; host clock around each, ended by a synchronize), the K1/K2
+    launches of a disk epoch held at ``per_step`` a step, and the first
+    disk epoch's batches, read behind the train steps, equal to the card
+    reader's batches read on an idle card."""
+    cpu = list(Loader(make_ds("cpu"), bs, seed=DISK_SEED).epoch(0))
+    card = [_host_batch(b) for b in
+            Loader(make_ds(DEVICE), bs, seed=DISK_SEED).epoch(0)]
+    check(len(cpu) == len(card) > 0, f"{name}: {len(cpu)} and {len(card)} "
+          "batches")
+    img_levels = [0, 0.0]
+    for a, b in zip(cpu, card):
+        check(sorted(a) == sorted(b), f"{name}: keys {sorted(a)}")
+        for k in a:
+            if k.startswith("image"):
+                mx, mean, _ = _levels(b[k], a[k])
+                img_levels = [max(img_levels[0], mx),
+                              max(img_levels[1], mean)]
+            else:
+                check(np.array_equal(a[k], b[k]), f"{name}: {k} on the card "
+                      "is not what the numpy path draws")
+    check(img_levels[0] <= JPEG_FANCY_LEVELS and img_levels[1] <=
+          JPEG_FANCY_MEAN, f"{name}: the card's images against the numpy "
+          f"path's {img_levels}")
+    held = _Held(paths, size)
+    mods = (coco_data, attn_data)
+
+    def epoch(from_disk, keep=None):
+        orig = [m.decode_resized for m in mods]
+        if not from_disk:
+            for m in mods:
+                m.decode_resized = held
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = 0
+            for batch in Loader(make_ds(DEVICE), bs,
+                                seed=DISK_SEED).epoch(0):
+                step(train_loop.to_device(batch, torch.device(DEVICE)))
+                if keep is not None:
+                    keep.append(batch)
+                n += 1
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, n
+        finally:
+            for m, f in zip(mods, orig):
+                m.decode_resized = f
+
+    epoch(False)                                  # warm-up
+    t = {"memory": [], "disk": []}
+    behind = []
+    for kind in ("memory", "disk", "disk", "memory"):
+        first_disk = kind == "disk" and not t["disk"]
+        if first_disk:
+            k1.reset_launch_count()
+        sec, steps = epoch(kind == "disk", behind if first_disk else None)
+        if first_disk:
+            launches = (k1.launch_count(), k1.grad_launch_count())
+        t[kind].append(sec)
+    check(len(behind) == len(card), f"{name}: {len(behind)} batches behind "
+          f"the steps, {len(card)} on an idle card")
+    for a, b in zip(card, map(_host_batch, behind)):
+        for k in a:
+            check(np.array_equal(a[k], b[k]), f"{name}: {k} read behind the "
+                  "train steps differs from the idle card's")
+    want = (per_step[0] * steps, per_step[1] * steps)
+    log(f"  {name}: {steps} steps of batch {bs}; numpy path = card's boxes, "
+        f"labels, captions and embeddings; the first disk epoch's batches, "
+        f"read behind the steps, = the idle card's; images within "
+        f"{img_levels[0]} levels (mean {img_levels[1]:.3f}); epoch from disk "
+        f"{t['disk'][0]:.3f}, {t['disk'][1]:.3f} s, held on the card "
+        f"{t['memory'][0]:.3f}, {t['memory'][1]:.3f} s (host clock, in "
+        f"turns); K1/K2 launches of a disk epoch {launches} (want {want})")
+    check(launches == want, f"{name}: K1/K2 launches {launches} != {want}")
+    return {"steps": steps, "batch": bs, "disk_s": t["disk"],
+            "memory_s": t["memory"], "launches": launches,
+            "image_levels": img_levels}
+
+
+def phase_coco_disk(attn_weights):
+    log("phase 42/43 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+        "trained from disk at full width for one epoch each, beside the "
+        "same epoch held on the card; the card's draws against the numpy "
+        "path's")
+    dev = torch.device(DEVICE)
+    out = {}
+    root = os.path.join(WORK, "cocodisk")
+
+    def run(name, make_ds, write, n, bs, build, per_step, size):
+        data, imgs = os.path.join(root, name), os.path.join(root,
+                                                            name + "_imgs")
+        t = time.perf_counter()
+        write(data, imgs, n)
+        log(f"  {name}: {n} items written (nvjpeg's encoder) in "
+            f"{time.perf_counter() - t:.2f} s (host clock)")
+        ds = make_ds(data, imgs, "cpu")
+        paths = [ds.path(i) for i in range(len(ds))]
+        step = build()
+        out[name] = _disk_path(name, lambda d: make_ds(data, imgs, d), bs,
+                               step, per_step, paths, size)
+        del step
+        torch.cuda.empty_cache()
+
+    def coco_writer(data, imgs, n):
+        write_synthetic_coco(data, imgs, n=n, seed=DISK_SEED, device=DEVICE)
+
+    def attn_writer(data, imgs, n):
+        write_synthetic_attngan(data, imgs, n=n, seed=DISK_SEED,
+                                device=DEVICE)
+
+    def stage1():
+        mcfg = family_cfg("coco-stackgan-1")
+        state = create_state(mcfg, seed=0, device=dev)
+        step = make_train_step(mcfg, KL_COEFF)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return lambda b: step(state, b, gen, LR, LR)
+
+    def stage2():
+        s1, s2 = stage2_cfgs()
+        g1 = build_stage1_g(s1, seed=0, device=dev)
+        state = create_state_stage2(s2, seed=0, device=dev)
+        step = make_stage2_train_step(s2, s1, g1, KL_COEFF)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return lambda b: step(state, b, gen, LR, LR)
+
+    attn_cfg = cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan")
+    st = attngan_train_settings(attn_cfg)
+
+    def attngan():
+        mcfg = attngan_model_config(attn_cfg)
+        g_sd, d_sds, e_sd, i_sd = attn_weights
+        state, text, image = _attn_nets(dev, mcfg, g_sd, d_sds, ATTN_WORDS,
+                                        e_sd, i_sd)
+        step = make_attngan_train_step(mcfg, text, image)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return lambda b: step(state, b, gen, LR, LR)
+
+    def damsm():
+        state = _damsm_state(dev)
+        step = make_damsm_train_step(_damsm_smooth(), 0.25)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return lambda b: step(state, b, gen, LR)
+
+    s1_batch = train_settings(cfg_from_file(FAMILY_CFGS["coco-stackgan-1"],
+                                            "coco-stackgan-1")).batch_size
+    run("coco-stackgan-1", lambda d, i, dv: CocoStackganDataset(
+        d, i, stage=1, imsize=64, seed=DISK_SEED, device=dv), coco_writer,
+        train_main.synthetic_items("coco-stackgan-1", s1_batch), s1_batch,
+        stage1, (4, 4), 76)
+    run("coco-stackgan-2", lambda d, i, dv: CocoStackganDataset(
+        d, i, stage=2, imsize=256, seed=DISK_SEED, device=dv), coco_writer,
+        train_main.synthetic_items("coco-stackgan-2", S2_BATCH), S2_BATCH,
+        stage2, S2_LAUNCHES, 268)
+    run("coco-attngan", lambda d, i, dv: AttnGanTrainSet(
+        d, i, base_size=st.base_size, branch_num=st.branch_num,
+        captions_per_image=st.captions_per_image, words_num=st.words_num,
+        seed=DISK_SEED, device=dv), attn_writer,
+        train_main.synthetic_items("coco-attngan", ATTN_TRAIN_BATCH),
+        ATTN_TRAIN_BATCH, attngan, ATTN_LAUNCHES, 268)
+    dst = attngan_train_settings(cfg_from_file(DAMSM_CFG, "damsm"))
+    run("damsm", lambda d, i, dv: AttnGanTrainSet(
+        d, i, base_size=dst.base_size, branch_num=dst.branch_num,
+        captions_per_image=dst.captions_per_image, words_num=dst.words_num,
+        seed=DISK_SEED, device=dv), attn_writer,
+        train_main.synthetic_items("damsm", DAMSM_BATCH), DAMSM_BATCH,
+        damsm, (0, 0), 268)
+    SUMMARY["epoch_s"] = {k: {"disk": round(min(v["disk_s"]), 3),
+                              "memory": round(min(v["memory_s"]), 3),
+                              "steps": v["steps"]} for k, v in out.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+S2_SAMPLE_SHAPES = {"G1": ("bbox", 384, (16, 16)),
+                    "G2": ("bbox_s2", 192, (64, 64))}
+
+
+def _s2_eval_cfg(run, stage1_g):
+    """A copy of cfg/coco_s2_eval.yml naming phase 28's run directory as
+    NET_G and its stage-1 .pth as STAGE1_G."""
+    subs = {"NET_G": run, "STAGE1_G": stage1_g}
+    with open(os.path.join(ROOT, "cfg", "coco_s2_eval.yml")) as f:
+        lines = f.read().splitlines()
+    path = os.path.join(WORK, "coco_s2_eval.yml")
+    with open(path, "w") as f:
+        for line in lines:
+            key = line.strip().split(":")[0]
+            if key in subs:
+                line = f"{line[:line.index(key)]}{key}: '{subs.pop(key)}'"
+            f.write(line + "\n")
+        for key, value in subs.items():       # keys the cfg lacks
+            f.write(f"{key}: '{value}'\n")
+    return path
+
+
+def phase_stage2_sample(s2_run):
+    log("phase 43/43 s2sample: cli/main.py --variant coco-stackgan-2 with "
+        "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
+        "branch and the test-split branch, 25 grids each, timed; the first "
+        "row's fakes card against CPU; K1 at the sampler's two batch-9 "
+        "shapes")
+    cfg_file = _s2_eval_cfg(s2_run["run"], s2_run["stage1_g"])
+    s1, s2 = stage2_cfgs()
+    data = os.path.join(WORK, "s2sample")
+    imgs = data + "_imgs"
+    launches, seconds = {}, {}
+    for branch in ("t7", "split"):
+        out = os.path.join(WORK, "s2sample_out", branch)
+        argv = ["--variant", "coco-stackgan-2", "--cfg", cfg_file,
+                "--data_dir", data, "--img_dir", imgs, "--synthetic",
+                "--manualSeed", str(DISK_SEED), "--output_dir", out]
+        if branch == "split":
+            os.remove(os.path.join(data, "test", "val_captions.t7"))
+        _, launches[f"sample_coco_stage2_{branch}"], seconds[branch] = _entry(
+            f"coco-stackgan-2 sampling, {branch} branch", argv)
+        grids = sorted(os.listdir(os.path.join(out, "samples")))
+        # G1 and G2 place once a grid; the t7 branch names its grids after
+        # their captions, so a caption drawn twice rewrites its file
+        want = (2 * SAMPLE_GRIDS, 0)
+        check(0 < len(grids) <= SAMPLE_GRIDS if branch == "t7" else
+              len(grids) == SAMPLE_GRIDS, f"{branch}: {len(grids)} grids")
+        check(launches[f"sample_coco_stage2_{branch}"] == want,
+              f"{branch}: K1/K2 launches "
+              f"{launches[f'sample_coco_stage2_{branch}']} != {want}")
+        shapes = {read_png(os.path.join(out, "samples", g), "RGB").shape
+                  for g in grids}
+        check(shapes == {(260, 10 * 258 + 2, 3)}, f"{branch}: grid shapes "
+              f"{shapes}")
+    # the test-split branch's first grid again: G1 + G2 card against CPU
+    cfg = cfg_from_file(cfg_file, "coco-stackgan-2")
+    cfg.DATA_DIR, cfg.IMG_DIR = data, imgs
+    nets = {dev: sampling_generators(cfg, s1, s2, seed=DISK_SEED,
+                                     device=dev) for dev in (DEVICE, "cpu")}
+    ds = CocoStackganDataset(data, imgs, split="test", stage=2, imsize=256,
+                             seed=DISK_SEED, device="cpu")
+    index = int(np.random.RandomState(DISK_SEED).randint(len(ds)))
+    item = ds[index]
+    z, eps = sample_inputs(DISK_SEED, 0, s1.z_dim, s1.condition_dim, False)
+    fakes = {}
+    for dev, (g1, g2) in nets.items():
+        batch = {k: torch.from_numpy(np.repeat(item[k][None], 9, 0)).to(dev)
+                 for k in ("bbox", "bbox_s2", "label_onehot",
+                           "text_embedding")}
+        fakes[dev] = stage2_images(g1, g2, torch.from_numpy(z).to(dev),
+                                   batch).cpu()
+    err = float((fakes[DEVICE] - fakes["cpu"]).abs().max())
+    png = read_png(os.path.join(out, "samples", grids[0]), "RGB")
+    tiles = [draw_bboxes(tile_uint8(f), item["bbox_s2"])
+             for f in fakes[DEVICE].permute(0, 2, 3, 1).numpy()]
+    levels = max(int(np.abs(png[2:258, 2 + 258 * (i + 1):258 * (i + 2)]
+                            .astype(np.int16) - t).max())
+                 for i, t in enumerate(tiles))
+    log(f"  test-split branch grid 0 (item {index}): G1 + G2 fakes card "
+        f"against CPU max |diff| {err:.3e} (atol {MODEL_ATOL:g}); the "
+        f"entry's fake tiles against the card's: {levels} levels (limit "
+        f"{SAMPLE_LEVELS}); fake std {float(fakes['cpu'].std()):.4f}")
+    check(err <= MODEL_ATOL, "stage-2 sampling: card and CPU disagree")
+    check(levels <= SAMPLE_LEVELS, "the entry's first grid is not the "
+          "card's")
+    rs = np.random.RandomState(43)
+    dev = torch.device(DEVICE)
+    k1_rows, worst = {}, 0.0
+    for name, (key, c, hw) in S2_SAMPLE_SHAPES.items():
+        bbox = torch.from_numpy(np.repeat(item[key][None], 9, 0)).to(dev)
+        feats = torch.from_numpy(rs.randn(9, 3, c, *hw).astype(
+            np.float32)).to(dev)
+        label = f"stage-2 sampler {name} {tuple(feats.shape)} -> {hw}"
+        worst = max(worst, _held(k1.stn_place_multi_nchw(feats, bbox, hw),
+                                 k1.stn_place_multi_plain(feats, bbox, hw),
+                                 torch.float32, "K1", label))
+        row = time_place(feats, bbox, hw, f"K1 stage-2 sampler {name}")
+        k1_rows[name] = {"shape": list(feats.shape), **{k: row[k] for k in (
+            "ms", "plain_ms", "graph_ms", "bound_ms", "bound_by",
+            "share_of_bound", "graph_share_of_bound")}}
+    SUMMARY["s2sample_s"] = {k: round(v, 2) for k, v in seconds.items()}
+    for path in (os.path.join(WORK, "s2sample_out"), s2_run["run"]):
+        shutil.rmtree(path, ignore_errors=True)
+    return launches, {"max_abs_err": worst, **k1_rows,
+                      "first_row_card_vs_cpu": err, "seconds": seconds}
+
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -4273,61 +4832,111 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
 
 
+PHASE_S: dict = {}          # each phase's wall time, host clock
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall time kept under ``name`` for the summary."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t, 1)
+
+
+def _rounded(x):
+    """``x`` with every float rounded to 4 decimals (the summary line)."""
+    if isinstance(x, float):
+        return round(x, 4)
+    if isinstance(x, dict):
+        return {k: _rounded(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_rounded(v) for v in x]
+    return x
+
+
+def _ms(rows):
+    return {k: round(v["ms"], 3) for k, v in rows.items()}
+
+
+def _compact(row):
+    """A timed row's numbers for the kernels line."""
+    return {k: row[k] for k in ("ms", "plain_ms", "graph_ms", "bound_ms",
+                                "bound_by") if k in row}
+
+
+def _nested(rows, prefix):
+    """{dtype: {path: row}} -> {prefix_path_dtype: compact row}."""
+    return {f"{prefix}_{path}_{dtype}": _compact(row)
+            for dtype, by_path in rows.items() if isinstance(by_path, dict)
+            for path, row in by_path.items()}
+
+
 def run_phases() -> int:
-    name = phase_device()
-    phase_build()
-    place = phase_kernel()
-    phase_model()
-    serve_launches, _ = phase_serve()
-    grad = phase_grad_kernel()
-    phase_autograd()
-    phase_step()
-    step32 = phase_step_time()
-    train_launches = phase_train_entry()
-    normconv = phase_normconv()
-    bf16 = phase_bf16_kernels()
-    phase_step_bf16()
-    step16 = phase_step_time(BF16, "14/40 time16")
+    name = timed("device", phase_device)
+    timed("build", phase_build)
+    place = timed("kernel", phase_kernel)
+    timed("model", phase_model)
+    serve_launches, _ = timed("serve", phase_serve)
+    grad = timed("grad", phase_grad_kernel)
+    timed("autograd", phase_autograd)
+    timed("step", phase_step)
+    step32 = timed("steptime", phase_step_time)
+    train_launches = timed("train", phase_train_entry)
+    normconv = timed("normconv", phase_normconv)
+    bf16 = timed("bf16", phase_bf16_kernels)
+    timed("step16", phase_step_bf16)
+    step16 = timed("time16", phase_step_time, BF16, "14/43 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
         f"{step32['peak_gib']:.2f} GiB): {step32['ms'] / step16['ms']:.2f}x")
-    entry16, _ = phase_entry_bf16()
-    families = phase_family_kernels()
-    phase_family_step()
-    phase_family_step_time()
-    fentry = phase_family_entry()
-    fserve, _ = phase_family_serve()
-    phase_probe()
-    disk = phase_train_disk()
-    batch9 = phase_k1_batch9()
-    sampled = phase_sample(disk["clevr_run"], disk["clevr_data"])
-    s2_kernels = phase_stage2_kernels()
-    phase_stage2_step()
-    s2_time = phase_stage2_step_time()
-    s2_entry = phase_stage2_entry()
-    s2_serve, _ = phase_stage2_serve()
-    attn_kernels = phase_attn_kernels()
-    attn_model = phase_attn_model()
-    attn_serve, attn_latency = phase_attn_serve(attn_model)
-    attn_places = phase_attn_train_kernels()
-    attn_step = phase_attn_step()
-    attn_time = phase_attn_step_time(attn_step)
-    attn_entry, attn_run = phase_attn_entry()
-    phase_damsm_step()
-    phase_damsm_step_time()
-    damsm_entry, _ = phase_damsm_entry(attn_step["weights"])
-    attn_eval_paths, attn_eval = phase_attn_eval(attn_model)
+    entry16, _ = timed("entry16", phase_entry_bf16)
+    families = timed("families", phase_family_kernels)
+    timed("fstep", phase_family_step)
+    f_time = timed("ftime", phase_family_step_time)
+    fentry = timed("fentry", phase_family_entry)
+    fserve, _ = timed("fserve", phase_family_serve)
+    timed("probe", phase_probe)
+    disk = timed("disk", phase_train_disk)
+    batch9 = timed("batch9", phase_k1_batch9)
+    sampled = timed("sample", phase_sample, disk["clevr_run"],
+                    disk["clevr_data"])
+    s2_kernels = timed("s2kernels", phase_stage2_kernels)
+    timed("s2step", phase_stage2_step)
+    s2_time = timed("s2time", phase_stage2_step_time)
+    s2_entry, s2_run = timed("s2entry", phase_stage2_entry)
+    s2_serve, _ = timed("s2serve", phase_stage2_serve)
+    attn_kernels = timed("attnkernels", phase_attn_kernels)
+    attn_model = timed("attnmodel", phase_attn_model)
+    attn_serve, attn_latency = timed("attnserve", phase_attn_serve,
+                                     attn_model)
+    attn_places = timed("attnplaces", phase_attn_train_kernels)
+    attn_step = timed("attnstep", phase_attn_step)
+    attn_time = timed("attntime", phase_attn_step_time, attn_step)
+    attn_entry, attn_run = timed("attnentry", phase_attn_entry)
+    timed("damsmstep", phase_damsm_step)
+    damsm_time = timed("damsmtime", phase_damsm_step_time)
+    damsm_entry, _ = timed("damsmentry", phase_damsm_entry,
+                           attn_step["weights"])
+    attn_eval_paths, attn_eval = timed("attneval", phase_attn_eval,
+                                       attn_model)
+    jpeg_result = timed("jpeg", phase_jpeg)
+    coco_disk = timed("cocodisk", phase_coco_disk, attn_step["weights"])
+    s2_sample_paths, s2_sample = timed("s2sample", phase_stage2_sample,
+                                       s2_run)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
-               **attn_entry, **damsm_entry, **attn_eval_paths}
+               **attn_entry, **damsm_entry, **attn_eval_paths,
+               **s2_sample_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
                  "train_coco-attngan", "train_coco-attngan_resume",
-                 "train_damsm", "train_damsm_resume", *attn_eval_paths)
+                 "train_damsm", "train_damsm_resume", *attn_eval_paths,
+                 *s2_sample_paths)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16")
 
@@ -4337,12 +4946,39 @@ def run_phases() -> int:
                 "launches_bf16": sum(by_path[p][i] for p in bf16_paths),
                 "launches_by_path": {p: v[i] for p, v in by_path.items()}}
 
-    cuda = {"route": "cuda",
-            "source": "multiple_objects_gan_tpu_torch/csrc/stn_place.cu",
-            "library_ms": None}
     hot = normconv["rows"][0]
     k4_paths = {"spike_tool": normconv["launches"],
                 **{p: v[2] for p, v in by_path.items() if len(v) > 2}}
+    # the kernels' full readings, beside the compact kernels line below
+    print(json.dumps({"kernel_details": {
+        "stn_place_multi": {
+            **place, "bf16": bf16["place"], "families": families["place"],
+            "batch9": batch9, "stage2": s2_kernels["place"],
+            "attngan": {**attn_kernels, "forward_b64": attn_model["rows"],
+                        "gflop_per_image": attn_model["flops"],
+                        "serve": attn_latency},
+            "attngan_train": {**attn_places["place"], "entry": attn_run},
+            "attngan_eval": attn_eval, "stage2_sample": s2_sample},
+        "stn_place_multi_grad": {
+            **grad, "bf16": bf16["grad"], "families": families["grad"],
+            "stage2": s2_kernels["grad"],
+            "attngan_train": attn_places["grad"]},
+        "normconv_bf16": normconv["rows"],
+        "jpeg": jpeg_result, "cocodisk": coco_disk}}, default=str),
+        flush=True)
+    steps = {"mnist": {"f32": step32["ms"], "bf16": step16["ms"]},
+             **{k.replace(" ", "_"): v["ms"] for k, v in f_time.items()},
+             "stage2": _ms(s2_time), "attngan": _ms(attn_time),
+             "damsm": _ms(damsm_time)}
+    summary = {"summary": {
+        "device": name, "step_ms": steps, **SUMMARY, "phase_s": PHASE_S,
+        "total_s": round(time.perf_counter() - T0, 1)}}
+    line = json.dumps(_rounded(summary), separators=(",", ":"))
+    check(len(line) < 4096, f"the summary line is {len(line)} bytes")
+    print(line, flush=True)
+    cuda = {"route": "cuda",
+            "source": "multiple_objects_gan_tpu_torch/csrc/stn_place.cu",
+            "library_ms": None}
     print(json.dumps({"kernels": [{
         "name": "stn_place_multi", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:79",
@@ -4354,27 +4990,16 @@ def run_phases() -> int:
                            s2_kernels["place"]["max_abs_err"],
                            attn_kernels["max_abs_err"],
                            attn_places["place"]["max_abs_err"],
-                           attn_eval["max_abs_err"]),
-        **place["serve"],
-        "train_g_shape": place["train G"],
-        "train_d_shape": place["train D"],
-        "bf16": bf16["place"],
-        "families": families["place"],
-        "batch9": batch9,
-        "stage2": {**s2_kernels["place"],
-                   "step_launches": {k: v["launches_per_step"][0]
-                                     for k, v in s2_time.items()}},
-        "attngan": {**attn_kernels,
-                    "forward_b64": attn_model["rows"],
-                    "gflop_per_image": attn_model["flops"],
-                    "serve": attn_latency},
-        "attngan_train": {**attn_places["place"],
-                          "step_launches": {k: v["launches_per_step"][0]
-                                            for k, v in attn_time.items()},
-                          "step_ms": {k: v["ms"]
-                                      for k, v in attn_time.items()},
-                          "entry": attn_run},
-        "attngan_eval": attn_eval,
+                           attn_eval["max_abs_err"],
+                           s2_sample["max_abs_err"]),
+        **_compact(place["serve"]),
+        "shapes": {"train_g": _compact(place["train G"]),
+                   "train_d": _compact(place["train D"]),
+                   **_nested(s2_kernels["place"], "stage2"),
+                   **{f"stage2_sample_{k}": _compact(s2_sample[k])
+                      for k in S2_SAMPLE_SHAPES},
+                   **{f"attngan_eval_{k}": _compact(attn_eval[k])
+                      for k in ("sample", "gen_example")}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
@@ -4384,16 +5009,9 @@ def run_phases() -> int:
                            families["grad"]["max_abs_err"],
                            s2_kernels["grad"]["max_abs_err"],
                            attn_places["grad"]["max_abs_err"]),
-        **grad["G"],
-        "d_shape": grad["D"],
-        "bf16": bf16["grad"],
-        "families": families["grad"],
-        "stage2": {**s2_kernels["grad"],
-                   "step_launches": {k: v["launches_per_step"][1]
-                                     for k, v in s2_time.items()}},
-        "attngan_train": {**attn_places["grad"],
-                          "step_launches": {k: v["launches_per_step"][1]
-                                            for k, v in attn_time.items()}},
+        **_compact(grad["G"]),
+        "shapes": {"train_d": _compact(grad["D"]),
+                   **_nested(s2_kernels["grad"], "stage2")},
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",
@@ -4405,7 +5023,6 @@ def run_phases() -> int:
         "shape": hot["dims"], "ms": hot["ms"], "plain_ms": hot["plain_ms"],
         "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
         "library_ms": hot["library_ms"],
-        "shapes": normconv["rows"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

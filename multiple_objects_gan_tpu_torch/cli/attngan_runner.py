@@ -23,8 +23,9 @@ The learning rates never decay (the reference's condGANTrainer keeps
 them). The montages' z is drawn from (seed, step) and (seed, 1000000 +
 epoch); they and the epoch grids key on the global step, so a resumed run
 writes what an uninterrupted one writes (the JAX loop counts the steps of
-each process from 0). The data are the in-memory synthetic train set
-(``data/attngan.py:AttnGanTrainSet``).
+each process from 0). The data are cfg DATA_DIR's train split with its
+JPEGs in IMG_DIR (``data/attngan.py:AttnGanTrainSet``), decoded per batch
+on the run's device.
 
 With ``TRAIN.FLAG: False`` (:func:`run_attngan_eval`) the EMA G of cfg
 NET_G (:func:`restore_g`) and the text encoder of NET_E run one of the
@@ -61,7 +62,7 @@ from multiple_objects_gan_tpu_torch.cli.sample import (
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_train_settings)
 from multiple_objects_gan_tpu_torch.data.attngan import (
-    AttnGanDataset, AttnGanTrainSet, synthetic_split, tokenize)
+    AttnGanDataset, AttnGanTrainSet, attngan_split, tokenize)
 from multiple_objects_gan_tpu_torch.data.datasets import Loader
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
@@ -186,11 +187,11 @@ def _record_encoders(output_dir: str, prov: dict, net_e: str,
 def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
                 seed: int = 0, max_epochs: Optional[int] = None,
                 resume_dir: Optional[str] = None) -> list[dict]:
-    """Train AttnGAN on the synthetic set in cfg DATA_DIR (JAX ``run``,
-    :185-331). Returns the per-epoch mean losses."""
+    """Train AttnGAN on cfg DATA_DIR and IMG_DIR (JAX ``run``, :185-331).
+    Returns the per-epoch mean losses."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
-    ds = synthetic_split(cfg.DATA_DIR, st, seed)
+    ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, device=device)
     text_enc, image_enc, prov = init_encoders(st.net_e, ds.n_words, mcfg,
                                               seed=seed, device=device)
     _record_encoders(output_dir, prov, st.net_e,
@@ -343,7 +344,10 @@ def sample(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
         z = torch.from_numpy(sample_noise(seed, step, N_VARIATIONS,
                                           mcfg.z_dim)).to(device)
         fakes = sample_row(text_enc, g, to_device(batch, device), z)
-        real = batch[f"image{imsize}"][:1].astype(np.float32) / 127.5 - 1.0
+        real = batch[f"image{imsize}"][:1]
+        if isinstance(real, torch.Tensor):
+            real = real.cpu().numpy()
+        real = real.astype(np.float32) / 127.5 - 1.0
         tiles = np.concatenate(
             [real, fakes.permute(0, 2, 3, 1).cpu().numpy()])
         _draw_white_bbox_edges(tiles, batch["bbox"][0], imsize)
@@ -462,13 +466,15 @@ def eval_mode(mode: str, cfg) -> str:
 def run_attngan_eval(cfg, mcfg: AttnGanConfig, output_dir: str, mode: str,
                      *, device, seed: int = 0) -> str:
     """The eval mode ``mode`` (``sample`` or ``gen_example``) from cfg
-    NET_G's EMA G and NET_E's text encoder, on the synthetic set of
-    DATA_DIR (its test split for ``sample``, its vocabulary for both).
+    NET_G's EMA G and NET_E's text encoder, on the set of DATA_DIR (its
+    test split, with IMG_DIR's JPEGs, for ``sample``; its vocabulary for
+    both).
     Returns the directory written."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
     if mode == "sample":
-        ds = synthetic_split(cfg.DATA_DIR, st, seed, "test")
+        ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, "test",
+                           device=device)
     else:
         ds = AttnGanDataset(cfg.DATA_DIR, "test", st.captions_per_image)
     text_enc, _, _ = init_encoders(st.net_e, ds.n_words, mcfg, seed=seed,

@@ -26,8 +26,9 @@ upstream's pretrain_DAMSM.py, and so does the port
   dropout's generator, and both splits' random states, so that
   ``--resume`` continues bit for bit on the CPU.
 
-The data are the in-memory synthetic set of DATA_DIR
-(``data/attngan.py:AttnGanTrainSet``): at cfg/coco_damsm.yml's BASE_SIZE
+The data are DATA_DIR's splits with their JPEGs in IMG_DIR
+(``data/attngan.py:AttnGanTrainSet``, decoded per batch on the run's
+device): at cfg/coco_damsm.yml's BASE_SIZE
 256 and BRANCH_NUM 1, one 256px crop an item, resized to 299 inside the
 image encoder.
 """
@@ -41,7 +42,7 @@ import torch
 
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_train_settings)
-from multiple_objects_gan_tpu_torch.data.attngan import synthetic_split
+from multiple_objects_gan_tpu_torch.data.attngan import attngan_split
 from multiple_objects_gan_tpu_torch.data.datasets import Loader
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
@@ -103,15 +104,16 @@ def run_damsm(cfg, output_dir: str, *, device, seed: int = 0,
               compute_dtype: Optional[torch.dtype] = None,
               max_epochs: Optional[int] = None,
               resume_dir: Optional[str] = None) -> list[dict]:
-    """Pretrain the DAMSM encoders on the synthetic set in cfg DATA_DIR
-    (JAX ``run_damsm``, :45-194). Returns the per-epoch mean losses."""
+    """Pretrain the DAMSM encoders on cfg DATA_DIR and IMG_DIR (JAX
+    ``run_damsm``, :45-194). Returns the per-epoch mean losses."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
-    ds = synthetic_split(cfg.DATA_DIR, st, seed)
+    ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, device=device)
     eval_ds = None
     if os.path.isfile(os.path.join(cfg.DATA_DIR, "test",
                                    "filenames.pickle")):
-        eval_ds = synthetic_split(cfg.DATA_DIR, st, seed, "test")
+        eval_ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, "test",
+                                device=device)
         if len(eval_ds) < st.batch_size:
             eval_ds = None
     text, image = init_damsm_encoders(st.net_e, ds.n_words, st.embedding_dim,

@@ -6,7 +6,8 @@ stage 2, COCO AttnGAN and DAMSM pretraining).
         --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2|\\
 coco-attngan|damsm \\
         --cfg CFG \\
-        [--data_dir D] [--output_dir O] [--synthetic] [--resume RUN_DIR] \\
+        [--data_dir D] [--img_dir I] [--output_dir O] [--synthetic] \\
+        [--resume RUN_DIR] [--stochastic_ca] \\
         [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
         [--device cuda|cpu] [--bf16] [--bn_groups G] \\
         [--num_objects N] [--bbox_scale S] \\
@@ -14,19 +15,21 @@ coco-attngan|damsm \\
 
 ``TRAIN.FLAG`` in the cfg picks training or sampling, as in the reference
 (code/multi-mnist/main.py:27-95). Training reads Multi-MNIST and CLEVR
-from ``DATA_DIR`` (``--data_dir`` overrides it); with ``--synthetic`` a
-missing train split is first written there, at the JAX CLI's sizes
-(``synthetic_items``). COCO has no on-disk reader yet: with ``--synthetic``
-both stages train on a synthetic set held on the device (stage 2's at
-256px, its stage-2 boxes the stage-1 ones), stage 2 through
-``cli/stage2_runner.py`` with the frozen stage-1 G of cfg ``STAGE1_G``.
-COCO AttnGAN (``cli/attngan_runner.py``) and DAMSM pretraining
-(``cli/damsm_runner.py``, cfg/coco_damsm.yml) run on the synthetic set of
-DATA_DIR: ``--synthetic`` writes its text side there when missing, at the
-JAX CLI's size (max(2 * batch, 32) items, ``multiple_objects_gan_tpu/
-cli/main.py:352-373``), and the images are held in memory; AttnGAN's
-DAMSM encoders come from cfg ``TRAIN.NET_E``, which DAMSM pretraining
-writes (``DAMSMencoders/``). A
+from ``DATA_DIR`` (``--data_dir`` overrides it), and COCO from DATA_DIR's
+pickles and IMG_DIR's JPEGs (``--img_dir`` overrides it): StackGAN through
+``data/coco.py:CocoStackganDataset`` (decoded per batch; on the card by
+nvjpeg), AttnGAN (``cli/attngan_runner.py``) and DAMSM pretraining
+(``cli/damsm_runner.py``, cfg/coco_damsm.yml) through
+``data/attngan.py:AttnGanTrainSet``. With ``--synthetic`` a missing train
+split is first written there, at the JAX CLI's sizes
+(``synthetic_items``); without it a missing split exits with its path.
+Both ``coco-stackgan-*`` variants go where cfg ``STAGE`` says, as the JAX
+CLI's ``run_stackgan`` does: stage 1 to the stage-1 trainer (whatever
+TRAIN.FLAG says, as there), stage 2 to ``cli/stage2_runner.py`` (training
+with the frozen stage-1 G of cfg ``STAGE1_G``, or with ``TRAIN.FLAG:
+False`` 25 grids, ``sample_stage2``; ``--stochastic_ca`` draws the CA
+noise there instead of c = mu). AttnGAN's DAMSM encoders come from cfg
+``TRAIN.NET_E``, which DAMSM pretraining writes (``DAMSMencoders/``). A
 run leaves, under ``--output_dir`` (default
 ``output/<DATASET>_<time>``), ``run_flags.json``, a copy of the cfg, the
 port's sources (``src_snapshot/``), ``logs/metrics.jsonl``, epoch grids in
@@ -36,10 +39,9 @@ continues from that run's latest checkpoint; cfg ``NET_G``/``NET_D``
 takes the seed of the resumed run's ``run_flags.json``, so its shuffles
 and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
 samples from ``NET_G``: 25 grids for Multi-MNIST and CLEVR
-(``cli/sample.py``); for COCO AttnGAN the eval mode ``--eval_mode``
-names (``auto``: ``sample`` under cfg B_VALIDATION, else
-``gen_example``; ``sampling`` waits for ROADMAP item 13); COCO StackGAN
-sampling waits for the COCO reader (item 9b).
+(``cli/sample.py``) and COCO StackGAN stage 2; for COCO AttnGAN the eval
+mode ``--eval_mode`` names (``auto``: ``sample`` under cfg B_VALIDATION,
+else ``gen_example``; ``sampling`` waits for ROADMAP item 13).
 The run is on the card unless ``--device cpu`` is given; without a card it
 raises. A float32 run on the card computes in float32: TF32 is turned off
 (``float32_policy``, as the server does).
@@ -65,23 +67,25 @@ from multiple_objects_gan_tpu_torch.cli.attngan_runner import (
     EVAL_MODES, eval_mode, run_attngan, run_attngan_eval)
 from multiple_objects_gan_tpu_torch.cli.damsm_runner import run_damsm
 from multiple_objects_gan_tpu_torch.cli.sample import sample_stage1
-from multiple_objects_gan_tpu_torch.cli.stage2_runner import run_stage2
+from multiple_objects_gan_tpu_torch.cli.stage2_runner import (
+    run_stage2, sample_stage2)
 from multiple_objects_gan_tpu_torch.config.config import (
     attngan_model_config, cfg_from_file, stage1_model_config,
     stage2_model_config, train_settings)
 from multiple_objects_gan_tpu_torch.data.attngan import (
     write_synthetic_attngan)
+from multiple_objects_gan_tpu_torch.data.coco import (
+    CocoStackganDataset, write_synthetic_coco)
 from multiple_objects_gan_tpu_torch.data.datasets import (
-    MNIST_VARIANT, ClevrDataset, Loader, MemoryLoader, MultiMnistDataset,
+    MNIST_VARIANT, ClevrDataset, Loader, MultiMnistDataset,
     write_synthetic_clevr, write_synthetic_multimnist)
-from multiple_objects_gan_tpu_torch.data.synthetic import (
-    synthetic_coco, synthetic_coco_stage2)
 from multiple_objects_gan_tpu_torch.train.loop import train
 
 VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2",
             "coco-attngan", "damsm")
-# the AttnGAN set's variants: the text side on disk, the images in memory
+# the variants of the AttnGAN set (data/attngan.py)
 ATTNGAN_SETS = ("coco-attngan", "damsm")
+SAMPLE_TEST_ITEMS = 32   # a --synthetic stage-2 sampling run's test split
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's sources that define a run, copied into src_snapshot/
 SNAPSHOT_DIRS = ("cli", "config", "models", "train", "losses", "nn", "ops",
@@ -98,18 +102,27 @@ def synthetic_items(variant: str, batch: int) -> int:
     return SYNTHETIC_ITEMS.get(variant, max(2 * batch, least))
 
 
-def attngan_data(args, cfg, seed: int) -> None:
-    """AttnGAN's synthetic set in DATA_DIR: written there (text side) with
-    ``--synthetic`` when its train split is missing (for DAMSM and the
-    eval modes too, as the JAX CLI writes it)."""
-    if os.path.isfile(os.path.join(cfg.DATA_DIR, "train",
+def coco_data(args, cfg, seed: int, device, split: str = "train") -> None:
+    """A COCO set in DATA_DIR/IMG_DIR: with ``--synthetic`` its ``split`` is
+    written there when missing (StackGAN: ``write_synthetic_coco``, the
+    test split of a sampling run at 32 items; AttnGAN and DAMSM:
+    ``write_synthetic_attngan``, both splits), as the JAX CLI writes it
+    (``cli/main.py:320-373``, ``cli/stage2_runner.py:60-66,111-123``);
+    without it a missing split exits with its path."""
+    if os.path.isfile(os.path.join(cfg.DATA_DIR, split,
                                    "filenames.pickle")):
         return
     if not args.synthetic:
-        sys.exit(f"no AttnGAN train split under {cfg.DATA_DIR!r}; pass "
-                 "--synthetic (the port has no COCO JPEG reader yet)")
-    n = synthetic_items(args.variant, int(cfg.TRAIN.BATCH_SIZE))
-    write_synthetic_attngan(cfg.DATA_DIR, n=n, seed=seed)
+        sys.exit(f"COCO data not found under {cfg.DATA_DIR} (no {split} "
+                 "split; pass --synthetic to generate one)")
+    n = (SAMPLE_TEST_ITEMS if split == "test" else
+         synthetic_items(args.variant, int(cfg.TRAIN.BATCH_SIZE)))
+    if args.variant in ATTNGAN_SETS:
+        write_synthetic_attngan(cfg.DATA_DIR, cfg.IMG_DIR, n=n, seed=seed,
+                                device=device)
+    else:
+        write_synthetic_coco(cfg.DATA_DIR, cfg.IMG_DIR, n=n, split=split,
+                             seed=seed, device=device)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -117,10 +130,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--variant", required=True, choices=VARIANTS)
     p.add_argument("--cfg", dest="cfg_file", required=True)
     p.add_argument("--data_dir", default="", help="override cfg DATA_DIR")
+    p.add_argument("--img_dir", default="",
+                   help="override cfg IMG_DIR (the COCO JPEG directory)")
     p.add_argument("--output_dir", default="")
     p.add_argument("--synthetic", action="store_true",
-                   help="write a synthetic train split to DATA_DIR when it "
-                        "is missing (COCO: train on one in memory)")
+                   help="write a synthetic split to DATA_DIR (and COCO's "
+                        "JPEGs to IMG_DIR) when it is missing")
     p.add_argument("--resume", default="",
                    help="output dir of a previous run to resume from")
     p.add_argument("--max_epochs", type=int, default=None,
@@ -140,6 +155,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "whole batch (default), G > 1 = per-replica "
                         "DataParallel statistics over G contiguous batch "
                         "chunks, as a G-GPU reference run computes them")
+    p.add_argument("--stochastic_ca", action="store_true",
+                   help="stage-2 sampling: draw the CA noise (the "
+                        "reference's eval, stackgan model.py:66-71) "
+                        "instead of c = mu")
     p.add_argument("--num_objects", type=int, default=None,
                    help="sampling: truncate or extend each layout's objects "
                         "(ref trainer.py:219-243)")
@@ -224,21 +243,19 @@ def _git_sha() -> str:
     return sha + ("-dirty" if dirty else "")
 
 
-def train_loader(args, cfg, variant: str, seed: int, device):
-    """The variant's train loader: Multi-MNIST and CLEVR from DATA_DIR
-    (written there first with ``--synthetic`` when missing), COCO from a
-    synthetic set held on the device (stage 2's with its stage-2 boxes)."""
+def train_loader(args, cfg, variant: str, seed: int, device,
+                 stage: int = 1):
+    """The variant's train loader: Multi-MNIST and CLEVR from DATA_DIR,
+    COCO StackGAN (``stage`` 1 or 2) from DATA_DIR and IMG_DIR, each
+    written there first with ``--synthetic`` when missing."""
     batch = train_settings(cfg).batch_size
     imsize = int(cfg.IMSIZE)
     if variant.startswith("coco-stackgan"):
-        if not args.synthetic:
-            sys.exit("the port has no on-disk COCO reader yet; pass "
-                     "--synthetic")
-        make = (synthetic_coco_stage2 if variant == "coco-stackgan-2"
-                else synthetic_coco)
-        data = make(synthetic_items(variant, batch), seed=seed,
-                    imsize=imsize)
-        return MemoryLoader(data, batch, seed=seed, device=device)
+        coco_data(args, cfg, seed, device)
+        ds = CocoStackganDataset(cfg.DATA_DIR, cfg.IMG_DIR, split="train",
+                                 stage=stage, imsize=imsize, seed=seed,
+                                 device=device)
+        return Loader(ds, batch, seed=seed)
     marker = os.path.join(cfg.DATA_DIR, "train",
                           MNIST_VARIANT if variant == "multi-mnist"
                           else "scenes")
@@ -278,6 +295,8 @@ def main(argv=None) -> list[dict]:
     cfg = cfg_from_file(args.cfg_file, args.variant)
     if args.data_dir:
         cfg.DATA_DIR = args.data_dir
+    if args.img_dir and "IMG_DIR" in cfg:
+        cfg.IMG_DIR = args.img_dir
     if args.snapshot_interval is not None:
         cfg.TRAIN.SNAPSHOT_INTERVAL = args.snapshot_interval
     seed = args.manualSeed
@@ -298,10 +317,13 @@ def main(argv=None) -> list[dict]:
 
     dtype = torch.bfloat16 if args.bf16 else None
     float32_policy(device, dtype)
-    stage2 = args.variant == "coco-stackgan-2"
+    # both StackGAN variants go where cfg STAGE says (JAX run_stackgan)
+    stackgan = args.variant.startswith("coco-stackgan")
+    stage2 = stackgan and int(cfg.STAGE) == 2
     attn = args.variant in ATTNGAN_SETS
     damsm = args.variant == "damsm"
-    training = bool(cfg.TRAIN.FLAG) or damsm
+    # a stage-1 StackGAN cfg trains whatever TRAIN.FLAG says, as there
+    training = bool(cfg.TRAIN.FLAG) or damsm or (stackgan and not stage2)
     mode = None
     if attn:
         if args.bn_groups != 1:
@@ -317,17 +339,17 @@ def main(argv=None) -> list[dict]:
         s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
                                            bn_groups=args.bn_groups)
     else:
-        mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dtype,
-                                   bn_groups=args.bn_groups)
-    if not training and not attn and args.variant not in ("multi-mnist",
-                                                           "clevr"):
-        sys.exit(f"sampling {args.variant} is not ported yet: it waits for "
-                 "the COCO reader (ROADMAP item 9b)")
+        mcfg = stage1_model_config(
+            cfg, "coco-stackgan-1" if stackgan else args.variant,
+            compute_dtype=dtype, bn_groups=args.bn_groups)
     loader = None
     if attn:
-        attngan_data(args, cfg, seed)
+        coco_data(args, cfg, seed, device)
+    elif stage2 and not training:
+        coco_data(args, cfg, seed, device, split="test")
     elif training:
-        loader = train_loader(args, cfg, args.variant, seed, device)
+        loader = train_loader(args, cfg, args.variant, seed, device,
+                              stage=2 if stage2 else 1)
     now = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     output_dir = args.output_dir or os.path.join(
         "output", f"{cfg.DATASET_NAME}_{now}")
@@ -348,11 +370,20 @@ def main(argv=None) -> list[dict]:
         run_attngan_eval(cfg, mcfg, output_dir, mode, device=device,
                          seed=seed)
         return []
+    if stage2 and not training:
+        print(f"coco-stackgan stage 2 sampling on {device}: gf "
+              f"{mcfg.gf_dim}, frozen stage-1 G ngf {s1_cfg.ngf}, seed "
+              f"{seed}, {'stochastic CA' if args.stochastic_ca else 'c = mu'}"
+              f"; data {cfg.DATA_DIR}, images {cfg.IMG_DIR}; output "
+              f"{output_dir}", flush=True)
+        sample_stage2(cfg, s1_cfg, mcfg, output_dir, seed=seed,
+                      device=device, stochastic_ca=args.stochastic_ca)
+        return []
     if not training:
         sample_stage1(args, cfg, mcfg, output_dir, args.variant, seed,
                       device=device)
         return []
-    if not args.resume:
+    if not args.resume and cfg.TRAIN.FLAG:
         snapshot_sources(output_dir)
     if damsm:
         print(f"damsm on {device}: embedding {mcfg.embedding_dim}, "

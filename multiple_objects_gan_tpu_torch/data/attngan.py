@@ -13,19 +13,17 @@ The published pickles were written by Python 2; they are read through
 ``io/pycompat.load_pickle``, and the cache the port writes is the one the
 JAX package writes.
 
-COCO's JPEGs wait for the JPEG reader: the card's machine has no JPEG
-decoder or encoder, so :func:`write_synthetic_attngan` writes no image.
-Training, DAMSM pretraining and its eval split, and the sampler run on
-:class:`AttnGanTrainSet`, one split of the synthetic set: its 268x268
-pixels as the JAX writer draws them before its JPEG encode
-(:func:`synthetic_attngan_images`), held in memory, and per item the
-reader's draws from its ``RandomState`` in its order (get_imgs and
-get_caption, code/coco/attngan/datasets.py:71-137,311-329; JAX
+The images are read from ``<img_dir>/<key>.jpg`` per batch
+(:class:`AttnGanTrainSet`), decoded on the CPU by ``data/jpeg.py`` and on
+the card by nvjpeg, and resized to 268 with PIL's bilinear filter
+(``data/nvjpeg.py:decode_resized``); then per item the reader's draws from
+its ``RandomState`` in its order (get_imgs and get_caption,
+code/coco/attngan/datasets.py:71-137,311-329; JAX
 ``AttnGanDataset.__getitem__``): the h-flip, the 256 crop's offsets, the
 boxes rescaled to the crop, the caption of the item and its words cut to
 TEXT.WORDS_NUM; the 128 and 64px images are PIL's bilinear resize of the
-crop (``data/png.py``). Only the JPEG round trip of the JAX set is
-missing.
+crop (``data/png.py``). :func:`write_synthetic_attngan` writes the JAX
+writer's set, its JPEGs included.
 """
 
 from __future__ import annotations
@@ -38,11 +36,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from multiple_objects_gan_tpu_torch.data.png import resize_bilinear_batch
+from multiple_objects_gan_tpu_torch.data.coco import (
+    MAX_OBJECTS, crop_flip, labels_to_onehot, rescale_boxes)
+from multiple_objects_gan_tpu_torch.data.nvjpeg import decode_resized, encode
+from multiple_objects_gan_tpu_torch.data.png import (
+    resize_bilinear_batch, resize_bilinear_tensor)
 from multiple_objects_gan_tpu_torch.io.pycompat import load_pickle
 
-MAX_OBJECTS = 3
-NUM_CLASSES = 81            # COCO's 80 and the padding class
 LOAD_SIZE = 268             # the reader's resize before its 256 crop
 CROP = 256
 _TOKEN_RE = re.compile(r"\w+")
@@ -159,8 +159,8 @@ def _synthetic_items(n: int, seed: int, captions_per_image: int,
     of the train split (n items), then the test split (max(4, n // 4)),
     ``(split, key, image, bbox, labels, caption lines)``. The image is the
     writer's 268x268 draw, ``rand * 40``, with each object's box filled in
-    its label's colour, before the JPEG encode; without ``images`` it is
-    drawn, so that the stream stays the same, and None."""
+    its label's colour; without ``images`` it is drawn, so that the stream
+    stays the same, and None."""
     rng = np.random.RandomState(seed)
     words = [f"word{i}" for i in range(vocab)]
     for split, count in [("train", n), ("test", max(4, n // 4))]:
@@ -196,24 +196,29 @@ def _synthetic_items(n: int, seed: int, captions_per_image: int,
             yield split, key, img, bb, lab, cap_lines
 
 
-def write_synthetic_attngan(data_dir: str, n: int = 32, seed: int = 0,
-                            captions_per_image: int = 5,
-                            vocab: int = 50) -> None:
-    """The JAX package's synthetic AttnGAN set, text side: the same text
-    files, ``{filenames,bboxes,labels}.pickle`` of both splits (n train
-    items, max(4, n // 4) test items) and so the same vocabulary, drawn
-    from the same ``RandomState`` stream. Each caption names every object
+def write_synthetic_attngan(data_dir: str, img_dir: str | None = None,
+                            n: int = 32, seed: int = 0,
+                            captions_per_image: int = 5, vocab: int = 50,
+                            device="cpu") -> None:
+    """The JAX package's synthetic AttnGAN set from the same
+    ``RandomState`` stream: the text files, ``{filenames,bboxes,labels}.pickle``
+    of both splits (n train items, max(4, n // 4) test items) and so the
+    same vocabulary, and, with ``img_dir``, each item's 268x268 image as
+    ``<img_dir>/<key>.jpg`` (``data/nvjpeg.py:encode``: PIL's encoder on
+    the CPU, nvjpeg's on the card). Each caption names every object
     (``obj<label>``) and its cell of a 3x3 grid (``loc<gx><gy>``) in a
-    random order, then 1-3 filler words (``word<i>``). The JAX writer also
-    saves each item's image as a JPEG; here the image is drawn, so the
-    stream stays the same, and kept by :func:`synthetic_attngan_images`
-    alone."""
+    random order, then 1-3 filler words (``word<i>``). Without ``img_dir``
+    the text side alone is written (the vocabulary a service needs)."""
     os.makedirs(os.path.join(data_dir, "text"), exist_ok=True)
+    if img_dir is not None:
+        os.makedirs(img_dir, exist_ok=True)
     splits: dict = {}
-    for split, key, _, bb, lab, cap_lines in _synthetic_items(
-            n, seed, captions_per_image, vocab, images=False):
+    for split, key, img, bb, lab, cap_lines in _synthetic_items(
+            n, seed, captions_per_image, vocab, images=img_dir is not None):
         with open(os.path.join(data_dir, "text", key + ".txt"), "w") as f:
             f.write("\n".join(cap_lines))
+        if img is not None:
+            encode(os.path.join(img_dir, key + ".jpg"), img, device)
         rows = splits.setdefault(split, ([], [], []))
         for col, v in zip(rows, (key, bb, lab)):
             col.append(v)
@@ -227,88 +232,16 @@ def write_synthetic_attngan(data_dir: str, n: int = 32, seed: int = 0,
                 pickle.dump(obj, f)
 
 
-def synthetic_attngan_images(n: int = 32, seed: int = 0,
-                             captions_per_image: int = 5, vocab: int = 50,
-                             split: str = "train") -> np.ndarray:
-    """The 268x268 images of ``split`` of :func:`write_synthetic_attngan`'s
-    set with the same arguments, (items, 268, 268, 3) uint8 in its order:
-    the JAX writer's pixels before its JPEG encode."""
-    return np.stack([img for s, _, img, *_ in _synthetic_items(
-        n, seed, captions_per_image, vocab) if s == split])
-
-
-def synthetic_train_images(data_dir: str, seed: int,
-                           captions_per_image: int = 5, vocab: int = 50,
-                           split: str = "train") -> np.ndarray:
-    """The images of ``split`` (the train split by default) of the
-    synthetic set in ``data_dir``, written by :func:`write_synthetic_attngan`
-    with ``seed``: its stream drawn again for as many items as the train
-    split holds. Raises ``ValueError`` when the boxes drawn are not the
-    split's (another seed, or a set this writer did not write, such as
-    COCO's, whose JPEGs the port cannot read yet)."""
-    split_dir = os.path.join(data_dir, split)
-    n = len(_load_filenames(data_dir, "train"))
-    if n == 0 or not os.path.isdir(split_dir):
-        raise ValueError(f"no train or {split} split under {data_dir}")
-    want = np.array(load_pickle(os.path.join(split_dir, "bboxes.pickle")),
-                    np.float32)
-    images, boxes = [], []
-    for s, _, img, bb, *_ in _synthetic_items(n, seed, captions_per_image,
-                                              vocab):
-        if s == split:
-            images.append(img)
-            boxes.append(bb)
-    if not np.array_equal(np.stack(boxes), want):
-        raise ValueError(
-            f"{data_dir} is not write_synthetic_attngan(n={n}, seed={seed})'s"
-            " set: the port trains AttnGAN on that set, in memory, until "
-            "COCO's JPEG reader is ported")
-    return np.stack(images)
-
-
-def labels_to_onehot(labels: np.ndarray) -> np.ndarray:
-    """(O,) or (O, 1) class ids, -1 for padding -> (O, 81) one-hots, the
-    padding in slot 80 (JAX ``data/coco.py:labels_to_onehot``)."""
-    ids = np.asarray(labels).reshape(-1).astype(np.int64)
-    ids = np.where(ids < 0, NUM_CLASSES - 1, ids)
-    onehot = np.zeros((ids.shape[0], NUM_CLASSES), np.float32)
-    onehot[np.arange(ids.shape[0]), ids] = 1.0
-    return onehot
-
-
-def _scale_bbox(bbox: np.ndarray, h1: int, w1: int, flip: bool
-                ) -> np.ndarray:
-    """The boxes after the reader's resize to 268, 256 crop at (h1, w1)
-    and h-flip (datasets.py:95-137; JAX ``AttnGanDataset._scale_bbox``)."""
-    bbox_scaled = np.full_like(bbox, -1.0)
-    for i in range(MAX_OBJECTS):
-        bt = bbox[i]
-        if bt[0] == -1:
-            break
-        x = max(bt[0] * 268.0 - h1, 0) / 256.0
-        y = max(bt[1] * 268.0 - w1, 0) / 256.0
-        w = min((268.0 / 256.0) * bt[2], 1.0)
-        if x + w > 0.999:
-            w = 1.0 - x - 0.001
-        h = min((268.0 / 256.0) * bt[3], 1.0)
-        if y + h > 0.999:
-            h = 1.0 - y - 0.001
-        if flip:
-            x = 1.0 - x - w
-        bbox_scaled[i] = [x, y, w, h]
-    return bbox_scaled.astype(np.float32)
-
-
 class AttnGanTrainSet:
-    """One split (``train`` or ``test``) held in memory, batched in the JAX
-    reader's order.
+    """One split (``train`` or ``test``) read from ``img_dir`` per batch, in
+    the JAX reader's order.
 
-    ``images`` (items, 268, 268, 3) uint8 are the split's pixels in
-    filename order (:func:`synthetic_attngan_images`); the captions, boxes
-    and labels are :class:`AttnGanDataset`'s. Each split draws its crops,
-    flips and captions as the JAX reader of that split does, from its own
-    ``RandomState``. :meth:`get_batch` gives what
-    the JAX reader's ``get_batch`` gives for the same indices:
+    The captions, boxes and labels are :class:`AttnGanDataset`'s; the
+    images ``<img_dir>/<filename>.jpg`` are decoded and resized to 268 on
+    ``device`` (numpy on the CPU, tensors on the card). Each split draws
+    its crops, flips and captions as the JAX reader of that split does,
+    from its own ``RandomState``. :meth:`get_batch` gives what the JAX
+    reader's ``__getitem__`` gives for the same indices, stacked:
     ``image{64,128,256}`` (uint8 NHWC), ``bbox``, ``label_onehot``,
     ``captions`` (B, words_num) int64 zero-padded, ``cap_lens`` and
     ``class_ids`` (arange, or the split's ``class_info.pickle`` where there
@@ -318,16 +251,13 @@ class AttnGanTrainSet:
     checkpoint, so a resumed run draws what an uninterrupted one draws.
     """
 
-    def __init__(self, data_dir: str, images: np.ndarray,
-                 base_size: int = 64, branch_num: int = 3,
-                 captions_per_image: int = 5, words_num: int = 12,
-                 seed: int = 0, split: str = "train"):
+    def __init__(self, data_dir: str, img_dir: str, base_size: int = 64,
+                 branch_num: int = 3, captions_per_image: int = 5,
+                 words_num: int = 12, seed: int = 0, split: str = "train",
+                 device="cpu"):
         self.text = AttnGanDataset(data_dir, split, captions_per_image)
-        if images.shape[1:] != (LOAD_SIZE, LOAD_SIZE, 3) or \
-                len(images) != len(self.text):
-            raise ValueError(f"{len(self.text)} images of {LOAD_SIZE}x"
-                             f"{LOAD_SIZE}x3 expected, got {images.shape}")
-        self.images = images
+        self.img_dir = img_dir
+        self.device = torch.device(device)
         self.embeddings_num = captions_per_image
         self.words_num = words_num
         self.imsizes = [base_size * (2 ** i) for i in range(branch_num)]
@@ -365,25 +295,35 @@ class AttnGanTrainSet:
         x[:] = sent[ix]
         return x, self.words_num
 
+    def path(self, index: int) -> str:
+        return os.path.join(self.img_dir,
+                            str(self.text.filenames[index]) + ".jpg")
+
     def get_batch(self, idxs) -> dict:
-        idxs = np.asarray(idxs)
+        idxs = np.asarray(idxs).reshape(-1)
         n = len(idxs)
-        crops = np.empty((n, CROP, CROP, 3), np.uint8)
+        images = decode_resized([self.path(i) for i in idxs], LOAD_SIZE,
+                                self.device)
         bbox = np.empty((n, MAX_OBJECTS, 4), np.float32)
         caps = np.empty((n, self.words_num), np.int64)
         lens = np.empty((n,), np.int64)
+        h1 = np.zeros(n, np.int64)
+        w1 = np.zeros(n, np.int64)
+        flip = np.zeros(n, bool)
         for j, i in enumerate(idxs):
-            flip = self._rng.rand() < 0.5
-            h1 = int(np.floor(12 * self._rng.rand()))
-            w1 = int(np.floor(12 * self._rng.rand()))
-            crop = self.images[i, w1:w1 + CROP, h1:h1 + CROP]
-            crops[j] = crop[:, ::-1] if flip else crop
-            bbox[j] = _scale_bbox(self.text.bboxes[i], h1, w1, flip)
+            f = bool(self._rng.rand() < 0.5)
+            x0 = int(np.floor(12 * self._rng.rand()))
+            y0 = int(np.floor(12 * self._rng.rand()))
+            flip[j], h1[j], w1[j] = f, x0, y0
+            bbox[j] = rescale_boxes(self.text.bboxes[i], LOAD_SIZE, CROP,
+                                    x0, y0, f)
             sent_ix = self._rng.randint(0, self.embeddings_num)
             caps[j], lens[j] = self._get_caption(
                 int(i) * self.embeddings_num + sent_ix)
-        out = {f"image{s}": (crops if s == CROP else
-                             resize_bilinear_batch(crops, (s, s)))
+        crops = crop_flip(images, h1, w1, flip, CROP)
+        resize = (resize_bilinear_tensor if isinstance(crops, torch.Tensor)
+                  else resize_bilinear_batch)
+        out = {f"image{s}": crops if s == CROP else resize(crops, (s, s))
                for s in self.imsizes}
         out.update({
             "bbox": bbox,
@@ -407,14 +347,13 @@ class AttnGanTrainSet:
                              state["cached_gaussian"]))
 
 
-def synthetic_split(data_dir: str, st, seed: int,
-                    split: str = "train") -> AttnGanTrainSet:
-    """``split`` of the synthetic set in ``data_dir`` (written with
-    ``seed``) held in memory, at the TEXT and TREE settings of ``st`` (a
-    ``config.AttnGanTrainSettings``), its draws from ``seed``."""
+def attngan_split(data_dir: str, img_dir: str, st, seed: int,
+                  split: str = "train", device="cpu") -> AttnGanTrainSet:
+    """``split`` of the set in ``data_dir`` with its JPEGs in ``img_dir``,
+    at the TEXT and TREE settings of ``st`` (a
+    ``config.AttnGanTrainSettings``), its draws from ``seed``, decoded on
+    ``device``."""
     return AttnGanTrainSet(
-        data_dir, synthetic_train_images(data_dir, seed,
-                                         st.captions_per_image, split=split),
-        base_size=st.base_size, branch_num=st.branch_num,
+        data_dir, img_dir, base_size=st.base_size, branch_num=st.branch_num,
         captions_per_image=st.captions_per_image, words_num=st.words_num,
-        seed=seed, split=split)
+        seed=seed, split=split, device=device)

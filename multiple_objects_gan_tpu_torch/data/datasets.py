@@ -14,10 +14,11 @@ Formats, as the reference's pipelines read them:
 Images are decoded by the port's own PNG reader (``data/png.py``) to uint8
 and travel as uint8; the model's normalise to [-1, 1] runs on the device
 (``utils/images.py:as_model_image``). :class:`Loader` is the JAX package's
-shuffled, drop-last batcher with a prefetch thread; :class:`MemoryLoader`
-batches a set held on the device in the same order (the COCO set, which
-has no on-disk reader yet). The JAX loader's multi-host ``shard`` and its
-native-decoder ``workers`` are not ported (ROADMAP Queue 1, items 14, 9b).
+shuffled, drop-last batcher with a prefetch thread (the COCO readers of
+``data/coco.py`` and ``data/attngan.py`` decode in it);
+:class:`MemoryLoader` batches a set held on the device in the same order,
+for tests and timed steps. The JAX loader's multi-host ``shard`` and its
+native-decoder ``workers`` are not ported (ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -133,7 +134,13 @@ class ClevrDataset:
 class Loader:
     """Shuffled (``seed + epoch``; in order without ``shuffle``), drop-last
     batches of numpy arrays, assembled by a prefetch thread ``PREFETCH``
-    batches ahead. An error in the thread is raised in the consumer."""
+    batches ahead. An error in the thread is raised in the consumer.
+
+    A set on a card (``dataset.device``, the COCO readers) is read on a
+    CUDA stream of the thread's own, so that its decodes and copies wait
+    for the reader's work alone and not for the train step queued on the
+    consumer's stream; the consumer's stream waits for each batch on an
+    event."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  shuffle: bool = True):
@@ -152,29 +159,48 @@ class Loader:
         n_batches = len(self)
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         get_batch = getattr(self.ds, "get_batch", None)
+        device = torch.device(getattr(self.ds, "device", None) or "cpu")
+        stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                  else None)
+
+        def read(idxs):
+            if get_batch is not None:
+                return get_batch(idxs)
+            items = [self.ds[int(i)] for i in idxs]
+            return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
         def worker():
             try:
                 for b in range(n_batches):
                     idxs = order[b * self.bs:(b + 1) * self.bs]
-                    if get_batch is not None:
-                        batch = get_batch(idxs)
-                    else:
-                        items = [self.ds[int(i)] for i in idxs]
-                        batch = {k: np.stack([it[k] for it in items])
-                                 for k in items[0]}
-                    q.put(batch)
+                    if stream is None:
+                        q.put((read(idxs), None))
+                        continue
+                    with torch.cuda.stream(stream):
+                        batch = read(idxs)
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                    q.put((batch, done))
                 q.put(None)
             except Exception as e:  # noqa: BLE001 - raised in the consumer
                 q.put(e)
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            batch = q.get()
-            if batch is None:
+            item = q.get()
+            if item is None:
                 return
-            if isinstance(batch, Exception):
-                raise batch
+            if isinstance(item, Exception):
+                raise item
+            batch, done = item
+            if done is not None:
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(done)
+                for v in batch.values():
+                    if isinstance(v, torch.Tensor) and v.is_cuda:
+                        # the allocator keeps the block until the consumer's
+                        # queued work is done with it
+                        v.record_stream(consumer)
             yield batch
 
 

@@ -1,4 +1,4 @@
-"""A standard-library PNG reader and Pillow's bilinear resize, in numpy.
+"""A standard-library PNG reader and Pillow's resize, in numpy.
 
 The JAX package's readers open images with PIL (``data/datasets.py:42-52``)
 or its native decoder; the card's machine has neither, so the port decodes
@@ -12,13 +12,16 @@ PNGs itself and reproduces the two PIL calls its readers make:
   else (16-bit or sub-byte samples, interlacing, gray + alpha, a bad CRC)
   raises ``ValueError``.
 * :func:`resize_bilinear` is ``Image.resize(size, Image.BILINEAR)`` on
-  uint8 (Pillow's ``Resample.c``): a separable triangle filter, widened by
-  the scale on a downscale, its coefficients normalised and rounded to
-  22-bit fixed point, the horizontal pass first into uint8, then the
-  vertical pass; a pass whose size does not change is skipped.
+  uint8 (Pillow's ``Resample.c``), and :func:`resize` with ``"lanczos"``
+  is ``Image.LANCZOS`` (a 3-lobe windowed sinc): a separable filter,
+  widened by the scale on a downscale, its coefficients normalised and
+  rounded to 22-bit fixed point, the horizontal pass first into uint8,
+  then the vertical pass; a pass whose size does not change is skipped.
   :func:`resize_bilinear_batch` gives the same for a stack of images in
   one pass each way: a pass is a float64 matrix product with the
-  fixed-point coefficients, exact because every sum stays below 2^53.
+  fixed-point coefficients, exact because every sum stays below 2^53;
+  :func:`resize_bilinear_tensor` gives it on a tensor's own device (the
+  card's decoded batches), summing the gathered taps in int64.
 
 The Average and Paeth row filters depend on the byte to their left, so
 they are undone in a Python loop over the row; None, Sub and Up are
@@ -34,6 +37,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 from multiple_objects_gan_tpu_torch.utils.images import PNG_SIGNATURE
 
@@ -162,13 +166,35 @@ def read_png(path: str, mode: str) -> np.ndarray:
     return convert(*decode_png(data), mode)
 
 
-def _coefficients(in_size: int, out_size: int):
-    """Resample.c ``precompute_coeffs`` for the bilinear filter and
-    ``normalize_coeffs_8bpc``: per output index the first input index, the
-    tap count and the fixed-point weights (out_size, ksize) int64."""
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x *= math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
+
+
+# Resample.c's filters: name -> (filter, support)
+FILTERS = {"bilinear": (_bilinear, 1.0), "lanczos": (_lanczos, 3.0)}
+
+
+def _coefficients(in_size: int, out_size: int, resample: str = "bilinear"):
+    """Resample.c ``precompute_coeffs`` for ``resample`` (a key of
+    :data:`FILTERS`) and ``normalize_coeffs_8bpc``: per output index the
+    first input index, the tap count and the fixed-point weights
+    (out_size, ksize) int64."""
+    filt, base_support = FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(out_size, np.int64)
     count = np.zeros(out_size, np.int64)
@@ -177,10 +203,8 @@ def _coefficients(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        ws = []
-        for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * (1.0 / filterscale))
-            ws.append(1.0 - t if t < 1.0 else 0.0)
+        ws = [filt((x + xmin - center + 0.5) * (1.0 / filterscale))
+              for x in range(xmax)]
         ww = 0.0
         for w in ws:
             ww += w
@@ -192,10 +216,11 @@ def _coefficients(in_size: int, out_size: int):
     return first, count, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: str = "bilinear") -> np.ndarray:
     """One pass of Resample.c over ``axis`` (0: rows, 1: columns) of an
     (H, W, C) uint8 image, into uint8."""
-    first, count, kk = _coefficients(img.shape[axis], out_size)
+    first, count, kk = _coefficients(img.shape[axis], out_size, resample)
     taps = first[:, None] + np.arange(kk.shape[1])[None, :]
     taps = np.minimum(taps, img.shape[axis] - 1)   # their weights are 0
     kk = np.where(np.arange(kk.shape[1])[None, :] < count[:, None], kk, 0)
@@ -208,25 +233,34 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """``Image.fromarray(img).resize(size, Image.BILINEAR)`` for uint8
-    (H, W) or (H, W, C); ``size`` is (width, height), as PIL takes it."""
+def resize(img: np.ndarray, size: tuple[int, int],
+           resample: str = "bilinear") -> np.ndarray:
+    """``Image.fromarray(img).resize(size, Image.BILINEAR)`` (or
+    ``Image.LANCZOS`` for ``resample="lanczos"``) for uint8 (H, W) or
+    (H, W, C); ``size`` is (width, height), as PIL takes it."""
     if img.dtype != np.uint8:
-        raise ValueError(f"resize_bilinear takes uint8, got {img.dtype}")
+        raise ValueError(f"resize takes uint8, got {img.dtype}")
     w, h = size
     x = img[..., None] if img.ndim == 2 else img
     if x.shape[1] != w:
-        x = _resample_axis(x, w, axis=1)
+        x = _resample_axis(x, w, 1, resample)
     if x.shape[0] != h:
-        x = _resample_axis(x, h, axis=0)
+        x = _resample_axis(x, h, 0, resample)
     return x[..., 0] if img.ndim == 2 else x
 
 
-@functools.lru_cache(maxsize=16)
-def _dense_coefficients(in_size: int, out_size: int) -> np.ndarray:
+def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``Image.fromarray(img).resize(size, Image.BILINEAR)`` for uint8
+    (H, W) or (H, W, C); ``size`` is (width, height), as PIL takes it."""
+    return resize(img, size, "bilinear")
+
+
+@functools.lru_cache(maxsize=32)
+def _dense_coefficients(in_size: int, out_size: int,
+                        resample: str = "bilinear") -> np.ndarray:
     """The fixed-point coefficients of :func:`_coefficients` as an
     (out_size, in_size) float64 matrix."""
-    first, count, kk = _coefficients(in_size, out_size)
+    first, count, kk = _coefficients(in_size, out_size, resample)
     m = np.zeros((out_size, in_size))
     for o in range(out_size):
         m[o, first[o]:first[o] + count[o]] = kk[o, :count[o]]
@@ -254,3 +288,40 @@ def resize_bilinear_batch(images: np.ndarray, size: tuple[int, int]
         x = _dense_pass(x, _dense_coefficients(x.shape[1], h),
                         "oh,nhwc->nowc")
     return x.astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=32)
+def _taps(in_size: int, out_size: int, resample: str = "bilinear"):
+    """:func:`_coefficients` as (out_size, ksize) input indices (clamped;
+    their weights past the tap count are 0) and weights."""
+    first, count, kk = _coefficients(in_size, out_size, resample)
+    k = np.arange(kk.shape[1])
+    taps = np.minimum(first[:, None] + k[None, :], in_size - 1)
+    return taps, np.where(k[None, :] < count[:, None], kk, 0)
+
+
+def resize_bilinear_tensor(images: torch.Tensor, size: tuple[int, int]
+                           ) -> torch.Tensor:
+    """:func:`resize_bilinear_batch` of a uint8 (N, H, W, C) tensor on its
+    own device (the card's decoded batches stay there), bit for bit: each
+    pass gathers its taps and sums them with the fixed-point weights in
+    int64."""
+    if images.dtype != torch.uint8:
+        raise ValueError(f"resize_bilinear_tensor takes uint8, got "
+                         f"{images.dtype}")
+    w, h = size
+    x = images.long()
+    for axis, out in ((2, w), (1, h)):
+        if x.shape[axis] == out:
+            continue
+        taps, kk = _taps(x.shape[axis], out)
+        src = x.index_select(axis, torch.from_numpy(taps.reshape(-1)).to(
+            x.device))
+        shape = list(x.shape)
+        shape[axis:axis + 1] = list(taps.shape)
+        weights = torch.from_numpy(kk).to(x.device).view(
+            list(taps.shape) + [1] * (x.ndim - axis - 1))
+        acc = (src.view(shape) * weights).sum(dim=axis + 1)
+        x = ((acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS).clamp(
+            0, 255)
+    return x.to(torch.uint8)

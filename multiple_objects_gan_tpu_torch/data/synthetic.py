@@ -12,14 +12,9 @@
 * :func:`synthetic_coco` makes the draws of ``data/coco.py:
   write_synthetic_coco`` from the same seed, with the images drawn at
   64x64 (or stage 2's 256x256) directly; :func:`synthetic_coco_stage2`
-  adds stage 2's boxes.
-
-The port's ``data/datasets.py`` writes the Multi-MNIST and CLEVR sets to
-disk and reads them back. Left for COCO's on-disk reader (ROADMAP Queue 1,
-item 9b): the JPEG round trip, and COCO's resize to 76 with a random 64
-crop and flip and the box rescale that goes with them
-(``data/coco.py:29-43,134-141``), and stage 2's crop with its two box
-scales (``data/coco.py:111-131``).
+  adds stage 2's boxes. They hold single steps in tests and in
+  ``chip_smoke.py``'s step phases; the entries read COCO from disk
+  (``data/coco.py``).
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ def to_device(batch: dict, device: torch.device) -> dict:
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(v))
         if t.device != device:
-            if device.type == "cuda":
+            if t.device.type == "cpu" and device.type == "cuda":
                 t = t.pin_memory()
             t = t.to(device, non_blocking=True)
         out[k] = t
@@ -143,6 +143,23 @@ def grid_noise(seed: int, epoch: int, b: int, z_dim: int,
     return torch.from_numpy(z.astype(np.float32)).to(device)
 
 
+def data_rng_extra(loader):
+    """``run_epochs``'s ``checkpoint_extra`` for a loader whose set carries
+    its draws' ``RandomState`` (the COCO readers' ``rng_state``), so that a
+    resumed run draws what an uninterrupted one draws; None otherwise."""
+    ds = getattr(loader, "ds", None)
+    if not hasattr(ds, "rng_state"):
+        return None
+    return lambda: {"data_rng": ds.rng_state()}
+
+
+def restore_data_rng(loader, extra: dict) -> None:
+    """Put a checkpoint's ``data_rng`` (:func:`data_rng_extra`) back."""
+    ds = getattr(loader, "ds", None)
+    if extra and "data_rng" in extra and hasattr(ds, "set_rng_state"):
+        ds.set_rng_state(extra["data_rng"])
+
+
 def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
           seed: int = 0, max_epochs: Optional[int] = None,
           resume_dir: Optional[str] = None
@@ -165,7 +182,9 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
     if resume_dir:
         prev = CheckpointManager(os.path.join(resume_dir, "models"))
         if prev.latest_epoch() is not None:
-            start_epoch = prev.restore(state, generator)[0] + 1
+            epoch, extra = prev.restore(state, generator)
+            restore_data_rng(loader, extra)
+            start_epoch = epoch + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
     n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)
@@ -192,7 +211,8 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
             start_epoch=start_epoch, lr_decay_epochs=settings.lr_decay_epoch,
             snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
-            writer=writer, epoch_end_fn=epoch_grids)
+            writer=writer, epoch_end_fn=epoch_grids,
+            checkpoint_extra=data_rng_extra(loader))
     finally:
         writer.close()
     return state, history

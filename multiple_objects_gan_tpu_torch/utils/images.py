@@ -76,7 +76,7 @@ def png_bytes(u8: np.ndarray) -> bytes:
             + png_chunk(b"IEND", b""))
 
 
-def _tile_uint8(img) -> np.ndarray:
+def tile_uint8(img) -> np.ndarray:
     """(H, W, C) in [-1, 1] -> uint8 (H, W, 3), as the JAX package's
     ``utils/images.py:to_uint8`` rounds it; uint8 passes through, gray is
     repeated to RGB."""
@@ -100,7 +100,7 @@ def make_grid(images, nrow: int = 8, pad: int = 2) -> np.ndarray:
     for i in range(n):
         r, c = divmod(i, nrow)
         y, x = r * (h + pad) + pad, c * (w + pad) + pad
-        grid[y:y + h, x:x + w] = _tile_uint8(images[i])
+        grid[y:y + h, x:x + w] = tile_uint8(images[i])
     return grid
 
 
@@ -117,7 +117,7 @@ def save_image(img, path: str) -> None:
     before PIL saves them (``cli/attngan_runner.py:gen_example``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(png_bytes(_tile_uint8(img)))
+        f.write(png_bytes(tile_uint8(img)))
 
 
 def draw_bboxes(img_uint8: np.ndarray, bboxes, color=(220, 30, 30)

@@ -41,7 +41,6 @@ from multiple_objects_gan_tpu_torch.models.attngan import build_attngan_d
 from multiple_objects_gan_tpu_torch.nn.encoders import (
     CNNEncoder, build_text_encoder)
 from multiple_objects_gan_tpu_torch.train.state import create_attngan_state
-from multiple_objects_gan_tpu_torch.utils.images import png_bytes
 from test_torch_port_attngan_step import TinyImageEncoder
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
@@ -87,19 +86,15 @@ def tiny_cfg(tmp_path, data_dir, net_g="", net_e="", b_net_d=True,
 
 def test_train_set_matches_the_jax_reader_bit_for_bit(tmp_path):
     """Two epochs of the port's AttnGanTrainSet in the Loader's order
-    against the JAX reader on the same pixels: every image at 64, 128 and
-    256, the rescaled boxes, one-hots, captions (subsampled to 5 words where
-    longer), lengths and class ids."""
+    against the JAX reader, both reading the JAX writer's JPEGs from disk
+    (the port's own decoder against PIL): every image at 64, 128 and 256,
+    the rescaled boxes, one-hots, captions (subsampled to 5 words where
+    longer), lengths and class ids; a missing JPEG raises with its path."""
     data, imgs = str(tmp_path / "data"), str(tmp_path / "imgs")
     jdata.write_synthetic_attngan(data, imgs, n=16, seed=SEED)
-    pixels = pdata.synthetic_attngan_images(16, SEED)
-    assert np.array_equal(pixels, pdata.synthetic_train_images(data, SEED))
-    for i in range(16):
-        with open(os.path.join(imgs, f"train_{i:05d}.jpg"), "wb") as f:
-            f.write(png_bytes(pixels[i]))
     jds = jdata.AttnGanDataset(data, imgs, split="train", words_num=5,
                                seed=SEED)
-    pds = pdata.AttnGanTrainSet(data, pixels, words_num=5, seed=SEED)
+    pds = pdata.AttnGanTrainSet(data, imgs, words_num=5, seed=SEED)
     loader = Loader(pds, 4, seed=SEED)
     subsampled = 0
     for epoch in range(2):
@@ -115,8 +110,9 @@ def test_train_set_matches_the_jax_reader_bit_for_bit(tmp_path):
                 np.testing.assert_array_equal(got[k], want, err_msg=k)
             subsampled += int((got["cap_lens"] == 5).sum())
     assert subsampled > 0
-    with pytest.raises(ValueError, match="seed=4"):
-        pdata.synthetic_train_images(data, 4)
+    os.remove(os.path.join(imgs, "train_00003.jpg"))
+    with pytest.raises(FileNotFoundError, match="train_00003.jpg"):
+        pds.get_batch([2, 3])
 
 
 def test_config_reads_cfg_coco_attn_train():
@@ -215,6 +211,8 @@ def _main(cfg, out, *flags):
     return port_main.main(["--variant", "coco-attngan", "--cfg", cfg,
                            "--synthetic", "--manualSeed", str(SEED),
                            "--device", "cpu", "--output_dir", str(out),
+                           "--img_dir",
+                           os.path.join(os.path.dirname(cfg), "imgs"),
                            *flags])
 
 

@@ -435,7 +435,8 @@ def check_cli_epoch(tmp_path, variant, steps, flags=()):
     hist = port_main.main(["--variant", variant, "--cfg", cfg, "--synthetic",
                            "--max_epochs", "1", "--manualSeed", "3",
                            "--device", "cpu", "--data_dir",
-                           str(tmp_path / "data"), "--output_dir",
+                           str(tmp_path / "data"), "--img_dir",
+                           str(tmp_path / "imgs"), "--output_dir",
                            str(tmp_path / "out"), *flags])
     assert len(hist) == 1 and hist[0]["steps"] == steps
     for k in ("d_loss", "d_loss_real", "d_loss_wrong", "d_loss_fake",

@@ -73,7 +73,8 @@ def tiny_cfg(tmp_path, net_e=""):
 
 def _run(cfg, data, out, *extra):
     return port_main.main(["--variant", "damsm", "--cfg", cfg, "--data_dir",
-                           data, "--output_dir", out, "--synthetic",
+                           data, "--img_dir", str(data) + "_imgs",
+                           "--output_dir", out, "--synthetic",
                            "--manualSeed", str(SEED), "--device", "cpu",
                            "--snapshot_interval", "1", *extra])
 

@@ -105,10 +105,15 @@ def _stage1_pth(tmp_path):
     return path, g1
 
 
-def _main(cfg, out, *flags):
-    return port_main.main(["--variant", "coco-stackgan-2", "--cfg", cfg,
+def _main(cfg, out, *flags, variant="coco-stackgan-2"):
+    """cli/main.py with --synthetic: the set is written beside the cfg
+    (data/, imgs/) when missing."""
+    where = os.path.dirname(cfg)
+    return port_main.main(["--variant", variant, "--cfg", cfg,
                            "--synthetic", "--manualSeed", "3", "--device",
-                           "cpu", "--output_dir", str(out), *flags])
+                           "cpu", "--data_dir", os.path.join(where, "data"),
+                           "--img_dir", os.path.join(where, "imgs"),
+                           "--output_dir", str(out), *flags])
 
 
 def test_cli_trains_one_synthetic_epoch_and_resumes(tmp_path, capsys):
@@ -167,10 +172,85 @@ def test_cli_bf16_bn_groups_epoch_warns_without_stage1_g(tmp_path, capsys):
 
 
 def test_train_flag_false_exits_with_its_message(tmp_path):
+    """TRAIN.FLAG False samples stage 2 (tests/test_torch_port_stage2_
+    sample.py); without a test split and without --synthetic it exits with
+    the data's path, as the JAX CLI does."""
     cfg = tiny_s2_cfg(tmp_path, flag=False)
-    with pytest.raises(SystemExit,
-                       match="sampling coco-stackgan-2 is not ported yet"):
-        _main(cfg, tmp_path / "out")
+    with pytest.raises(SystemExit, match="COCO data not found under "
+                       f"{tmp_path}.*pass --synthetic"):
+        port_main.main(["--variant", "coco-stackgan-2", "--cfg", cfg,
+                        "--device", "cpu", "--data_dir", str(tmp_path),
+                        "--output_dir", str(tmp_path / "out")])
+
+
+def _tiny_s1_cfg(tmp_path, flag=True):
+    """cfg/coco_s1_train.yml (STAGE 1) at GF/DF 8, batch 4."""
+    with open(os.path.join(ROOT, "cfg", "coco_s1_train.yml")) as f:
+        text = f.read()
+    text = (text.replace("BATCH_SIZE: 128", "BATCH_SIZE: 4")
+            .replace("DF_DIM: 96", "DF_DIM: 8")
+            .replace("GF_DIM: 192", "GF_DIM: 8")
+            .replace("FLAG: True", f"FLAG: {flag}"))
+    path = tmp_path / "coco_s1_train.yml"
+    path.write_text(text)
+    return str(path)
+
+
+def _jax_dispatch(monkeypatch, variant, cfg, tmp_path):
+    """Where the JAX CLI sends ``variant`` with ``cfg``: "stage1" (its
+    stage-1 trainer) or "stage2" (its stage-2 runner), both stubbed."""
+    import sys as _sys
+
+    from multiple_objects_gan_tpu.cli import main as jax_main
+    from multiple_objects_gan_tpu.cli import stage2_runner as jax_s2
+    from multiple_objects_gan_tpu.train import loop as jax_loop
+    went = []
+    monkeypatch.setattr(jax_s2, "run_stage2",
+                        lambda *a, **k: went.append("stage2"))
+    monkeypatch.setattr(jax_loop, "train",
+                        lambda *a, **k: went.append("stage1"))
+    monkeypatch.setattr(_sys, "argv", [
+        "main", "--variant", variant, "--cfg", cfg, "--synthetic",
+        "--manualSeed", "3", "--data_dir", str(tmp_path / "jdata"),
+        "--img_dir", str(tmp_path / "jimgs"), "--output_dir",
+        str(tmp_path / "jout")])
+    jax_main.main()
+    return went
+
+
+@pytest.mark.parametrize("variant, stage, flag", [
+    ("coco-stackgan-1", 2, True), ("coco-stackgan-2", 1, True),
+    ("coco-stackgan-2", 1, False)], ids=["s1-variant-s2-cfg",
+                                         "s2-variant-s1-cfg",
+                                         "s1-cfg-train-flag-false"])
+def test_stackgan_variants_dispatch_on_cfg_stage(tmp_path, monkeypatch,
+                                                 variant, stage, flag):
+    """F4: both coco-stackgan variants go where cfg STAGE says, as the JAX
+    CLI's run_stackgan does: a stage-2 cfg to the stage-2 runner with
+    Stage2G's config, a stage-1 cfg to the stage-1 trainer with COCO
+    Stage1G's, and a stage-1 cfg with TRAIN.FLAG False trains stage 1 too
+    (the JAX dispatch reads no TRAIN.FLAG there)."""
+    cfg = (tiny_s2_cfg(tmp_path, flag=flag) if stage == 2
+           else _tiny_s1_cfg(tmp_path, flag=flag))
+    went = []
+    monkeypatch.setattr(port_main, "run_stage2",
+                        lambda cfg, s1, s2, loader, *a, **k:
+                        went.append(("stage2", s2, loader)) or [])
+    monkeypatch.setattr(port_main, "train",
+                        lambda cfg, mcfg, loader, *a, **k:
+                        went.append(("stage1", mcfg, loader)) or (None, []))
+    _main(cfg, tmp_path / "out", variant=variant)
+    assert [w[0] for w in went] == [f"stage{stage}"]
+    mcfg, loader = went[0][1], went[0][2]
+    assert loader.ds.stage == stage
+    if stage == 2:
+        assert (mcfg.gf_dim, mcfg.df_dim, mcfg.r_num) == (8, 4, 2)
+        assert loader.ds.imsize == 256
+    else:
+        assert (mcfg.ngf, mcfg.text_dim, mcfg.label_dim) == (64, 1024, 81)
+        assert loader.ds.imsize == 64
+    assert _jax_dispatch(monkeypatch, variant, cfg, tmp_path) == [
+        f"stage{stage}"]
 
 
 def test_cli_entries_refuse_stage2_without_a_card(tmp_path, monkeypatch):
