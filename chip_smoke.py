@@ -15,9 +15,11 @@ damsm/DAMSMencoders/text_encoder29.pth), 33-36 train it at the widths
 of cfg/coco_attn_train.yml from the flagship's EMA G, its DAMSM encoders
 (image_encoder29.pth too) and seeded Ds, 37-39 pretrain the DAMSM
 encoders at cfg/coco_damsm.yml's widths, 40 runs AttnGAN's eval modes
-sample and gen_example from the flagship files, and 41-43 read COCO from
+sample and gen_example from the flagship files, 41-43 read COCO from
 disk: the JPEG codecs, both StackGAN stages, AttnGAN and DAMSM trained
-from disk, and stage-2 sampling. Every COCO entry reads its JPEGs from
+from disk, and stage-2 sampling, and 44-46 evaluate: the FID encoders,
+AttnGAN's sampling dump with FID and IS, the layout-fidelity tool and a
+--profile trace. Every COCO entry reads its JPEGs from
 disk (nvjpeg on the card). The train entries' data and runs go to a
 temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
@@ -248,11 +250,34 @@ elapsed time:
                 launches a grid; the first grid's fakes card against CPU
                 and against the entry's PNG; K1 at the sampler's
                 (9,3,384,16²) -> 16² and (9,3,192,64²) -> 64² held and
-                timed cold in turns and on the device alone.
+                timed cold in turns and on the device alone;
+ 44. fid      - the canonical FID Inception (nn/fid_inception.py, seeded
+                weights) and the flagship DAMSM image encoder's 2048 pooled
+                features at batch 14 of the test split's 256px images, card
+                against CPU relative to their largest, and again with TF32
+                turned on around the call (a --bf16 process's settings:
+                still float32, the flags restored); Inception ms an image
+                at batch 32 (CUDA events); scipy's version;
+ 45. sampling - cli/main.py --variant coco-attngan --eval_mode sampling
+                --num_images 56 from the flagship's EMA G and DAMSM pair:
+                56 PNGs, eval_metrics.json's seven keys and provenance
+                (damsm, imported, random), one K1 a batch; the entry's
+                wall time with its feature sweeps and host FID apart; FID
+                and IS printed beside JAX's record; the first batch's
+                features card against CPU and its first PNG against the
+                card's image; K1 at the dump's (14,3,192,16²) held and
+                timed;
+ 46. layout   - tools/eval_layout_fidelity.py at n 256 for mnist
+                (runs_r5/mnist_repin/netG_final.pth) and clevr (phase 22's
+                run), the score on the card equal to the CPU's on the same
+                images and classifier, one K1 a batch, K1 at the tool's
+                shapes held and timed; one mnist train entry with --profile
+                whose trace names K1's and K2's kernels.
 
 After the phases come three lines: {"kernel_details": ...} (every
 kernel reading), {"summary": ...} (under 4 KB: the step medians of every
-path, decode and from-disk epoch times, each phase's wall time) and
+path, decode and from-disk epoch times, the eval phases' numbers, each
+phase's wall time) and
 {"kernels": [...]}, the line before the last; the last is
 {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero; without a card it exits non-zero and prints no result.
@@ -263,6 +288,7 @@ from __future__ import annotations
 import argparse
 import base64
 import concurrent.futures
+import copy
 import dataclasses
 import glob
 import http.client
@@ -281,6 +307,7 @@ import zlib
 import numpy as np
 import torch
 
+from multiple_objects_gan_tpu_torch import float32_pinned
 from multiple_objects_gan_tpu_torch.cli import attngan_runner
 from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.sample import (
@@ -321,11 +348,14 @@ from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
 from multiple_objects_gan_tpu_torch.nn.encoders import (
     build_image_encoder, build_text_encoder)
+from multiple_objects_gan_tpu_torch.nn.fid_inception import FIDInceptionV3
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops import normconv as k4
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
+from multiple_objects_gan_tpu_torch.tools import (
+    eval_layout_fidelity as layout_tool)
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
@@ -338,6 +368,10 @@ from multiple_objects_gan_tpu_torch.train.step import (
     frozen_forward, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
     PNG_SIGNATURE, draw_bboxes, make_grid, png_chunk, tile_uint8, to_uint8)
+from multiple_objects_gan_tpu_torch.utils.layout_fidelity import (
+    clevr_layout_fidelity, layout_fidelity)
+from multiple_objects_gan_tpu_torch.utils.metrics import (
+    inception_activations)
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -512,7 +546,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/43 device")
+    log("phase 1/46 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -530,7 +564,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/43 build")
+    log("phase 2/46 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -575,7 +609,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/43 kernel against its plain version, on the card")
+    log("phase 3/46 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -710,7 +744,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/43 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/46 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -793,7 +827,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/43 serve: the port's main path over HTTP, on the card")
+    log("phase 5/46 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -940,7 +974,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/43 grad: K2 (place backward) against its plain version, "
+    log("phase 6/46 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1047,7 +1081,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/43 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/46 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1203,7 +1237,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/43 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/46 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1237,7 +1271,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/43 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/46 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1287,7 +1321,8 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
     step, and 0."""
     cfg = FAMILY_CFGS.get(variant, os.path.join(ROOT, "cfg",
                                                 "mnist_train.yml"))
-    out = os.path.join(WORK, "entry", variant + "".join(flags))
+    out = os.path.join(WORK, "entry", variant + "".join(flags).replace(
+        os.sep, "_"))
     k1.reset_launch_count()
     k4.reset_launch_count()
     hist = train_main.main(["--variant", variant, "--cfg", cfg,
@@ -1318,7 +1353,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/43 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/46 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1417,7 +1452,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/43 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/46 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1452,7 +1487,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/43 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/46 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1514,7 +1549,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/43 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/46 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1558,7 +1593,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/43 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/46 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1682,7 +1717,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/43 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/46 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1757,7 +1792,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/43 fstep: one full-width float32 train step of each "
+    log(f"phase 17/46 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1796,7 +1831,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/43 ftime: each family's train step at batch "
+    log("phase 18/46 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1804,13 +1839,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/43 ftime, {key}",
+                                       f"18/46 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/43 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/46 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1847,7 +1882,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/43 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/46 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -1999,7 +2034,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/43 probe: the image decoders this machine has, read only "
+    log("phase 21/46 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2253,7 +2288,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/43 disk: the train entries from disk (cli/main.py "
+    log("phase 22/46 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2433,7 +2468,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/43 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/46 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2476,7 +2511,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/43 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/46 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2655,7 +2690,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/43 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/46 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2768,7 +2803,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/43 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/46 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2813,7 +2848,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/43 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/46 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2886,7 +2921,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/43 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/46 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2961,7 +2996,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/43 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/46 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3126,7 +3161,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/43 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/46 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3216,7 +3251,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/43 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/46 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3325,7 +3360,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/43 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/46 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3470,7 +3505,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/43 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/46 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3575,7 +3610,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/43 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/46 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3645,7 +3680,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/43 attntime: the AttnGAN step at batch "
+    log(f"phase 35/46 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3783,7 +3818,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/43 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/46 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3930,7 +3965,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/43 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/46 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -3969,7 +4004,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/43 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/46 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4041,7 +4076,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/43 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/46 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4181,7 +4216,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/43 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/46 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4353,7 +4388,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/43 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/46 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4607,7 +4642,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/43 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/46 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4723,7 +4758,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/43 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/46 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4809,6 +4844,328 @@ def phase_stage2_sample(s2_run):
 
 
 
+# ----------------------------------------------------- eval: FID, IS, layout
+
+FID_BATCH = ATTN_TRAIN_BATCH  # the sampling dump's batch (BATCH_SIZE 14)
+FID_REL = 2e-4              # pooled features card vs CPU, of their largest
+FID_TIME_RUNS = 10          # CUDA-event readings an Inception forward
+SAMPLING_IMAGES = 56        # the dump's --num_images: 4 batches of 14
+# runs_r5/attngan_flagship/result.json "sampling_eval" (JAX, 504 images)
+JAX_SAMPLING = {"fid": 1.8458772241006986e-07, "is_mean": 1.0, "is_std": 0.0}
+LAYOUT_N = 256
+# runs_r5/mnist_repin/result.json "layout_fidelity" (JAX tool, another
+# seed and n: 62 objects)
+JAX_LAYOUT = {"recall": 0.677, "loc_iou": 0.489}
+LAYOUT_BATCH = 64           # the layout tool's batch
+
+
+def _he_init(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Random weights for the canonical FID Inception (its pt_inception
+    file is not in the repository): convs N(0, 2 / fan_in), BatchNorm at
+    its defaults, so that the features keep their scale through the 94
+    layers."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                std = float(np.sqrt(2.0 / m.weight[0].numel()))
+                m.weight.normal_(0.0, std, generator=gen)
+    return model.eval().requires_grad_(False)
+
+
+def _rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max |want|."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _scale(acts: np.ndarray) -> dict:
+    return {"abs_max": float(np.abs(acts).max()),
+            "mean_dim_std": float(acts.std(0).mean()),
+            "zero_share": float((acts == 0).mean())}
+
+
+def _test_batch(data: str, device) -> dict:
+    """The first FID_BATCH items of the flagship set's test split, drawn
+    as the sampling entry's reader draws them (seed ATTN_SET[1])."""
+    return AttnGanTrainSet(data, data + "_imgs", captions_per_image=5,
+                           seed=ATTN_SET[1], split="test",
+                           device=device).get_batch(np.arange(FID_BATCH))
+
+
+def phase_fid(model):
+    log("phase 44/46 fid: the canonical FID Inception (seeded weights) and "
+        "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
+        f"batch {FID_BATCH} of the test split's 256px images, card against "
+        "CPU; the same forward under a --bf16 process's TF32 settings; "
+        "Inception ms an image (CUDA events); scipy's version")
+    import scipy
+    reals = torch.from_numpy(_test_batch(model["data"], "cpu")["image256"]
+                             ).float() / 127.5 - 1.0           # NHWC
+    fid_cpu = _he_init(FIDInceptionV3(), 44)
+    nets = {"fid_inception": {"cpu": fid_cpu,
+                              DEVICE: copy.deepcopy(fid_cpu).to(DEVICE)},
+            "damsm_pool": {dev: build_image_encoder(
+                256, load_image_encoder(ATTN_IMAGE_E), device=dev)
+                for dev in ("cpu", DEVICE)}}
+    rows = {}
+    for name, by_dev in nets.items():
+        acts = {dev: inception_activations(enc, reals, FID_BATCH)
+                for dev, enc in by_dev.items()}
+        err = _rel_err(acts[DEVICE], acts["cpu"])
+        scale = _scale(acts["cpu"])
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        try:        # what float32_policy leaves on in a --bf16 process
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            tf32_on = inception_activations(by_dev[DEVICE], reals,
+                                            FID_BATCH)
+            after = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+        bf16_err = _rel_err(tf32_on, acts[DEVICE])
+        x32 = reals.repeat(3, 1, 1, 1)[:32].permute(0, 3, 1, 2).to(DEVICE)
+        enc = by_dev[DEVICE]
+
+        def forward():
+            with torch.no_grad(), float32_pinned():
+                enc(x32, return_pool=True)
+
+        ms = cuda_ms(forward, warmup=2, runs=FID_TIME_RUNS)
+        gflop = _flop_count(forward) / 32
+        rows[name] = {"card_vs_cpu_rel": err, "tf32_settings_rel": bf16_err,
+                      "tf32_bit_identical": bool(np.array_equal(
+                          tf32_on, acts[DEVICE])),
+                      "ms_per_image": ms / 32, "gflop_per_image": gflop,
+                      "tflop_per_s": gflop * 32 / ms, **scale}
+        log(f"  {name}: card vs CPU max |diff| {err:.3e} of the features' "
+            f"largest (limit {FID_REL:g}); features: abs max "
+            f"{scale['abs_max']:.4g}, mean per-dimension std "
+            f"{scale['mean_dim_std']:.3g}, {scale['zero_share']:.1%} exactly "
+            f"zero; with TF32 on around it {bf16_err:.3e} "
+            f"(bit-identical {rows[name]['tf32_bit_identical']}), the "
+            f"caller's flags back {after == (True, True)}; batch 32 "
+            f"{ms:.3f} ms, {ms / 32:.3f} ms an image, {gflop:.2f} GFLOP an "
+            f"image, {gflop * 32 / ms:.1f} TFLOP/s")
+        check(err <= FID_REL, f"{name}: card and CPU features disagree")
+        check(bf16_err <= 1e-6, f"{name}: the forward follows the caller's "
+              "TF32 settings")
+        check(after == (True, True), f"{name}: the caller's TF32 settings "
+              "were not restored")
+    log(f"  scipy {scipy.__version__}, numpy {np.__version__} (the host "
+        "FID's matrix root)")
+    SUMMARY["fid"] = {k: {"rel": v["card_vs_cpu_rel"],
+                          "ms_img": v["ms_per_image"],
+                          "abs_max": v["abs_max"]} for k, v in rows.items()}
+    return {"image_enc_cpu": nets["damsm_pool"]["cpu"],
+            "image_enc_card": nets["damsm_pool"][DEVICE], "rows": rows,
+            "scipy": scipy.__version__}
+
+
+def phase_sampling(model, fid):
+    log("phase 45/46 sampling: cli/main.py --variant coco-attngan "
+        f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
+        "flagship's EMA G and DAMSM pair on the synthetic test split; the "
+        "first batch's features card against CPU; K1 at the dump's shape")
+    data = model["data"]
+    cfg_file = _attn_eval_cfg(data)
+    out = os.path.join(WORK, "attn_sampling")
+    host = {"fid_s": [], "features_s": []}
+    fid_fn, acts_fn = (attngan_runner.fid_from_activations,
+                       attngan_runner.inception_activations)
+
+    def fid_timed(*args):
+        t = time.perf_counter()
+        try:
+            return fid_fn(*args)
+        finally:
+            host["fid_s"].append(time.perf_counter() - t)
+
+    def acts_timed(*args):
+        t = time.perf_counter()
+        try:
+            return acts_fn(*args)           # numpy: the device is done
+        finally:
+            host["features_s"].append(time.perf_counter() - t)
+
+    attngan_runner.fid_from_activations = fid_timed
+    attngan_runner.inception_activations = acts_timed
+    try:
+        _, launches, seconds = _entry("coco-attngan sampling", [
+            "--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
+            data, "--manualSeed", str(ATTN_SET[1]), "--output_dir", out,
+            "--eval_mode", "sampling", "--num_images", str(SAMPLING_IMAGES)])
+    finally:
+        attngan_runner.fid_from_activations = fid_fn
+        attngan_runner.inception_activations = acts_fn
+    batches = -(-SAMPLING_IMAGES // FID_BATCH)
+    names = sorted(os.listdir(os.path.join(out, "single_samples")))
+    check(names == [f"s_{i:06d}.png" for i in range(SAMPLING_IMAGES)],
+          f"{len(names)} single images")
+    with open(os.path.join(out, "eval_metrics.json")) as f:
+        m = json.load(f)
+    check(set(m) == {"fid", "inception_score_mean", "inception_score_std",
+                     "n_images", "is_head", "is_backbone", "fid_encoder"},
+          f"eval_metrics.json keys {sorted(m)}")
+    check((m["fid_encoder"], m["is_backbone"], m["is_head"]) == (
+        "damsm", "imported", "random"), f"provenance {m}")
+    check(m["n_images"] == SAMPLING_IMAGES and np.isfinite(m["fid"]),
+          f"metrics {m}")
+    check(launches == (batches, 0), f"sampling K1/K2 launches {launches}; "
+          f"one K1 a batch ({batches}) expected")
+    log(f"  {SAMPLING_IMAGES} images in {batches} batches of {FID_BATCH}: "
+        f"the entry {seconds:.2f} s (host clock: G and encoders loaded, the "
+        f"split's JPEGs, PNGs), of it the features "
+        f"{sum(host['features_s']):.2f} s ({len(host['features_s'])} "
+        f"sweeps) and the host FID "
+        f"{sum(host['fid_s']):.2f} s; FID {m['fid']:.4g} (JAX's record "
+        f"{JAX_SAMPLING['fid']:.4g} at 504 images), IS "
+        f"{m['inception_score_mean']:.4f} +/- {m['inception_score_std']:.4f} "
+        f"(JAX's {JAX_SAMPLING['is_mean']:.3f} +/- "
+        f"{JAX_SAMPLING['is_std']:.3f}); printed, not held")
+
+    # the first batch again on the card, its features against the CPU's
+    batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(
+        v, torch.Tensor) else v).to(DEVICE)
+        for k, v in _test_batch(data, DEVICE).items()}
+    text = build_text_encoder(ATTN_WORDS, 256, load_text_encoder(ATTN_NET_E),
+                              device=DEVICE)
+    g = build_attngan_g(model["mcfg"], load_reference_attngan_g(ATTN_NET_G),
+                        device=DEVICE)
+    z = torch.from_numpy(sample_noise(ATTN_SET[1], 0, FID_BATCH,
+                                      100)).to(DEVICE)
+    with torch.inference_mode():
+        words, sent = text(batch["captions"], batch["cap_lens"])
+        fakes = g(z, sent, words, batch["captions"] == 0, batch["bbox"],
+                  batch["label_onehot"]).float().permute(0, 2, 3, 1)
+    reals = batch["image256"].float() / 127.5 - 1.0
+    errs, scales = {}, {}
+    for side, x in (("fake", fakes), ("real", reals)):
+        card = inception_activations(fid["image_enc_card"], x, FID_BATCH)
+        cpu = inception_activations(fid["image_enc_cpu"], x.cpu(),
+                                    FID_BATCH)
+        errs[side], scales[side] = _rel_err(card, cpu), _scale(cpu)
+    levels = int(np.abs(read_png(os.path.join(out, "single_samples",
+                                              names[0]), "RGB")
+                        .astype(np.int16)
+                        - tile_uint8(fakes[0].cpu().numpy())).max())
+    log(f"  batch 0 features card vs CPU: fakes {errs['fake']:.3e}, reals "
+        f"{errs['real']:.3e} of their largest (limit {FID_REL:g}); their "
+        f"abs max {scales['fake']['abs_max']:.4g} and "
+        f"{scales['real']['abs_max']:.4g}, mean per-dimension std "
+        f"{scales['fake']['mean_dim_std']:.3g} and "
+        f"{scales['real']['mean_dim_std']:.3g}; s_000000.png against the "
+        f"card's image {levels} levels (limit {SAMPLE_LEVELS})")
+    check(max(errs.values()) <= FID_REL, "the dump's features: card and CPU "
+          "disagree")
+    check(levels <= SAMPLE_LEVELS, "the dump's first PNG is not the card's "
+          "image")
+
+    # K1 at the dump's shape: the batch's boxes, the third object padded
+    bbox = batch["bbox"].float().contiguous()
+    c, hw = model["mcfg"].ngf // 4, (16, 16)
+    feats = torch.from_numpy(np.random.RandomState(45).randn(
+        FID_BATCH, 3, c, *hw).astype(np.float32)).to(DEVICE)
+    label = f"sampling {tuple(feats.shape)} -> {hw}"
+    worst = _held(k1.stn_place_multi_nchw(feats, bbox, hw),
+                  k1.stn_place_multi_plain(feats, bbox, hw), torch.float32,
+                  "K1", label)
+    row = time_place(feats, bbox, hw, "K1 AttnGAN sampling")
+    shutil.rmtree(out, ignore_errors=True)
+    SUMMARY["sampling"] = {"s": seconds, "fid_s": sum(host["fid_s"]),
+                           "features_s": sum(host["features_s"]),
+                           "fid": m["fid"],
+                           "is": m["inception_score_mean"]}
+    return {"sampling_coco-attngan": launches}, {
+        "max_abs_err": worst, "shape": list(feats.shape),
+        **{k: row[k] for k in ("ms", "plain_ms", "graph_ms", "bound_ms",
+                               "bound_by", "share_of_bound",
+                               "graph_share_of_bound")},
+        "metrics": m, "seconds": seconds, "host": host,
+        "features_card_vs_cpu": errs, "feature_scale": scales}
+
+
+def phase_layout(clevr_run):
+    log(f"phase 46/46 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+        "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
+        "run; the score card against CPU on the same images and classifier; "
+        "a --profile train entry's trace")
+    launches, rows, k1_rows, worst = {}, {}, {}, 0.0
+    for variant, ckpt in (("mnist", CKPT), ("clevr", clevr_run)):
+        k1.reset_launch_count()
+        t = time.perf_counter()
+        out, det = layout_tool.main(["--ckpt", ckpt, "--variant", variant,
+                                     "--n", str(LAYOUT_N), "--device",
+                                     DEVICE], details=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        path = f"layout_{variant}"
+        launches[path] = (k1.launch_count(), k1.grad_launch_count())
+        batches = -(-LAYOUT_N // LAYOUT_BATCH)
+        check(launches[path] == (batches, 0), f"{variant} layout K1/K2 "
+              f"launches {launches[path]}; one K1 a batch expected")
+        clf = det["clf"]
+        cpu_clf = type(clf)({k: v.cpu() for k, v in clf.params.items()},
+                            clf.crop)
+        score = (layout_fidelity if variant == "mnist"
+                 else clevr_layout_fidelity)
+        cpu = score(det["images"], det["bbox"], det["labels"], cpu_clf)
+        n_obj = det["bbox"].shape[1]
+        check(out == cpu, f"{variant}: the card's score {out} != the CPU's "
+              f"{cpu}")
+        check(out["n_objects"] == LAYOUT_N * n_obj, f"{variant}: "
+              f"{out['n_objects']} objects")
+        rows[variant] = {**out, "seconds": seconds}
+        recall = out.get("recall", out.get("recall_both"))
+        ref = (f" (JAX's record {JAX_LAYOUT['recall']} and "
+               f"{JAX_LAYOUT['loc_iou']}, another seed and n; not held)"
+               if variant == "mnist" else "")
+        log(f"  {variant}: recall {recall}, loc_iou {out['loc_iou']}{ref}; "
+            f"{out['n_objects']} objects in {seconds:.2f} s (host clock: "
+            f"classifier trained on the card, G, scores); K1 "
+            f"{launches[path][0]}; the CPU's score on the same images and "
+            "classifier equal")
+        # K1 at the tool's shape and boxes
+        ncfg = stage1_model_config(cfg_from_file(
+            os.path.join(ROOT, "cfg", f"{variant}_train.yml"),
+            layout_tool.VARIANTS[variant]), layout_tool.VARIANTS[variant])
+        bbox = torch.from_numpy(det["bbox"][:LAYOUT_BATCH]).to(DEVICE)
+        c, hw = ncfg.ngf // 4, (16, 16)
+        feats = torch.from_numpy(np.random.RandomState(46).randn(
+            LAYOUT_BATCH, n_obj, c, *hw).astype(np.float32)).to(DEVICE)
+        worst = max(worst, _held(k1.stn_place_multi_nchw(feats, bbox, hw),
+                                 k1.stn_place_multi_plain(feats, bbox, hw),
+                                 torch.float32, "K1",
+                                 f"layout {variant} {tuple(feats.shape)}"))
+        row = time_place(feats, bbox, hw, f"K1 layout tool {variant}")
+        k1_rows[variant] = {"shape": list(feats.shape), **{k: row[k] for k in (
+            "ms", "plain_ms", "graph_ms", "bound_ms", "bound_by",
+            "share_of_bound", "graph_share_of_bound")}}
+
+    # --profile: one mnist train epoch traced at steps 2-3 (4 steps)
+    prof = os.path.join(WORK, "profile")
+    launches["train_profile"] = train_entry(("--profile", prof))[:2]
+    files = glob.glob(os.path.join(prof, "*.json"))
+    check(len(files) == 1, f"profile traces {files}")
+    with open(files[0]) as f:
+        names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
+    named = {k: sum(k in n for n in names) for k in (
+        "stn_place_multi_kernel", "stn_place_multi_grad_kernel")}
+    log(f"  --profile: {os.path.basename(files[0])}, "
+        f"{os.path.getsize(files[0]) / 2**20:.1f} MiB, {len(names)} events; "
+        f"K1 kernel events {named['stn_place_multi_kernel']}, K2 "
+        f"{named['stn_place_multi_grad_kernel']}")
+    check(all(named.values()), f"the trace names no K1/K2 kernel: {named}")
+    shutil.rmtree(prof, ignore_errors=True)
+    SUMMARY["layout"] = {k: {"recall": v.get("recall", v.get("recall_both")),
+                             "loc_iou": v["loc_iou"], "s": v["seconds"]}
+                         for k, v in rows.items()}
+    return launches, {"max_abs_err": worst, **k1_rows, "scores": rows,
+                      "trace_kernel_events": named}
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -4886,7 +5243,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/43 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/46 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -4925,18 +5282,22 @@ def run_phases() -> int:
     coco_disk = timed("cocodisk", phase_coco_disk, attn_step["weights"])
     s2_sample_paths, s2_sample = timed("s2sample", phase_stage2_sample,
                                        s2_run)
+    fid = timed("fid", phase_fid, attn_model)
+    sampling_paths, sampling = timed("sampling", phase_sampling, attn_model,
+                                     fid)
+    layout_paths, layout = timed("layout", phase_layout, disk["clevr_run"])
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
                **attn_entry, **damsm_entry, **attn_eval_paths,
-               **s2_sample_paths}
+               **s2_sample_paths, **sampling_paths, **layout_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
                  "train_coco-attngan", "train_coco-attngan_resume",
                  "train_damsm", "train_damsm_resume", *attn_eval_paths,
-                 *s2_sample_paths)
+                 *s2_sample_paths, *sampling_paths, *layout_paths)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16")
 
@@ -4958,13 +5319,15 @@ def run_phases() -> int:
                         "gflop_per_image": attn_model["flops"],
                         "serve": attn_latency},
             "attngan_train": {**attn_places["place"], "entry": attn_run},
-            "attngan_eval": attn_eval, "stage2_sample": s2_sample},
+            "attngan_eval": attn_eval, "stage2_sample": s2_sample,
+            "attngan_sampling": sampling, "layout_tool": layout},
         "stn_place_multi_grad": {
             **grad, "bf16": bf16["grad"], "families": families["grad"],
             "stage2": s2_kernels["grad"],
             "attngan_train": attn_places["grad"]},
         "normconv_bf16": normconv["rows"],
-        "jpeg": jpeg_result, "cocodisk": coco_disk}}, default=str),
+        "jpeg": jpeg_result, "cocodisk": coco_disk,
+        "fid": fid["rows"]}}, default=str),
         flush=True)
     steps = {"mnist": {"f32": step32["ms"], "bf16": step16["ms"]},
              **{k.replace(" ", "_"): v["ms"] for k, v in f_time.items()},
@@ -4991,7 +5354,8 @@ def run_phases() -> int:
                            attn_kernels["max_abs_err"],
                            attn_places["place"]["max_abs_err"],
                            attn_eval["max_abs_err"],
-                           s2_sample["max_abs_err"]),
+                           s2_sample["max_abs_err"],
+                           sampling["max_abs_err"], layout["max_abs_err"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -4999,7 +5363,10 @@ def run_phases() -> int:
                    **{f"stage2_sample_{k}": _compact(s2_sample[k])
                       for k in S2_SAMPLE_SHAPES},
                    **{f"attngan_eval_{k}": _compact(attn_eval[k])
-                      for k in ("sample", "gen_example")}},
+                      for k in ("sample", "gen_example")},
+                   "attngan_sampling": _compact(sampling),
+                   **{f"layout_{k}": _compact(layout[k])
+                      for k in ("mnist", "clevr")}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

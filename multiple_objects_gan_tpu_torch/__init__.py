@@ -10,10 +10,14 @@ reference the port's tests hold it against.
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``.
 Without a card it raises; it runs on the CPU only when asked to. Float32
 work on the card computes in float32: the train and serve entries turn
-TF32 off through :func:`float32_policy`.
+TF32 off through :func:`float32_policy`; a metric's forward (FID, IS)
+computes in float32 under :func:`float32_pinned` whatever the process's
+settings are.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,3 +45,20 @@ def float32_policy(device: torch.device, compute_dtype) -> None:
     if torch.device(device).type == "cuda" and compute_dtype is None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def float32_pinned():
+    """TF32 off for matmuls and cuDNN inside the block, the caller's
+    settings restored after it: the FID and IS encoders' forwards compute
+    in float32 in a ``--bf16`` process too, as the JAX package pins
+    ``Precision.HIGHEST`` there (``nn/fid_inception.py``)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

@@ -42,17 +42,26 @@ eval modes, picked as the reference's main.py:153-160 picks them under
   montage a caption (``<key>/0_s_<j>_g<k>.png``, ``..._a<k>.png``) and
   ``<key>.png``, the last scale 4 a row.
 
+* ``sampling`` (trainer.py:387-472; JAX ``sampling``, :403-540): the
+  test split in order, a batch at a time (cfg BATCH_SIZE, clamped to the
+  split), each fake saved as ``single_samples/s_%06d.png`` up to
+  ``--num_images``, then FID against the split's real images and the
+  Inception Score, with their provenance, in ``eval_metrics.json``
+  (:func:`sampling`).
+
 z is the stage-1 sampler's draw from (seed, row), ``cli/sample.py:
 sample_noise`` (row 0 for gen_example, whose caption files share it, as
-in the JAX runner). ``sampling``, the FID/IS dump, waits for the pt_inception
-weights (ROADMAP item 13), and ``--profile`` is not ported.
+in the JAX runner; for sampling the row is the count of images written
+before the batch, as the JAX runner folds it into its key). Training
+takes ``profile_dir`` (``--profile``): a torch.profiler trace of steps
+2-5 of the first epoch (``train/loop.py:run_epochs``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -82,6 +91,9 @@ from multiple_objects_gan_tpu_torch.utils.attention_viz import (
     save_attention_montage)
 from multiple_objects_gan_tpu_torch.utils.images import save_grid, save_image
 from multiple_objects_gan_tpu_torch.utils.logging import MetricWriter
+from multiple_objects_gan_tpu_torch.utils.metrics import (
+    BATCH as FID_BATCH, fid_from_activations, inception_activations,
+    inception_score, resolve_fid_encoder, resolve_inception_fc)
 
 VIZ_ITEMS = 8            # items of a montage (JAX :284)
 VIZ_EVERY = 1000         # steps between montages (trainer.py:345-353)
@@ -94,7 +106,8 @@ BUILT_IN_CAPTIONS = ["a man riding a horse on a beach",
 
 
 def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
-                  device, with_image: bool = True):
+                  device, with_image: bool = True,
+                  float32_image: bool = False):
     """The frozen DAMSM text and image encoders (JAX ``init_encoders``,
     :65-102) and their provenance, ``{"text_encoder": "imported" |
     "random", "image_encoder": ...}``. The text encoder is NET_E's
@@ -103,9 +116,10 @@ def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
     by ``image_encoder`` beside it, else random after a WARNING. An
     imported text encoder keeps its own embedding rows, as the JAX import
     does; it must have one for every word of the vocabulary. The image
-    encoder's backbone computes in ``mcfg.compute_dtype``. Without
-    ``with_image`` (the eval modes) no image encoder is built: it is
-    None."""
+    encoder's backbone computes in ``mcfg.compute_dtype`` (in float32
+    with ``float32_image``: the metrics' features). Without
+    ``with_image`` (``sample`` and ``gen_example``) no image encoder is
+    built: it is None."""
     prov = {"text_encoder": "random", "image_encoder": "random"}
     text_sd = image_sd = None
     if net_e and os.path.exists(net_e):
@@ -132,10 +146,10 @@ def init_encoders(net_e: str, n_words: int, mcfg: AttnGanConfig, *, seed,
                                   seed=seed, device=device)
     image_enc = None
     if with_image:
-        image_enc = build_image_encoder(mcfg.embedding_dim, image_sd,
-                                        seed=seed,
-                                        compute_dtype=mcfg.compute_dtype,
-                                        device=device)
+        image_enc = build_image_encoder(
+            mcfg.embedding_dim, image_sd, seed=seed,
+            compute_dtype=None if float32_image else mcfg.compute_dtype,
+            device=device)
     return text_enc.requires_grad_(False), image_enc, prov
 
 
@@ -186,9 +200,11 @@ def _record_encoders(output_dir: str, prov: dict, net_e: str,
 
 def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
                 seed: int = 0, max_epochs: Optional[int] = None,
-                resume_dir: Optional[str] = None) -> list[dict]:
-    """Train AttnGAN on cfg DATA_DIR and IMG_DIR (JAX ``run``, :185-331).
-    Returns the per-epoch mean losses."""
+                resume_dir: Optional[str] = None,
+                profile_dir: Optional[str] = None) -> list[dict]:
+    """Train AttnGAN on cfg DATA_DIR and IMG_DIR (JAX ``run``, :185-331),
+    with a torch.profiler trace into ``profile_dir`` when given. Returns
+    the per-epoch mean losses."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
     ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, device=device)
@@ -259,7 +275,8 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
             writer=writer, epoch_end_fn=epoch_end,
             step_hook=step_viz,
-            checkpoint_extra=lambda: {"data_rng": ds.rng_state()})
+            checkpoint_extra=lambda: {"data_rng": ds.rng_state()},
+            profile_dir=profile_dir)
     finally:
         writer.close()
 
@@ -357,6 +374,90 @@ def sample(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
         n_written += 1
     print(f"Saved {n_written} files to {save_dir}", flush=True)
     return save_dir
+
+
+def sampling(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
+             image_enc, output_dir: str, *, image_prov: str,
+             batch_size: int, seed: int, device, num_images: int = 0,
+             noise: Optional[Callable[[int, int], torch.Tensor]] = None
+             ) -> dict:
+    """The bulk dump and its metrics (JAX ``sampling``, :403-540;
+    trainer.py:387-472): the test split in order, ``batch_size`` items a
+    batch (clamped to the split), z from (seed, images written so far)
+    unless ``noise(written, batch)`` gives it, c = mu; each fake saved
+    as ``single_samples/s_%06d.png`` until ``num_images`` (0: the whole
+    split). Each batch's 2048-d features of the fakes and of its real
+    images are kept, not the images (:data:`FID_BATCH` images a
+    forward, the remainder padded, as JAX batches them). FID runs on the
+    canonical encoder when ``$FID_INCEPTION_WEIGHTS`` names one, else on
+    ``image_enc``'s backbone ("damsm" when ``image_prov`` is "imported",
+    else "random"); IS on ``image_enc``'s features of the fakes (a second
+    sweep only when FID is canonical and the backbone imported). Writes
+    ``eval_metrics.json`` with JAX's seven keys and returns {"dir",
+    "metrics", "real_acts", "fake_acts"}."""
+    device = torch.device(device)
+    damsm_prov = "damsm" if image_prov == "imported" else "random"
+    fid_enc, fid_prov = resolve_fid_encoder(image_enc, damsm_prov,
+                                            device=device)
+    if len(ds) == 0:
+        raise ValueError("sampling(): empty test split")
+    bs = int(batch_size)
+    if bs > len(ds):
+        # a drop-last loader would otherwise make no batch
+        print(f"sampling(): batch {bs} > test split {len(ds)} — "
+              f"clamping to {len(ds)}", flush=True)
+        bs = len(ds)
+    out_dir = os.path.join(output_dir, "single_samples")
+    os.makedirs(out_dir, exist_ok=True)
+    written, limit = 0, num_images or len(ds)
+    fake_acts, real_acts, is_acts = [], [], []
+    top = f"image{ds.imsizes[-1]}"
+    for batch in Loader(ds, bs, shuffle=False, seed=seed).epoch(0):
+        batch = to_device(batch, device)
+        z = (noise(written, bs) if noise is not None else torch.from_numpy(
+            sample_noise(seed, written, bs, mcfg.z_dim)))
+        caps = batch["captions"]
+        with torch.inference_mode():
+            words, sent = text_enc(caps, batch["cap_lens"])
+            imgs = g(z.to(device), sent, words, caps == 0, batch["bbox"],
+                     batch["label_onehot"]).float()
+        take = min(imgs.shape[0], limit - written)
+        fakes = imgs[:take].permute(0, 2, 3, 1)
+        reals = batch[top][:take].float() / 127.5 - 1.0
+        fake_acts.append(inception_activations(fid_enc, fakes, FID_BATCH))
+        real_acts.append(inception_activations(fid_enc, reals, FID_BATCH))
+        if fid_prov == "fid_canonical" and damsm_prov == "damsm":
+            # IS stays on the DAMSM backbone, whose pool the torchvision
+            # head matches; a random backbone's sweep would re-dress noise
+            is_acts.append(inception_activations(image_enc, fakes,
+                                                 FID_BATCH))
+        for img in fakes.cpu().numpy():
+            save_image(img, os.path.join(out_dir, f"s_{written:06d}.png"))
+            written += 1
+        if written >= limit:
+            break
+    print(f"wrote {written} single images to {out_dir}", flush=True)
+    fake_acts = np.concatenate(fake_acts)
+    real_acts = np.concatenate(real_acts)
+    fid = fid_from_activations(real_acts, fake_acts)
+    fc, is_head = resolve_inception_fc()
+    is_backbone = "imported" if damsm_prov == "damsm" else "random"
+    if is_backbone == "random" or is_head == "random":
+        print("WARNING: IS is not comparable to published numbers "
+              f"(backbone={is_backbone}, head={is_head})", flush=True)
+    is_mean, is_std = inception_score(
+        acts=np.concatenate(is_acts) if is_acts else fake_acts, fc=fc)
+    print(f"FID: {fid:.3f}  IS: {is_mean:.3f} +/- {is_std:.3f}", flush=True)
+    # provenance: is_head the 1000-class head, is_backbone the features
+    # under it, fid_encoder the network behind both FID sides
+    metrics = {"fid": fid, "inception_score_mean": is_mean,
+               "inception_score_std": is_std, "n_images": written,
+               "is_head": is_head, "is_backbone": is_backbone,
+               "fid_encoder": fid_prov}
+    with open(os.path.join(output_dir, "eval_metrics.json"), "w") as f:
+        json.dump(metrics, f)
+    return {"dir": out_dir, "metrics": metrics, "real_acts": real_acts,
+            "fake_acts": fake_acts}
 
 
 def encode_captions(captions_text: list, wordtoix: dict, words_num: int
@@ -464,22 +565,31 @@ def eval_mode(mode: str, cfg) -> str:
 
 
 def run_attngan_eval(cfg, mcfg: AttnGanConfig, output_dir: str, mode: str,
-                     *, device, seed: int = 0) -> str:
-    """The eval mode ``mode`` (``sample`` or ``gen_example``) from cfg
-    NET_G's EMA G and NET_E's text encoder, on the set of DATA_DIR (its
-    test split, with IMG_DIR's JPEGs, for ``sample``; its vocabulary for
-    both).
-    Returns the directory written."""
+                     *, device, seed: int = 0, num_images: int = 0) -> str:
+    """The eval mode ``mode`` (``sample``, ``gen_example`` or
+    ``sampling``) from cfg NET_G's EMA G and NET_E's text encoder (and,
+    for ``sampling``, the image encoder beside it, in float32), on the set
+    of DATA_DIR (its test split, with IMG_DIR's JPEGs, for ``sample`` and
+    ``sampling``; its vocabulary for all three). ``num_images`` caps the
+    ``sampling`` dump. Returns the directory written."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
-    if mode == "sample":
+    if mode in ("sample", "sampling"):
         ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, "test",
                            device=device)
     else:
         ds = AttnGanDataset(cfg.DATA_DIR, "test", st.captions_per_image)
-    text_enc, _, _ = init_encoders(st.net_e, ds.n_words, mcfg, seed=seed,
-                                   device=device, with_image=False)
+    metrics = mode == "sampling"
+    text_enc, image_enc, prov = init_encoders(
+        st.net_e, ds.n_words, mcfg, seed=seed, device=device,
+        with_image=metrics, float32_image=metrics)
     g = restore_g(st.net_g, mcfg, seed=seed, device=device)
+    if metrics:
+        sampling(ds, mcfg, g, text_enc, image_enc, output_dir,
+                 image_prov=prov["image_encoder"],
+                 batch_size=st.batch_size, seed=seed, device=device,
+                 num_images=num_images)
+        return output_dir
     if mode == "sample":
         return sample(ds, mcfg, g, text_enc, output_dir, seed=seed,
                       device=device)

@@ -103,9 +103,11 @@ def init_damsm_encoders(net_e: str, n_words: int, nef: int, *, seed: int,
 def run_damsm(cfg, output_dir: str, *, device, seed: int = 0,
               compute_dtype: Optional[torch.dtype] = None,
               max_epochs: Optional[int] = None,
-              resume_dir: Optional[str] = None) -> list[dict]:
+              resume_dir: Optional[str] = None,
+              profile_dir: Optional[str] = None) -> list[dict]:
     """Pretrain the DAMSM encoders on cfg DATA_DIR and IMG_DIR (JAX
-    ``run_damsm``, :45-194). Returns the per-epoch mean losses."""
+    ``run_damsm``, :45-194), with a torch.profiler trace into
+    ``profile_dir`` when given. Returns the per-epoch mean losses."""
     device = torch.device(device)
     st = attngan_train_settings(cfg)
     ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, device=device)
@@ -171,6 +173,7 @@ def run_damsm(cfg, output_dir: str, *, device, seed: int = 0,
             start_epoch=start_epoch, snapshot_every=st.snapshot_interval,
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
             writer=writer, epoch_end_fn=epoch_end, checkpoint_extra=extra,
-            lr_fn=lambda epoch: (damsm_lr(st.encoder_lr, epoch),) * 2)
+            lr_fn=lambda epoch: (damsm_lr(st.encoder_lr, epoch),) * 2,
+            profile_dir=profile_dir)
     finally:
         writer.close()

@@ -11,7 +11,8 @@ coco-attngan|damsm \\
         [--max_epochs N] [--snapshot_interval N] [--manualSeed N] \\
         [--device cuda|cpu] [--bf16] [--bn_groups G] \\
         [--num_objects N] [--bbox_scale S] \\
-        [--eval_mode auto|sample|gen_example|sampling]
+        [--eval_mode auto|sample|gen_example|sampling] [--num_images N] \\
+        [--profile DIR]
 
 ``TRAIN.FLAG`` in the cfg picks training or sampling, as in the reference
 (code/multi-mnist/main.py:27-95). Training reads Multi-MNIST and CLEVR
@@ -41,7 +42,10 @@ and grids are the uninterrupted run's. With ``TRAIN.FLAG: False`` the run
 samples from ``NET_G``: 25 grids for Multi-MNIST and CLEVR
 (``cli/sample.py``) and COCO StackGAN stage 2; for COCO AttnGAN the eval
 mode ``--eval_mode`` names (``auto``: ``sample`` under cfg B_VALIDATION,
-else ``gen_example``; ``sampling`` waits for ROADMAP item 13).
+else ``gen_example``; ``sampling`` dumps the test split's fakes, up to
+``--num_images``, and writes FID and IS with their provenance to
+``eval_metrics.json``). ``--profile DIR`` writes a torch.profiler trace
+of steps 2-5 of a training run's first epoch to DIR.
 The run is on the card unless ``--device cpu`` is given; without a card it
 raises. A float32 run on the card computes in float32: TF32 is turned off
 (``float32_policy``, as the server does).
@@ -168,8 +172,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval_mode", default="auto", choices=EVAL_MODES,
                    help="coco-attngan with TRAIN.FLAG False: auto = sample "
                         "under B_VALIDATION, else gen_example (ref "
-                        "main.py:153-160); sampling (the FID/IS dump) is "
-                        "not ported yet")
+                        "main.py:153-160); sampling = the single-image "
+                        "dump with FID and IS")
+    p.add_argument("--num_images", type=int, default=0,
+                   help="--eval_mode sampling: cap the dump (0 = the whole "
+                        "test split)")
+    p.add_argument("--profile", default="",
+                   help="directory for a torch.profiler trace of steps 2-5 "
+                        "of the first epoch")
     return p.parse_args(argv)
 
 
@@ -331,10 +341,6 @@ def main(argv=None) -> list[dict]:
         mcfg = attngan_model_config(cfg, compute_dtype=dtype)
         if not training:
             mode = eval_mode(args.eval_mode, cfg)
-            if mode == "sampling":
-                sys.exit("--eval_mode sampling (the FID/IS dump) is not "
-                         "ported yet: it needs the pt_inception weights, "
-                         "ROADMAP item 13")
     elif stage2:
         s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
                                            bn_groups=args.bn_groups)
@@ -368,7 +374,7 @@ def main(argv=None) -> list[dict]:
               f"{'bf16' if args.bf16 else 'float32'}; data {cfg.DATA_DIR}; "
               f"output {output_dir}", flush=True)
         run_attngan_eval(cfg, mcfg, output_dir, mode, device=device,
-                         seed=seed)
+                         seed=seed, num_images=args.num_images)
         return []
     if stage2 and not training:
         print(f"coco-stackgan stage 2 sampling on {device}: gf "
@@ -396,7 +402,8 @@ def main(argv=None) -> list[dict]:
               f"output {output_dir}", flush=True)
         return run_damsm(cfg, output_dir, device=device, seed=seed,
                          compute_dtype=dtype, max_epochs=args.max_epochs,
-                         resume_dir=args.resume or None)
+                         resume_dir=args.resume or None,
+                         profile_dir=args.profile or None)
     if attn:
         print(f"coco-attngan on {device}: gf {mcfg.gf_dim}, df "
               f"{mcfg.df_dim}, R_NUM {mcfg.r_num}, {mcfg.branch_num} "
@@ -405,7 +412,8 @@ def main(argv=None) -> list[dict]:
               f"output {output_dir}", flush=True)
         return run_attngan(cfg, mcfg, output_dir, device=device, seed=seed,
                            max_epochs=args.max_epochs,
-                           resume_dir=args.resume or None)
+                           resume_dir=args.resume or None,
+                           profile_dir=args.profile or None)
     kl = f", KL x {train_settings(cfg).kl_coeff:g}" if mcfg.use_ca else ""
     width = (f"gf {mcfg.gf_dim}, df {mcfg.df_dim}, R_NUM {mcfg.r_num}, "
              f"frozen stage-1 G ngf {s1_cfg.ngf}" if stage2 else
@@ -419,10 +427,12 @@ def main(argv=None) -> list[dict]:
         return run_stage2(cfg, s1_cfg, mcfg, loader, output_dir,
                           device=device, seed=seed,
                           max_epochs=args.max_epochs,
-                          resume_dir=args.resume or None)
+                          resume_dir=args.resume or None,
+                          profile_dir=args.profile or None)
     _, history = train(cfg, mcfg, loader, output_dir, device=device,
                        seed=seed, max_epochs=args.max_epochs,
-                       resume_dir=args.resume or None)
+                       resume_dir=args.resume or None,
+                       profile_dir=args.profile or None)
     return history
 
 

@@ -89,10 +89,12 @@ def stage2_images(g1: Stage1G, g2, z: torch.Tensor, batch: dict,
 def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
                output_dir: str, *, device, seed: int = 0,
                max_epochs: Optional[int] = None,
-               resume_dir: Optional[str] = None) -> list[dict]:
+               resume_dir: Optional[str] = None,
+               profile_dir: Optional[str] = None) -> list[dict]:
     """Train stage 2 (JAX ``run_stage2``): logs, grids and checkpoints
-    under ``output_dir``, as the stage-1 run's (``train/loop.py:train``).
-    Returns the per-epoch mean losses."""
+    under ``output_dir``, as the stage-1 run's (``train/loop.py:train``),
+    and a torch.profiler trace into ``profile_dir`` when given. Returns
+    the per-epoch mean losses."""
     device = torch.device(device)
     settings = train_settings(cfg)
     g1 = frozen_stage1_g(s1_cfg, cfg.get("STAGE1_G", ""), seed=seed,
@@ -138,7 +140,8 @@ def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
             snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
             writer=writer, epoch_end_fn=epoch_grids,
-            checkpoint_extra=data_rng_extra(loader))
+            checkpoint_extra=data_rng_extra(loader),
+            profile_dir=profile_dir)
     finally:
         writer.close()
 

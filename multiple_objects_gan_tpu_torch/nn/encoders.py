@@ -167,11 +167,13 @@ class InceptionA(nn.Module):
         self.branch_pool = BasicConv2d(cin, pool_features, 1,
                                        compute_dtype=dt)
 
+    pool = staticmethod(_avg_pool3)    # the pool branch's pooling
+
     def forward(self, x):
         b5 = self.branch5x5_2(self.branch5x5_1(x))
         b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x)))
         return torch.cat([self.branch1x1(x), b5, b3,
-                          self.branch_pool(_avg_pool3(x))], dim=1)
+                          self.branch_pool(self.pool(x))], dim=1)
 
 
 class InceptionB(nn.Module):
@@ -210,13 +212,15 @@ class InceptionC(nn.Module):
                                    compute_dtype=dt)
         self.branch_pool = conv(cin, 192, 1, compute_dtype=dt)
 
+    pool = staticmethod(_avg_pool3)
+
     def forward(self, x):
         b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x)))
         bd = self.branch7x7dbl_1(x)
         for i in range(2, 6):
             bd = getattr(self, f"branch7x7dbl_{i}")(bd)
         return torch.cat([self.branch1x1(x), b7, bd,
-                          self.branch_pool(_avg_pool3(x))], dim=1)
+                          self.branch_pool(self.pool(x))], dim=1)
 
 
 class InceptionD(nn.Module):
@@ -258,6 +262,8 @@ class InceptionE(nn.Module):
                                     compute_dtype=dt)
         self.branch_pool = conv(cin, 192, 1, compute_dtype=dt)
 
+    pool = staticmethod(_avg_pool3)
+
     def forward(self, x):
         b3 = self.branch3x3_1(x)
         b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], dim=1)
@@ -265,14 +271,16 @@ class InceptionE(nn.Module):
         bd = torch.cat([self.branch3x3dbl_3a(bd), self.branch3x3dbl_3b(bd)],
                        dim=1)
         return torch.cat([self.branch1x1(x), b3, bd,
-                          self.branch_pool(_avg_pool3(x))], dim=1)
+                          self.branch_pool(self.pool(x))], dim=1)
 
 
 class CNNEncoder(nn.Module):
     """CNN_ENCODER, the DAMSM image encoder.
 
     ``forward(x (B, 3, H, W) in [-1, 1])`` returns (regions (B, nef, 17,
-    17), image code (B, nef)), both float32.
+    17), image code (B, nef)), both float32; with ``return_pool`` also the
+    raw 2048 pooled features (B, 2048) float32 as a third output, which
+    FID and IS read (JAX ``CNNEncoder(return_pool=True)``).
     """
 
     def __init__(self, nef: int = 256,
@@ -299,7 +307,7 @@ class CNNEncoder(nn.Module):
         self.emb_features = nn.Conv2d(768, nef, 1, bias=False)
         self.emb_cnn_code = nn.Linear(2048, nef)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, return_pool: bool = False):
         x = F.interpolate(x, size=(299, 299), mode="bilinear",
                           align_corners=False)
         x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
@@ -311,7 +319,8 @@ class CNNEncoder(nn.Module):
         features = x                                      # (B, 768, 17, 17)
         x = self.Mixed_7c(self.Mixed_7b(self.Mixed_7a(x)))
         code = F.avg_pool2d(x, 8).flatten(1).float()      # (B, 2048)
-        return self.emb_features(features.float()), self.emb_cnn_code(code)
+        out = self.emb_features(features.float()), self.emb_cnn_code(code)
+        return (*out, code) if return_pool else out
 
 
 def image_encoder_init_(model: CNNEncoder, seed: int) -> None:

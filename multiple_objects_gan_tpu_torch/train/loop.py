@@ -15,7 +15,10 @@ Parity target: GANTrainer.train (code/multi-mnist/trainer.py:75-206):
   images of that batch once, at the first epoch
   (``images/real_samples.png``);
 * a checkpoint every ``snapshot_every`` epochs and always after the last
-  (``io/checkpoint.py``, newest five kept).
+  (``io/checkpoint.py``, newest five kept);
+* with ``profile_dir`` (``--profile``), a torch.profiler trace of steps
+  2-5 of the first epoch (JAX ``train/loop.py:84-112``): CPU activity, and
+  CUDA's on the card, written there as a Chrome trace.
 
 Batches come from a loader (``data/datasets.py``: ``Loader`` for the sets
 on disk, ``MemoryLoader`` for a set held on the device). A batch of numpy
@@ -46,6 +49,7 @@ from multiple_objects_gan_tpu_torch.utils.logging import MetricWriter
 
 GRID_BATCH = 64          # the epoch grid's batch (JAX train/loop.py:189)
 LOG_EVERY = 500          # steps between scalar records within an epoch
+PROFILE_STEPS = (2, 5)   # the traced steps of the first epoch (JAX :84-112)
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -72,7 +76,8 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
                epoch_end_fn: Optional[Callable] = None,
                step_hook: Optional[Callable] = None,
                checkpoint_extra: Optional[Callable] = None,
-               lr_fn: Optional[Callable] = None) -> list[dict]:
+               lr_fn: Optional[Callable] = None,
+               profile_dir: Optional[str] = None) -> list[dict]:
     """Train epochs ``start_epoch`` .. ``n_epochs - 1`` over
     ``loader.epoch(epoch)``. ``step_fn(state, batch, generator, lr_g,
     lr_d) -> metrics`` updates ``state`` in place; ``step_hook(state,
@@ -80,13 +85,17 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
     ``epoch_end_fn(state, last_batch, epoch)`` runs after each epoch;
     ``checkpoint_extra()`` gives a checkpoint's ``extra``; ``lr_fn(epoch)
     -> (lr_g, lr_d)``, when given, replaces ``lr_g``, ``lr_d`` and their
-    halving. Returns one dict of mean losses (floats) per epoch, with its
-    step count and wall time."""
+    halving. With ``profile_dir``, steps 2-5 of the first epoch (or 2 to
+    its end, when it has fewer) are traced with torch.profiler (CPU, and
+    CUDA on the card; a sync before it stops) into a Chrome trace there.
+    Returns one dict of mean losses (floats) per epoch, with its step
+    count and wall time."""
     if len(loader) == 0:
         raise ValueError(f"the loader makes no batch of {loader.bs}: no "
                          "training would run")
     device = state_device(state)
     history = []
+    prof = None
     for epoch in range(start_epoch, n_epochs):
         t0 = time.perf_counter()
         if lr_fn is not None:
@@ -98,8 +107,12 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
         last_batch, n_steps = None, 0
         for i, batch in enumerate(loader.epoch(epoch)):
             batch = to_device(batch, device)
+            if profile_dir and epoch == start_epoch and i == PROFILE_STEPS[0]:
+                prof = _start_trace(device)
             step = state.step
             metrics = step_fn(state, batch, generator, lr_g_e, lr_d_e)
+            if prof is not None and i == PROFILE_STEPS[1]:
+                prof = _stop_trace(prof, device, profile_dir)
             if writer is not None and i % LOG_EVERY == 0:
                 writer.scalars(step, {k: float(v)
                                       for k, v in metrics.items()})
@@ -108,6 +121,8 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
             last_batch, n_steps = batch, n_steps + 1
+        if prof is not None:      # the epoch had fewer steps than the trace
+            prof = _stop_trace(prof, device, profile_dir)
         means = {k: float(v) / n_steps for k, v in sums.items()}
         means["steps"] = n_steps
         means["seconds"] = time.perf_counter() - t0
@@ -124,6 +139,29 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
                       None if checkpoint_extra is None
                       else checkpoint_extra())
     return history
+
+
+def _start_trace(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, device: torch.device, profile_dir: str) -> None:
+    """Sync, stop ``prof`` and write its Chrome trace into
+    ``profile_dir``; returns None (no trace open)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          f"trace_{os.getpid()}.json"))
+    print(f"profiler trace written to {profile_dir}", flush=True)
+    return None
 
 
 def state_device(state) -> torch.device:
@@ -162,14 +200,15 @@ def restore_data_rng(loader, extra: dict) -> None:
 
 def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
           seed: int = 0, max_epochs: Optional[int] = None,
-          resume_dir: Optional[str] = None
+          resume_dir: Optional[str] = None,
+          profile_dir: Optional[str] = None
           ) -> tuple[GANTrainState, list[dict]]:
     """The whole stage-1 run of JAX ``train/loop.py:train``: the state from
     the seed, warm-started from cfg ``NET_G``/``NET_D`` ``.pth`` files,
     then restored from ``resume_dir``'s latest checkpoint when there is one
     (training continues at the epoch after it); logs, grids and checkpoints
-    under ``output_dir``. Returns the final state and the per-epoch
-    history."""
+    under ``output_dir``; a torch.profiler trace into ``profile_dir`` when
+    given. Returns the final state and the per-epoch history."""
     device = torch.device(device)
     os.makedirs(output_dir, exist_ok=True)
     img_dir = os.path.join(output_dir, "images")
@@ -212,7 +251,8 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
             snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
             writer=writer, epoch_end_fn=epoch_grids,
-            checkpoint_extra=data_rng_extra(loader))
+            checkpoint_extra=data_rng_extra(loader),
+            profile_dir=profile_dir)
     finally:
         writer.close()
     return state, history

@@ -15,13 +15,15 @@ test writes from seeded port modules, which both packages load.
   ``sample``: rows of 10 tiles with white box edges, named as the JAX
   ``sample`` names them on the same test split; ``--eval_mode
   gen_example`` the per-scale images and montages; ``--eval_mode
-  sampling`` exits naming ROADMAP item 13;
+  sampling`` the single-image dump and ``eval_metrics.json``
+  (tests/test_torch_port_attngan_sampling.py holds its metrics);
 * ``restore_g`` takes a port run directory's EMA weights.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import jax
@@ -239,7 +241,8 @@ def test_sample_through_the_entry_matches_jax_names(world, capsys,
     assert min(white) > 100, white
 
 
-def test_gen_example_and_sampling_through_the_entry(world, capsys):
+def test_gen_example_and_sampling_through_the_entry(world, capsys,
+                                                    monkeypatch):
     with open(os.path.join(world["data"], "example_captions.txt"),
               "w") as f:
         f.write("\n".join(CAPTIONS[:2]) + "\n")
@@ -253,9 +256,20 @@ def test_gen_example_and_sampling_through_the_entry(world, capsys):
         sorted(f"0_s_{j}_{k}.png" for j in range(2)
                for k in ("g0", "g1", "g2", "a0", "a1"))
     assert os.path.isfile(os.path.join(out, "example_captions.png"))
-    with pytest.raises(SystemExit, match="ROADMAP item 13"):
-        _main(world, str(world["tmp"] / "sampling"), "--eval_mode",
-              "sampling")
+    # sampling: two images, their features at batch 2, the host FID's
+    # matrix root (tens of seconds at 2048) left to the sampling tests
+    monkeypatch.setattr(attngan_runner, "FID_BATCH", 2)
+    monkeypatch.setattr(attngan_runner, "fid_from_activations",
+                        lambda real, fake: 0.0)
+    out = str(world["tmp"] / "sampling")
+    assert _main(world, out, "--eval_mode", "sampling", "--num_images",
+                 "2") == []
+    assert "coco-attngan sampling on cpu" in capsys.readouterr().out
+    assert sorted(os.listdir(os.path.join(out, "single_samples"))) == [
+        "s_000000.png", "s_000001.png"]
+    with open(os.path.join(out, "eval_metrics.json")) as f:
+        metrics = json.load(f)
+    assert metrics["n_images"] == 2 and metrics["fid_encoder"] == "random"
 
 
 def test_restore_g_takes_a_run_directorys_ema(world, tmp_path, capsys):

@@ -236,8 +236,12 @@ def test_build_service_from_yaml(tmp_path):
 # ------------------------------------------------------ boundary and device
 
 
-_BANNED = {"jax", "jaxlib", "flax", "optax", "orbax",
+_BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "PIL",
            "multiple_objects_gan_tpu"}
+# modules the scan must reach (the eval slice's among them)
+_SCANNED = ("nn/fid_inception.py", "utils/metrics.py",
+            "utils/layout_fidelity.py", "tools/eval_fid.py",
+            "tools/eval_layout_fidelity.py", "cli/attngan_runner.py")
 
 
 def _imported_roots(path):
@@ -260,6 +264,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                             "multiple_objects_gan_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    pkg = os.path.join(ROOT, "multiple_objects_gan_tpu_torch")
+    assert {os.path.join(pkg, m) for m in _SCANNED} <= set(files)
     offenders = [(os.path.relpath(p, ROOT), m) for p in files
                  for m in _imported_roots(p) if m in _BANNED]
     assert not offenders
