@@ -19,7 +19,11 @@ sample and gen_example from the flagship files, 41-43 read COCO from
 disk: the JPEG codecs, both StackGAN stages, AttnGAN and DAMSM trained
 from disk, and stage-2 sampling, and 44-46 evaluate: the FID encoders,
 AttnGAN's sampling dump with FID and IS, the layout-fidelity tool and a
---profile trace. Every COCO entry reads its JPEGs from
+--profile trace, and 47-49 scale out: the train entry as world size 1
+over NCCL, the mnist, AttnGAN and DAMSM steps as two processes of one
+process group (parallel/, tools/dist_steps.py) against one process, and
+AttnGAN's sampling dump sharded over two processes. Every COCO entry reads
+its JPEGs from
 disk (nvjpeg on the card). The train entries' data and runs go to a
 temporary directory, removed at the end. Phases, each logged with the
 elapsed time:
@@ -272,7 +276,28 @@ elapsed time:
                 run), the score on the card equal to the CPU's on the same
                 images and classifier, one K1 a batch, K1 at the tool's
                 shapes held and timed; one mnist train entry with --profile
-                whose trace names K1's and K2's kernels.
+                whose trace names K1's and K2's kernels;
+ 47. nccl1    - cli/main.py --variant multi-mnist --synthetic for one
+                epoch in a process of its own with MOG_COORDINATOR,
+                MOG_NUM_PROCESSES=1 and MOG_PROCESS_ID=0 (world size 1 over
+                NCCL), and the same in another without them,
+                cudnn.deterministic in both: the logged losses and the
+                checkpoint equal bit for bit;
+ 48. dist2    - two processes of one group (NCCL where the machine has
+                two cards, else gloo on CUDA tensors: NCCL takes one rank
+                a card), started once, run the full-width mnist step
+                (GF 128 / DF 64, global batch 128), the AttnGAN step
+                (GF 48 / DF 96, global batch 14) and the DAMSM step
+                (global batch 48), each from warm Adams, against one
+                process running the same global batch: losses, BatchNorm
+                running statistics and per-tensor update cosines held, the
+                replicas equal bit for bit, K1 and K2 launches a rank; the
+                steps' times at both world sizes and the gradient
+                all-reduce's; K1 and K2 at a rank's place shapes held and
+                timed; the same start runs phase 49's dump;
+ 49. dump2    - phase 45's sampling dump (56 images) as two processes: the
+                same PNG names, pixels within 1 level, FID and IS beside
+                phase 45's, one K1 a batch on each rank.
 
 After the phases come three lines: {"kernel_details": ...} (every
 kernel reading), {"summary": ...} (under 4 KB: the step medians of every
@@ -355,7 +380,7 @@ from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.tools import (
-    eval_layout_fidelity as layout_tool)
+    dist_steps, eval_layout_fidelity as layout_tool)
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
@@ -546,7 +571,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/46 device")
+    log("phase 1/49 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -564,7 +589,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/46 build")
+    log("phase 2/49 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -609,7 +634,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/46 kernel against its plain version, on the card")
+    log("phase 3/49 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -744,7 +769,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/46 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/49 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -827,7 +852,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/46 serve: the port's main path over HTTP, on the card")
+    log("phase 5/49 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -974,7 +999,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/46 grad: K2 (place backward) against its plain version, "
+    log("phase 6/49 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1081,7 +1106,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/46 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/49 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1237,7 +1262,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/46 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/49 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1271,7 +1296,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/46 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/49 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1353,7 +1378,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/46 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/49 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1452,7 +1477,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/46 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/49 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1487,7 +1512,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/46 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/49 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1549,7 +1574,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/46 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/49 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1593,7 +1618,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/46 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/49 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1717,7 +1742,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/46 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/49 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1792,7 +1817,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/46 fstep: one full-width float32 train step of each "
+    log(f"phase 17/49 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1831,7 +1856,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/46 ftime: each family's train step at batch "
+    log("phase 18/49 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1839,13 +1864,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/46 ftime, {key}",
+                                       f"18/49 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/46 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/49 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1882,7 +1907,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/46 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/49 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2034,7 +2059,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/46 probe: the image decoders this machine has, read only "
+    log("phase 21/49 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2288,7 +2313,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/46 disk: the train entries from disk (cli/main.py "
+    log("phase 22/49 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2468,7 +2493,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/46 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/49 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2511,7 +2536,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/46 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/49 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2690,7 +2715,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/46 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/49 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2803,7 +2828,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/46 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/49 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2848,7 +2873,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/46 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/49 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2921,7 +2946,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/46 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/49 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -2996,7 +3021,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/46 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/49 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3161,7 +3186,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/46 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/49 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3251,7 +3276,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/46 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/49 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3360,7 +3385,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/46 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/49 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3505,7 +3530,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/46 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/49 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3610,7 +3635,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/46 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/49 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3680,7 +3705,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/46 attntime: the AttnGAN step at batch "
+    log(f"phase 35/49 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3818,7 +3843,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/46 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/49 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3965,7 +3990,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/46 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/49 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4004,7 +4029,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/46 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/49 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4076,7 +4101,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/46 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/49 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4216,7 +4241,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/46 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/49 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4388,7 +4413,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/46 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/49 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4642,7 +4667,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/46 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/49 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4758,7 +4783,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/46 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/49 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4893,7 +4918,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/46 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/49 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -4965,7 +4990,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/46 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/49 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -4992,11 +5017,12 @@ def phase_sampling(model, fid):
 
     attngan_runner.fid_from_activations = fid_timed
     attngan_runner.inception_activations = acts_timed
+    argv = ["--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
+            data, "--manualSeed", str(ATTN_SET[1]), "--eval_mode",
+            "sampling", "--num_images", str(SAMPLING_IMAGES)]
     try:
-        _, launches, seconds = _entry("coco-attngan sampling", [
-            "--variant", "coco-attngan", "--cfg", cfg_file, "--data_dir",
-            data, "--manualSeed", str(ATTN_SET[1]), "--output_dir", out,
-            "--eval_mode", "sampling", "--num_images", str(SAMPLING_IMAGES)])
+        _, launches, seconds = _entry("coco-attngan sampling",
+                                      [*argv, "--output_dir", out])
     finally:
         attngan_runner.fid_from_activations = fid_fn
         attngan_runner.inception_activations = acts_fn
@@ -5073,7 +5099,6 @@ def phase_sampling(model, fid):
                   k1.stn_place_multi_plain(feats, bbox, hw), torch.float32,
                   "K1", label)
     row = time_place(feats, bbox, hw, "K1 AttnGAN sampling")
-    shutil.rmtree(out, ignore_errors=True)
     SUMMARY["sampling"] = {"s": seconds, "fid_s": sum(host["fid_s"]),
                            "features_s": sum(host["features_s"]),
                            "fid": m["fid"],
@@ -5084,11 +5109,12 @@ def phase_sampling(model, fid):
                                "bound_by", "share_of_bound",
                                "graph_share_of_bound")},
         "metrics": m, "seconds": seconds, "host": host,
-        "features_card_vs_cpu": errs, "feature_scale": scales}
+        "features_card_vs_cpu": errs, "feature_scale": scales,
+        "out": out, "argv": argv}
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/46 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/49 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5164,6 +5190,356 @@ def phase_layout(clevr_run):
                          for k, v in rows.items()}
     return launches, {"max_abs_err": worst, **k1_rows, "scores": rows,
                       "trace_kernel_events": named}
+
+
+# ------------------------------------------------------------ scale-out
+
+DIST_WORLD = 2              # the ranks of phases 48 and 49
+DIST_STEP_RUNS = 3          # timed steps a case, at world 1 and world 2
+DIST_LOSS_ATOL = 1e-3       # world 2 against world 1 on the card: losses
+DIST_LOSS_RTOL = 1e-4       # (atol plus rtol of the loss)
+# per parameter tensor, world 2 against world 1, from warm Adams (the
+# update linear in the gradient): the card-vs-CPU steps' gradient limit
+# (phases 8, 34), since cuDNN's backward differs run to run on the card;
+# a second one-process run's own lowest cosine is printed beside it
+DIST_MIN_UPDATE_COSINE = MIN_GRAD_COSINE
+DIST_TIMEOUT = 600          # seconds for one spawn of the ranks
+DUMP_FID_ATOL = 1e-6        # the world-2 dump's FID against world 1's
+DUMP_IS_RTOL = 1e-4         # (features 7 images a G forward against 14)
+DIST_LAUNCHES = {"mnist": (4, 4), "attngan": ATTN_LAUNCHES,
+                 "damsm": (0, 0)}
+
+
+def _rank_env() -> dict:
+    """The environment of a process this script starts: the checkout on
+    its path, no process group of its own."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in dist_steps.ENV_KEYS}
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, env.get("PYTHONPATH", "")])
+    return env
+
+
+def phase_dist_entry():
+    log("phase 47/49 nccl1: cli/main.py --variant multi-mnist --synthetic "
+        "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
+        "against the same run without the environment, bit for bit "
+        "(cudnn.deterministic in both, each in a process of its own)")
+    code = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+            "from multiple_objects_gan_tpu_torch.cli.main import main; "
+            "main(sys.argv[1:])")
+    data = os.path.join(WORK, "data", "dist1")
+    group = {"MOG_COORDINATOR": f"localhost:{dist_steps.free_port()}",
+             "MOG_NUM_PROCESSES": "1", "MOG_PROCESS_ID": "0"}
+    runs, seconds = {}, {}
+    for name in ("plain", "nccl"):
+        out = os.path.join(WORK, "dist1", name)
+        argv = ["--variant", "multi-mnist", "--cfg", MNIST_TRAIN,
+                "--synthetic", "--max_epochs", "1", "--manualSeed", "7",
+                "--device", DEVICE, "--data_dir", data, "--output_dir", out]
+        # each in a process of its own: this process's cached memory could
+        # steer cuDNN's choice of algorithm
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, *argv],
+            env={**_rank_env(), **(group if name == "nccl" else {})},
+            cwd=ROOT, capture_output=True, text=True, timeout=DIST_TIMEOUT)
+        seconds[name] = time.perf_counter() - t
+        check(proc.returncode == 0, f"the {name} entry failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs[name] = {"out": proc.stdout,
+                      "ckpt": CheckpointManager(os.path.join(
+                          out, "models")).load(0)[0],
+                      "log": open(os.path.join(out, "logs",
+                                               "metrics.jsonl")).read()}
+    banner = [ln for ln in runs["nccl"]["out"].splitlines()
+              if ln.startswith("torch.distributed:")]
+    log(f"  {banner[0] if banner else 'no process-group line'}; entries "
+        f"{seconds['plain']:.1f} s without the environment, "
+        f"{seconds['nccl']:.1f} s with it (host clock, processes included)")
+    check(not any(ln.startswith("torch.distributed:")
+                  for ln in runs["plain"]["out"].splitlines()),
+          "the run without the environment started a process group")
+    losses = [{k: v for k, v in json.loads(line).items() if k != "time"}
+              for run in (runs["plain"], runs["nccl"])
+              for line in run["log"].splitlines()[:1]]
+    check(losses[0] == losses[1], f"logged losses differ: {losses}")
+    differ = []
+
+    def walk(a, b, where):
+        if isinstance(a, dict):
+            check(sorted(a, key=str) == sorted(b, key=str), where)
+            for k in a:
+                walk(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                differ.append(where)
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{where}[{i}]")
+        elif a != b:
+            differ.append(where)
+
+    walk(runs["plain"]["ckpt"], runs["nccl"]["ckpt"], "ckpt")
+    log(f"  step 0's logged losses equal ({len(losses[0]) - 1} scalars); "
+        f"checkpoint tensors differing: {len(differ)}")
+    check(not differ, f"world size 1 over NCCL strays: {differ[:5]}")
+    check(bool(banner) and "backend nccl" in banner[0]
+          and "rank 0 of 1" in banner[0], "world size 1 did not start NCCL")
+    shutil.rmtree(os.path.join(WORK, "dist1"), ignore_errors=True)
+    return {"s": seconds, "banner": banner[0]}
+
+
+def _dist_cases(attn_weights, ds) -> list:
+    """Phase 48's step cases on the CPU: mnist at full width (GF 128,
+    DF 64, global batch 128, tests/test_step_parity.py's weights), AttnGAN
+    at GF 48 / DF 96 (the flagship's EMA G, seeded Ds and DAMSM pair,
+    global batch 14) and DAMSM (the flagship pair, global batch 48), each
+    from warm Adams."""
+    mnist = create_state(MNIST, seed=0, device="cpu")
+    randomize(mnist.g, 3)
+    randomize(mnist.d, 11)
+    warm_adam(mnist)
+    mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
+    g_sd, d_sds, e_sd, i_sd = attn_weights
+    attn, text, image = _attn_nets("cpu", mcfg, g_sd, d_sds, ATTN_WORDS,
+                                   e_sd, i_sd)
+    warm_adam(attn)
+    damsm = _damsm_state("cpu")
+    tensors = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+    st = attngan_train_settings(cfg_from_file(DAMSM_CFG, "damsm"))
+    return [
+        {"name": "mnist", "kind": "stage1", "config": MNIST, "state": mnist,
+         "batch": tensors(synthetic_multimnist(STEP_BATCH, seed=48)),
+         "seed": 48, "lr": LR, "time_runs": DIST_STEP_RUNS},
+        {"name": "attngan", "kind": "attngan", "config": mcfg, "state": attn,
+         "encoders": (text, image),
+         "batch": tensors(_attn_train_batch(ds, ATTN_TRAIN_BATCH, 48)),
+         "seed": 48, "lr": LR, "time_runs": DIST_STEP_RUNS},
+        {"name": "damsm", "kind": "damsm", "state": damsm,
+         "smooth": _damsm_smooth(), "grad_clip": st.rnn_grad_clip,
+         "batch": tensors(_attn_train_batch(ds, DAMSM_BATCH, 48)),
+         "seed": 48, "lr": LR, "time_runs": DIST_STEP_RUNS}]
+
+
+def _dist_modules(ckpt: dict) -> dict:
+    """{module name: state dict} of a train state's checkpoint contents."""
+    out = {k: ckpt[k] for k in ("g", "text", "image") if k in ckpt}
+    if "g_ema" in ckpt:
+        out.update({f"d.{n}": sd for n, sd in ckpt["d"].items()})
+    elif "d" in ckpt:
+        out["d"] = ckpt["d"]
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a, key=str) == sorted(b, key=str) and all(
+            _same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    return a == b
+
+
+def dist_local_places() -> dict:
+    """K1 and K2 at the place shapes of a rank of phase 48, float32: the
+    mnist step's G (64,3,256,16x16) and D (64,3,128,15x15) onto 16x16 and
+    AttnGAN's G (7,3,192,16x16) and D64 (7,3,192,15x15) onto 16x16, on
+    boxes inside the canvas with the last object padded, held against
+    their plain versions and timed cold in turns and on the device alone
+    (:func:`time_place`, :func:`time_grad`)."""
+    rs = np.random.RandomState(48)
+    dev = torch.device(DEVICE)
+    shapes = {"mnist": (STEP_BATCH // DIST_WORLD, {
+        "G": (3, 256, (16, 16), (16, 16)),
+        "D": (3, 128, (15, 15), (16, 16))}),
+        "attngan": (ATTN_TRAIN_BATCH // DIST_WORLD, attn_train_shapes())}
+    out = {"place": {}, "grad": {}, "max_abs_err": {"place": 0.0,
+                                                    "grad": 0.0}}
+    for name, (b, paths) in shapes.items():
+        for path, (o, c, hw, out_hw) in paths.items():
+            bbox = torch.from_numpy(_stage2_boxes(rs, b, o)).to(dev)
+            feats = torch.from_numpy(rs.randn(b, o, c, *hw).astype(
+                np.float32)).to(dev)
+            g = torch.from_numpy(rs.uniform(-1, 1, (b, c) + out_hw).astype(
+                np.float32)).to(dev)
+            key = f"dist2_{name}_{path}"
+            out["max_abs_err"]["place"] = max(out["max_abs_err"]["place"],
+                                              _held(
+                k1.stn_place_multi_nchw(feats, bbox, out_hw),
+                k1.stn_place_multi_plain(feats, bbox, out_hw), torch.float32,
+                "K1", f"{key} {tuple(feats.shape)} -> {out_hw}"))
+            out["max_abs_err"]["grad"] = max(out["max_abs_err"]["grad"],
+                                             _held(
+                k1.stn_place_multi_grad_nchw(g, bbox, hw),
+                k1.stn_place_multi_grad_plain(g, bbox, hw), torch.float32,
+                "K2", f"{key} {tuple(g.shape)} -> {hw}"))
+            out["place"][key] = time_place(feats, bbox, out_hw,
+                                           f"K1 at a rank's {name} {path}")
+            out["grad"][key] = time_grad(g, bbox, hw,
+                                         f"K2 at a rank's {name} {path}")
+    return out
+
+
+def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
+    """Two train states after one step from ``pre`` (checkpoint contents):
+    the largest running-statistic gap, and the lowest per-tensor cosine of
+    the two updates with its tensor's name."""
+    stats, cos, worst = 0.0, 1.0, ""
+    gmods, pmods = _dist_modules(got), _dist_modules(pre)
+    for part, sd in _dist_modules(want).items():
+        for k, w in sd.items():
+            g = gmods[part][k]
+            if k.endswith(("running_mean", "running_var")):
+                stats = max(stats, float((g - w).abs().max()))
+            elif w.is_floating_point() and not k.endswith(
+                    "num_batches_tracked"):
+                c = _cosine(g - pmods[part][k], w - pmods[part][k])
+                if c < cos:
+                    cos, worst = c, f"{part}.{k}"
+    return stats, cos, worst
+
+
+def phase_dist_steps(attn_weights, sampling):
+    log(f"phase 48/49 dist2: the mnist, AttnGAN and DAMSM steps as "
+        f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
+        "one process on the same global batch, from warm Adams; the same "
+        "start runs phase 49's dump")
+    _, ds = _attn_set()
+    cases = _dist_cases(attn_weights, ds)
+    pre = {c["name"]: copy.deepcopy(c["state"].checkpoint_dict())
+           for c in cases}
+    path = os.path.join(WORK, "dist_cases.pth")
+    dump = os.path.join(WORK, "attn_sampling2")
+    torch.save(cases, path)
+    torch.save([*cases, {"name": "dump", "call":
+                         "multiple_objects_gan_tpu_torch.cli.main:main",
+                         "kwargs": {"argv": [*sampling["argv"],
+                                             "--output_dir", dump,
+                                             "--device", DEVICE]}}],
+               path + ".ranks")
+    del cases
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dist_steps.spawn(path + ".ranks", os.path.join(WORK, "dist_out"),
+                             world=DIST_WORLD, device=DEVICE,
+                             timeout=DIST_TIMEOUT, env=_rank_env())
+    spawn_s = time.perf_counter() - t
+    os.remove(path + ".ranks")
+    one = dist_steps.run_cases(torch.load(path, weights_only=False), DEVICE)
+    again = dist_steps.run_cases(
+        [dict(c, time_runs=0) for c in torch.load(path, weights_only=False)],
+        DEVICE)
+    backend = ranks[0]["backend"]
+    log(f"  {DIST_WORLD} ranks over {backend} on "
+        f"{', '.join(r['device'] for r in ranks)} "
+        f"({torch.cuda.device_count()} card(s)); the spawn "
+        f"{spawn_s:.1f} s (host clock: start, steps, timing, dump)")
+    check(backend == ("nccl" if torch.cuda.device_count() >= DIST_WORLD
+                      else "gloo"), f"backend {backend}")
+    rows, launches, failed = {}, {}, []
+    for name in one:                # the step cases; "dump" is phase 49's
+        want = one[name]
+        got = [r["results"][name] for r in ranks]
+        bad = [k for k, v in want["metrics"].items()
+               if abs(got[0]["metrics"][k] - v)
+               > DIST_LOSS_ATOL + DIST_LOSS_RTOL * abs(v)]
+        loss_rel = max(abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in want["metrics"].items())
+        stats, cos, worst = _state_gaps(pre[name], got[0]["state"],
+                                        want["state"])
+        _, floor, floor_at = _state_gaps(pre[name], again[name]["state"],
+                                         want["state"])
+        ms = [statistics.median(r["step_ms"]) for r in got]
+        rows[name] = {"world2_ms": max(ms), "world1_ms":
+                      statistics.median(want["step_ms"]),
+                      "allreduce_ms": got[0]["allreduce_ms"],
+                      "allreduce_calls": got[0]["allreduce_calls"],
+                      "loss_rel": loss_rel, "stats": stats,
+                      "update_cosine": cos}
+        launches.update({f"dist2_{name}_rank{r}": got[r]["launches"]
+                         for r in range(DIST_WORLD)})
+        log(f"  {name}: losses world 2 / world 1 " + "; ".join(
+            f"{k} {got[0]['metrics'][k]:.6f} / {v:.6f}"
+            for k, v in sorted(want["metrics"].items())))
+        log(f"    worst loss gap {loss_rel:.2e} of the loss (limit "
+            f"{DIST_LOSS_ATOL:g} + {DIST_LOSS_RTOL:g} of it); running "
+            f"statistics {stats:.3e} (atol {STATS_ATOL:g}); lowest update "
+            f"cosine {cos:.8f} ({worst}; limit {DIST_MIN_UPDATE_COSINE:g}; "
+            f"one process run again: {floor:.8f}, {floor_at}); the "
+            f"replicas equal bit for bit: "
+            f"{_same_bits(got[0]['state'], got[1]['state'])}; K1/K2 "
+            f"launches a rank {[r['launches'] for r in got]} (one process "
+            f"{want['launches']})")
+        log(f"    step {rows[name]['world2_ms']:.2f} ms at world 2 "
+            f"(median of {DIST_STEP_RUNS}, the slower rank; of it the "
+            f"gradient all-reduce {rows[name]['allreduce_ms']:.2f} ms in "
+            f"{rows[name]['allreduce_calls']:g} calls, over {backend}) "
+            f"against {rows[name]['world1_ms']:.2f} ms in one process "
+            "(host clock around synchronised steps)")
+        rows[name]["update_cosine_one_process_again"] = floor
+        for ok, msg in (
+                (_same_bits(got[0]["state"], got[1]["state"]),
+                 "the replicas differ after the step"),
+                (not bad, f"losses world 2 vs world 1 {bad}"),
+                (stats <= STATS_ATOL, f"running statistics {stats}"),
+                (cos > DIST_MIN_UPDATE_COSINE, f"update {worst} {cos}"),
+                (all(r["launches"] == DIST_LAUNCHES[name] for r in got),
+                 f"launches a rank {[r['launches'] for r in got]}")):
+            if not ok:
+                failed.append(f"{name}: {msg}")
+    check(not failed, "; ".join(failed))
+    shutil.rmtree(os.path.join(WORK, "dist_out"), ignore_errors=True)
+    os.remove(path)
+    SUMMARY["dist2"] = {"backend": backend, **{
+        k: {"ms": v["world2_ms"], "ms1": v["world1_ms"],
+            "ar_ms": v["allreduce_ms"]} for k, v in rows.items()}}
+    return launches, {"backend": backend, "rows": rows,
+                      "places": dist_local_places(), "dump_dir": dump,
+                      "dump": [r["results"]["dump"] for r in ranks]}
+
+
+def phase_dist_sampling(sampling, dist2):
+    log(f"phase 49/49 dump2: AttnGAN's --eval_mode sampling dump of "
+        f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
+        "(phase 48's start), against phase 45's one-process dump")
+    out, one = dist2["dump_dir"], sampling["out"]
+    names = sorted(os.listdir(os.path.join(one, "single_samples")))
+    check(sorted(os.listdir(os.path.join(out, "single_samples"))) == names,
+          "the world-2 dump's files differ from world 1's")
+    levels = max(int(np.abs(
+        read_png(os.path.join(out, "single_samples", n), "RGB")
+        .astype(np.int16) - read_png(os.path.join(
+            one, "single_samples", n), "RGB").astype(np.int16)).max())
+        for n in names)
+    with open(os.path.join(out, "eval_metrics.json")) as f:
+        m2 = json.load(f)
+    m1 = sampling["metrics"]
+    launches = {f"sampling_world2_rank{r}": d["launches"]
+                for r, d in enumerate(dist2["dump"])}
+    seconds = max(d["seconds"] for d in dist2["dump"])
+    batches = -(-SAMPLING_IMAGES // FID_BATCH)
+    log(f"  {len(names)} PNGs, the same names as world 1's, pixels within "
+        f"{levels} levels (limit {SAMPLE_LEVELS}); FID {m2['fid']:.4g} "
+        f"against {m1['fid']:.4g} (atol {DUMP_FID_ATOL:g}), IS "
+        f"{m2['inception_score_mean']:.6f} against "
+        f"{m1['inception_score_mean']:.6f} (rtol {DUMP_IS_RTOL:g}); the "
+        f"entry {seconds:.1f} s on the slower rank (host clock) against "
+        f"phase 45's {sampling['seconds']:.1f} s; K1/K2 launches a rank "
+        f"{list(launches.values())}")
+    check(levels <= SAMPLE_LEVELS, "the world-2 dump's pixels")
+    check(m2["n_images"] == m1["n_images"] == SAMPLING_IMAGES, f"{m2}")
+    check(abs(m2["fid"] - m1["fid"]) <= DUMP_FID_ATOL, "FID world 2 vs 1")
+    check(abs(m2["inception_score_mean"] - m1["inception_score_mean"])
+          <= DUMP_IS_RTOL * abs(m1["inception_score_mean"]), "IS")
+    check(all(v == (batches, 0) for v in launches.values()),
+          f"one K1 a batch on each rank expected: {launches}")
+    for d in (out, one):
+        shutil.rmtree(d, ignore_errors=True)
+    SUMMARY["dump2"] = {"s": seconds, "levels": levels}
+    return launches, {"seconds": seconds, "levels": levels,
+                      "metrics": m2}
 
 
 def _post(port, body):
@@ -5243,7 +5619,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/46 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/49 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -5286,18 +5662,24 @@ def run_phases() -> int:
     sampling_paths, sampling = timed("sampling", phase_sampling, attn_model,
                                      fid)
     layout_paths, layout = timed("layout", phase_layout, disk["clevr_run"])
+    timed("nccl1", phase_dist_entry)
+    dist_paths, dist2 = timed("dist2", phase_dist_steps, attn_step["weights"],
+                              sampling)
+    dump_paths, dump2 = timed("dump2", phase_dist_sampling, sampling, dist2)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
                **attn_entry, **damsm_entry, **attn_eval_paths,
-               **s2_sample_paths, **sampling_paths, **layout_paths}
+               **s2_sample_paths, **sampling_paths, **layout_paths,
+               **dist_paths, **dump_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
                  "train_coco-attngan", "train_coco-attngan_resume",
                  "train_damsm", "train_damsm_resume", *attn_eval_paths,
-                 *s2_sample_paths, *sampling_paths, *layout_paths)
+                 *s2_sample_paths, *sampling_paths, *layout_paths,
+                 *dist_paths, *dump_paths)
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16")
 
@@ -5320,11 +5702,15 @@ def run_phases() -> int:
                         "serve": attn_latency},
             "attngan_train": {**attn_places["place"], "entry": attn_run},
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
-            "attngan_sampling": sampling, "layout_tool": layout},
+            "attngan_sampling": sampling, "layout_tool": layout,
+            "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
+                       "places": dist2["places"]["place"],
+                       "dump": dump2}},
         "stn_place_multi_grad": {
             **grad, "bf16": bf16["grad"], "families": families["grad"],
             "stage2": s2_kernels["grad"],
-            "attngan_train": attn_places["grad"]},
+            "attngan_train": attn_places["grad"],
+            "world2": dist2["places"]["grad"]},
         "normconv_bf16": normconv["rows"],
         "jpeg": jpeg_result, "cocodisk": coco_disk,
         "fid": fid["rows"]}}, default=str),
@@ -5355,7 +5741,8 @@ def run_phases() -> int:
                            attn_places["place"]["max_abs_err"],
                            attn_eval["max_abs_err"],
                            s2_sample["max_abs_err"],
-                           sampling["max_abs_err"], layout["max_abs_err"]),
+                           sampling["max_abs_err"], layout["max_abs_err"],
+                           dist2["places"]["max_abs_err"]["place"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -5366,7 +5753,9 @@ def run_phases() -> int:
                       for k in ("sample", "gen_example")},
                    "attngan_sampling": _compact(sampling),
                    **{f"layout_{k}": _compact(layout[k])
-                      for k in ("mnist", "clevr")}},
+                      for k in ("mnist", "clevr")},
+                   **{k: _compact(v)
+                      for k, v in dist2["places"]["place"].items()}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
@@ -5375,10 +5764,13 @@ def run_phases() -> int:
         "max_abs_err": max(grad["max_abs_err"],
                            families["grad"]["max_abs_err"],
                            s2_kernels["grad"]["max_abs_err"],
-                           attn_places["grad"]["max_abs_err"]),
+                           attn_places["grad"]["max_abs_err"],
+                           dist2["places"]["max_abs_err"]["grad"]),
         **_compact(grad["G"]),
         "shapes": {"train_d": _compact(grad["D"]),
-                   **_nested(s2_kernels["grad"], "stage2")},
+                   **_nested(s2_kernels["grad"], "stage2"),
+                   **{k: _compact(v)
+                      for k, v in dist2["places"]["grad"].items()}},
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",

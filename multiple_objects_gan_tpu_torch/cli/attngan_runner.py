@@ -25,7 +25,10 @@ epoch); they and the epoch grids key on the global step, so a resumed run
 writes what an uninterrupted one writes (the JAX loop counts the steps of
 each process from 0). The data are cfg DATA_DIR's train split with its
 JPEGs in IMG_DIR (``data/attngan.py:AttnGanTrainSet``), decoded per batch
-on the run's device.
+on the run's device. Under a process group (``parallel/``) each rank
+trains on its shard of every global batch, the state replicated from rank
+0; the montages and grids are left out (``train/loop.py``), and every
+rank's reader state goes into the checkpoints.
 
 With ``TRAIN.FLAG: False`` (:func:`run_attngan_eval`) the EMA G of cfg
 NET_G (:func:`restore_g`) and the text encoder of NET_E run one of the
@@ -83,8 +86,12 @@ from multiple_objects_gan_tpu_torch.nn.encoders import (
     build_image_encoder, build_text_encoder)
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    is_main_process, rank, shard_loader_kwargs, world_size)
 from multiple_objects_gan_tpu_torch.train.loop import (
-    grid_noise, run_epochs, to_device)
+    grid_noise, restore_rng, rng_extra, run_epochs, single_process,
+    to_device)
 from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, create_attngan_state)
 from multiple_objects_gan_tpu_torch.utils.attention_viz import (
@@ -210,8 +217,9 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
     ds = attngan_split(cfg.DATA_DIR, cfg.IMG_DIR, st, seed, device=device)
     text_enc, image_enc, prov = init_encoders(st.net_e, ds.n_words, mcfg,
                                               seed=seed, device=device)
-    _record_encoders(output_dir, prov, st.net_e,
-                     float(st.smooth.get("LAMBDA", 0.0)))
+    if is_main_process():
+        _record_encoders(output_dir, prov, st.net_e,
+                         float(st.smooth.get("LAMBDA", 0.0)))
     state = create_attngan_state(mcfg, seed=seed, device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
     start_epoch = 0
@@ -219,12 +227,13 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
         prev = CheckpointManager(os.path.join(resume_dir, "models"))
         if prev.latest_epoch() is not None:
             epoch, extra = prev.restore(state, generator)
-            ds.set_rng_state(extra["data_rng"])
+            restore_rng(ds, extra, "data_rng")
             start_epoch = epoch + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
     if start_epoch == 0:
         start_epoch = maybe_warm_start_attngan(state, st.net_g, st.b_net_d)
+    mesh.replicate_state(state)
     n_epochs = st.max_epoch if max_epochs is None else int(max_epochs)
     img_dir = os.path.join(output_dir, "images")
 
@@ -266,16 +275,17 @@ def run_attngan(cfg, mcfg: AttnGanConfig, output_dir: str, *, device,
     writer = MetricWriter(os.path.join(output_dir, "logs"))
     try:
         return run_epochs(
-            state, Loader(ds, st.batch_size, seed=seed),
+            state, Loader(ds, seed=seed,
+                          **shard_loader_kwargs(st.batch_size)),
             make_attngan_train_step(mcfg, text_enc, image_enc,
                                     smooth=st.smooth),
             generator, lr_g=st.generator_lr, lr_d=st.discriminator_lr,
             n_epochs=n_epochs, start_epoch=start_epoch, lr_decay_epochs=0,
             snapshot_every=st.snapshot_interval,
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
-            writer=writer, epoch_end_fn=epoch_end,
-            step_hook=step_viz,
-            checkpoint_extra=lambda: {"data_rng": ds.rng_state()},
+            writer=writer, epoch_end_fn=single_process(epoch_end),
+            step_hook=single_process(step_viz),
+            checkpoint_extra=lambda: rng_extra(data_rng=ds),
             profile_dir=profile_dir)
     finally:
         writer.close()
@@ -386,7 +396,12 @@ def sampling(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
     batch (clamped to the split), z from (seed, images written so far)
     unless ``noise(written, batch)`` gives it, c = mu; each fake saved
     as ``single_samples/s_%06d.png`` until ``num_images`` (0: the whole
-    split). Each batch's 2048-d features of the fakes and of its real
+    split). Under a process group every rank reads the whole batch,
+    generates its contiguous slice of it (padded to a multiple of the
+    world, as JAX pads it) and writes its images under their global
+    indices; the features go to rank 0, which alone computes the metrics,
+    writes ``eval_metrics.json`` and returns them (the others return
+    ``metrics`` None). Each batch's 2048-d features of the fakes and of its real
     images are kept, not the images (:data:`FID_BATCH` images a
     forward, the remainder padded, as JAX batches them). FID runs on the
     canonical encoder when ``$FID_INCEPTION_WEIGHTS`` names one, else on
@@ -410,35 +425,55 @@ def sampling(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
     out_dir = os.path.join(output_dir, "single_samples")
     os.makedirs(out_dir, exist_ok=True)
     written, limit = 0, num_images or len(ds)
-    fake_acts, real_acts, is_acts = [], [], []
+    world, mine = world_size(), []
     top = f"image{ds.imsizes[-1]}"
+    with_is = fid_prov == "fid_canonical" and damsm_prov == "damsm"
     for batch in Loader(ds, bs, shuffle=False, seed=seed).epoch(0):
         batch = to_device(batch, device)
         z = (noise(written, bs) if noise is not None else torch.from_numpy(
             sample_noise(seed, written, bs, mcfg.z_dim)))
-        caps = batch["captions"]
+        take = min(bs, limit - written)
+        # each rank generates its contiguous slice of the batch, padded to
+        # a multiple of the world with copies of row 0 (JAX :469-481)
+        per = -(-bs // world)
+        idx = torch.arange(rank() * per, (rank() + 1) * per)
+        rows = torch.where(idx < bs, idx, 0).to(device)
+        caps = batch["captions"][rows]
         with torch.inference_mode():
-            words, sent = text_enc(caps, batch["cap_lens"])
-            imgs = g(z.to(device), sent, words, caps == 0, batch["bbox"],
-                     batch["label_onehot"]).float()
-        take = min(imgs.shape[0], limit - written)
-        fakes = imgs[:take].permute(0, 2, 3, 1)
-        reals = batch[top][:take].float() / 127.5 - 1.0
-        fake_acts.append(inception_activations(fid_enc, fakes, FID_BATCH))
-        real_acts.append(inception_activations(fid_enc, reals, FID_BATCH))
-        if fid_prov == "fid_canonical" and damsm_prov == "damsm":
-            # IS stays on the DAMSM backbone, whose pool the torchvision
-            # head matches; a random backbone's sweep would re-dress noise
-            is_acts.append(inception_activations(image_enc, fakes,
-                                                 FID_BATCH))
-        for img in fakes.cpu().numpy():
-            save_image(img, os.path.join(out_dir, f"s_{written:06d}.png"))
-            written += 1
+            words, sent = text_enc(caps, batch["cap_lens"][rows])
+            imgs = g(z.to(device)[rows], sent, words, caps == 0,
+                     batch["bbox"][rows],
+                     batch["label_onehot"][rows]).float()
+        keep = idx < take
+        if bool(keep.any()):
+            kept = keep.to(device)
+            fakes = imgs[kept].permute(0, 2, 3, 1)
+            reals = batch[top][rows[kept]].float() / 127.5 - 1.0
+            mine.append((written + idx[keep].numpy(),
+                         inception_activations(fid_enc, fakes, FID_BATCH),
+                         inception_activations(fid_enc, reals, FID_BATCH),
+                         # IS stays on the DAMSM backbone, whose pool the
+                         # torchvision head matches; a random backbone's
+                         # sweep would re-dress noise
+                         inception_activations(image_enc, fakes, FID_BATCH)
+                         if with_is else None))
+            for i, img in zip(idx[keep].tolist(), fakes.cpu().numpy()):
+                save_image(img, os.path.join(out_dir,
+                                             f"s_{written + i:06d}.png"))
+        written += take
         if written >= limit:
             break
-    print(f"wrote {written} single images to {out_dir}", flush=True)
-    fake_acts = np.concatenate(fake_acts)
-    real_acts = np.concatenate(real_acts)
+    if is_main_process():
+        print(f"wrote {written} single images to {out_dir}", flush=True)
+    # the features of every rank's images to rank 0, in the images' order
+    parts = [p for ranks in mesh.gather_objects(mine) for p in ranks]
+    if not is_main_process():
+        return {"dir": out_dir, "metrics": None}
+    order = np.argsort(np.concatenate([p[0] for p in parts]))
+    fake_acts = np.concatenate([p[1] for p in parts])[order]
+    real_acts = np.concatenate([p[2] for p in parts])[order]
+    is_acts = (np.concatenate([p[3] for p in parts])[order] if with_is
+               else None)
     fid = fid_from_activations(real_acts, fake_acts)
     fc, is_head = resolve_inception_fc()
     is_backbone = "imported" if damsm_prov == "damsm" else "random"
@@ -446,7 +481,7 @@ def sampling(ds: AttnGanTrainSet, mcfg: AttnGanConfig, g: GNet, text_enc,
         print("WARNING: IS is not comparable to published numbers "
               f"(backbone={is_backbone}, head={is_head})", flush=True)
     is_mean, is_std = inception_score(
-        acts=np.concatenate(is_acts) if is_acts else fake_acts, fc=fc)
+        acts=fake_acts if is_acts is None else is_acts, fc=fc)
     print(f"FID: {fid:.3f}  IS: {is_mean:.3f} +/- {is_std:.3f}", flush=True)
     # provenance: is_head the 1000-class head, is_backbone the features
     # under it, fid_encoder the network behind both FID sides

@@ -23,8 +23,14 @@ upstream's pretrain_DAMSM.py, and so does the port
   SNAPSHOT_INTERVAL epochs and after the last, in the reference's format,
   so that any AttnGAN run can name them as NET_E;
 * ``models/<epoch>/state.pth``: both encoders, the Adam, the step, the
-  dropout's generator, and both splits' random states, so that
-  ``--resume`` continues bit for bit on the CPU.
+  dropout's generator, and both splits' random states (every rank's under
+  a process group), so that ``--resume`` continues bit for bit on the
+  CPU.
+
+Under a process group each rank trains on its shard of every global batch
+(``parallel/``); the eval reads each test batch whole on every rank and
+evaluates the rank's slice of it, and rank 0 logs it and exports the
+encoders.
 
 The data are DATA_DIR's splits with their JPEGs in IMG_DIR
 (``data/attngan.py:AttnGanTrainSet``, decoded per batch on the run's
@@ -52,7 +58,11 @@ from multiple_objects_gan_tpu_torch.nn.encoders import (
     build_image_encoder, build_text_encoder)
 from multiple_objects_gan_tpu_torch.train.damsm_step import (
     make_damsm_eval_fn, make_damsm_train_step)
-from multiple_objects_gan_tpu_torch.train.loop import run_epochs, to_device
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    is_main_process, shard_loader_kwargs)
+from multiple_objects_gan_tpu_torch.train.loop import (
+    restore_rng, rng_extra, run_epochs, to_device)
 from multiple_objects_gan_tpu_torch.train.state import create_damsm_state
 from multiple_objects_gan_tpu_torch.utils.logging import MetricWriter
 
@@ -128,46 +138,53 @@ def run_damsm(cfg, output_dir: str, *, device, seed: int = 0,
         prev = CheckpointManager(os.path.join(resume_dir, "models"))
         if prev.latest_epoch() is not None:
             epoch, extra = prev.restore(state, generator)
-            ds.set_rng_state(extra["data_rng"])
+            restore_rng(ds, extra, "data_rng")
             if eval_ds is not None:
-                eval_ds.set_rng_state(extra["eval_rng"])
+                restore_rng(eval_ds, extra, "eval_rng")
             start_epoch = epoch + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
+    mesh.replicate_state(state)
     n_epochs = st.max_epoch if max_epochs is None else int(max_epochs)
     enc_dir = os.path.join(output_dir, "DAMSMencoders")
     eval_fn = make_damsm_eval_fn(st.smooth)
     writer = MetricWriter(os.path.join(output_dir, "logs"))
 
     def epoch_end(state, batch, epoch):
+        main = is_main_process()
         if eval_ds is not None:
             totals: dict = {}
             n = 0
+            # every rank reads the whole batch and evaluates its slice
+            # (JAX :163); eval_fn sums the ranks' shares
             for b in Loader(eval_ds, st.batch_size, seed=seed,
                             shuffle=False).epoch(0):
-                for k, v in eval_fn(state, to_device(b, device)).items():
+                for k, v in eval_fn(state, to_device(
+                        mesh.shard_batch(b), device)).items():
                     totals[k] = totals.get(k, 0.0) + float(v)
                 n += 1
             host = {f"eval_{k}": v / n for k, v in totals.items()}
-            writer.scalars(epoch, host)
-            print("  eval: " + " ".join(f"{k}={v:.4f}"
-                                        for k, v in sorted(host.items())),
-                  flush=True)
-        if (st.snapshot_interval and (epoch + 1) % st.snapshot_interval == 0
-                or epoch == n_epochs - 1):
+            if main:
+                writer.scalars(epoch, host)
+                print("  eval: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(host.items())),
+                    flush=True)
+        if main and (st.snapshot_interval
+                     and (epoch + 1) % st.snapshot_interval == 0
+                     or epoch == n_epochs - 1):
             export_damsm_encoders(state.text, state.image, enc_dir, epoch)
             print(f"saved DAMSM .pth encoders (epoch {epoch}) to {enc_dir}",
                   flush=True)
 
     def extra():
-        out = {"data_rng": ds.rng_state()}
-        if eval_ds is not None:
-            out["eval_rng"] = eval_ds.rng_state()
-        return out
+        if eval_ds is None:
+            return rng_extra(data_rng=ds)
+        return rng_extra(data_rng=ds, eval_rng=eval_ds)
 
     try:
         return run_epochs(
-            state, Loader(ds, st.batch_size, seed=seed),
+            state, Loader(ds, seed=seed,
+                          **shard_loader_kwargs(st.batch_size)),
             make_damsm_train_step(st.smooth, st.rnn_grad_clip), generator,
             lr_g=st.encoder_lr, lr_d=st.encoder_lr, n_epochs=n_epochs,
             start_epoch=start_epoch, snapshot_every=st.snapshot_interval,

@@ -47,7 +47,14 @@ else ``gen_example``; ``sampling`` dumps the test split's fakes, up to
 ``eval_metrics.json``). ``--profile DIR`` writes a torch.profiler trace
 of steps 2-5 of a training run's first epoch to DIR.
 The run is on the card unless ``--device cpu`` is given; without a card it
-raises. A float32 run on the card computes in float32: TF32 is turned off
+raises. It runs on several processes when the environment says so
+(``MOG_COORDINATOR=host:port MOG_NUM_PROCESSES=n MOG_PROCESS_ID=i``, or
+torchrun's): each process trains on its shard of every global batch
+(``parallel/``), NCCL between cards and gloo on the CPU or on a shared
+card, rank 0 writing the logs, records and checkpoints; ``--bn_groups``
+must then be a multiple of the world size, and of the eval modes only
+AttnGAN's ``sampling`` dump shards (the others run on rank 0). A float32
+run on the card computes in float32: TF32 is turned off
 (``float32_policy``, as the server does).
 """
 
@@ -83,6 +90,10 @@ from multiple_objects_gan_tpu_torch.data.coco import (
 from multiple_objects_gan_tpu_torch.data.datasets import (
     MNIST_VARIANT, ClevrDataset, Loader, MultiMnistDataset,
     write_synthetic_clevr, write_synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    barrier, destroy_distributed, is_main_process,
+    maybe_initialize_distributed, rank_device, shard_loader_kwargs,
+    world_size)
 from multiple_objects_gan_tpu_torch.train.loop import train
 
 VARIANTS = ("multi-mnist", "clevr", "coco-stackgan-1", "coco-stackgan-2",
@@ -112,21 +123,22 @@ def coco_data(args, cfg, seed: int, device, split: str = "train") -> None:
     test split of a sampling run at 32 items; AttnGAN and DAMSM:
     ``write_synthetic_attngan``, both splits), as the JAX CLI writes it
     (``cli/main.py:320-373``, ``cli/stage2_runner.py:60-66,111-123``);
-    without it a missing split exits with its path."""
-    if os.path.isfile(os.path.join(cfg.DATA_DIR, split,
-                                   "filenames.pickle")):
-        return
-    if not args.synthetic:
-        sys.exit(f"COCO data not found under {cfg.DATA_DIR} (no {split} "
-                 "split; pass --synthetic to generate one)")
-    n = (SAMPLE_TEST_ITEMS if split == "test" else
-         synthetic_items(args.variant, int(cfg.TRAIN.BATCH_SIZE)))
-    if args.variant in ATTNGAN_SETS:
-        write_synthetic_attngan(cfg.DATA_DIR, cfg.IMG_DIR, n=n, seed=seed,
-                                device=device)
-    else:
-        write_synthetic_coco(cfg.DATA_DIR, cfg.IMG_DIR, n=n, split=split,
-                             seed=seed, device=device)
+    without it a missing split exits with its path. Under a process
+    group rank 0 writes and every rank waits for it."""
+    if not os.path.isfile(os.path.join(cfg.DATA_DIR, split,
+                                       "filenames.pickle")):
+        if not args.synthetic:
+            sys.exit(f"COCO data not found under {cfg.DATA_DIR} (no {split}"
+                     " split; pass --synthetic to generate one)")
+        n = (SAMPLE_TEST_ITEMS if split == "test" else
+             synthetic_items(args.variant, int(cfg.TRAIN.BATCH_SIZE)))
+        if is_main_process() and args.variant in ATTNGAN_SETS:
+            write_synthetic_attngan(cfg.DATA_DIR, cfg.IMG_DIR, n=n,
+                                    seed=seed, device=device)
+        elif is_main_process():
+            write_synthetic_coco(cfg.DATA_DIR, cfg.IMG_DIR, n=n, split=split,
+                                 seed=seed, device=device)
+    barrier()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -257,15 +269,18 @@ def train_loader(args, cfg, variant: str, seed: int, device,
                  stage: int = 1):
     """The variant's train loader: Multi-MNIST and CLEVR from DATA_DIR,
     COCO StackGAN (``stage`` 1 or 2) from DATA_DIR and IMG_DIR, each
-    written there first with ``--synthetic`` when missing."""
+    written there first with ``--synthetic`` when missing (by rank 0 under
+    a process group), with this rank's share of the global batch and its
+    shard of the order (``shard_loader_kwargs``)."""
     batch = train_settings(cfg).batch_size
+    shard = shard_loader_kwargs(batch)
     imsize = int(cfg.IMSIZE)
     if variant.startswith("coco-stackgan"):
         coco_data(args, cfg, seed, device)
         ds = CocoStackganDataset(cfg.DATA_DIR, cfg.IMG_DIR, split="train",
                                  stage=stage, imsize=imsize, seed=seed,
                                  device=device)
-        return Loader(ds, batch, seed=seed)
+        return Loader(ds, seed=seed, **shard)
     marker = os.path.join(cfg.DATA_DIR, "train",
                           MNIST_VARIANT if variant == "multi-mnist"
                           else "scenes")
@@ -275,14 +290,16 @@ def train_loader(args, cfg, variant: str, seed: int, device,
                      "generate one)")
         write = (write_synthetic_multimnist if variant == "multi-mnist"
                  else write_synthetic_clevr)
-        write(cfg.DATA_DIR, n=synthetic_items(variant, batch),
-              split="train", seed=seed, imsize=imsize)
+        if is_main_process():
+            write(cfg.DATA_DIR, n=synthetic_items(variant, batch),
+                  split="train", seed=seed, imsize=imsize)
+    barrier()
     if variant == "multi-mnist":
         ds = MultiMnistDataset(cfg.DATA_DIR, split="train", imsize=imsize)
     else:
         ds = ClevrDataset(cfg.DATA_DIR, split="train", imsize=imsize,
                           seed=seed)
-    return Loader(ds, batch, seed=seed)
+    return Loader(ds, seed=seed, **shard)
 
 
 def snapshot_sources(output_dir: str) -> None:
@@ -299,9 +316,32 @@ def snapshot_sources(output_dir: str) -> None:
 def main(argv=None) -> list[dict]:
     """Run what the arguments ask for. Training returns the per-epoch mean
     losses of :func:`~multiple_objects_gan_tpu_torch.train.loop.run_epochs`;
-    sampling returns an empty list."""
+    sampling returns an empty list. The process group the environment
+    describes (``parallel/multihost.py``) is joined first and left at the
+    end."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    owns_group = not torch.distributed.is_initialized()
+    maybe_initialize_distributed(args.device)
+    try:
+        return _run(args)
+    finally:
+        if owns_group:
+            destroy_distributed()
+
+
+def check_bn_groups(groups: int) -> None:
+    """Exit unless ``groups`` BatchNorm chunks of the global batch split
+    into whole chunks a rank (``nn/blocks.py``)."""
+    world = world_size()
+    if groups > 1 and groups % world:
+        sys.exit(f"--bn_groups {groups} over {world} processes is not "
+                 "supported: the groups must be a multiple of the world "
+                 "size")
+
+
+def _run(args) -> list[dict]:
+    device = rank_device(resolve_device(args.device))
+    check_bn_groups(args.bn_groups)
     cfg = cfg_from_file(args.cfg_file, args.variant)
     if args.data_dir:
         cfg.DATA_DIR = args.data_dir
@@ -336,9 +376,10 @@ def main(argv=None) -> list[dict]:
     training = bool(cfg.TRAIN.FLAG) or damsm or (stackgan and not stage2)
     mode = None
     if attn:
-        if args.bn_groups != 1:
-            sys.exit(f"--bn_groups is not ported for {args.variant} yet")
-        mcfg = attngan_model_config(cfg, compute_dtype=dtype)
+        # damsm's backbone runs in eval mode and its text encoder has no
+        # BatchNorm: the flag is recorded and changes nothing, as in JAX
+        mcfg = attngan_model_config(cfg, compute_dtype=dtype,
+                                    bn_groups=args.bn_groups)
         if not training:
             mode = eval_mode(args.eval_mode, cfg)
     elif stage2:
@@ -360,14 +401,19 @@ def main(argv=None) -> list[dict]:
     output_dir = args.output_dir or os.path.join(
         "output", f"{cfg.DATASET_NAME}_{now}")
     os.makedirs(output_dir, exist_ok=True)
-    record_run_flags(output_dir, args.resume, bn_groups=args.bn_groups,
-                     bf16=bool(args.bf16), variant=args.variant,
-                     manualSeed=seed)
-    cfg_copy = os.path.join(output_dir, os.path.basename(args.cfg_file))
-    if not (os.path.exists(cfg_copy)
-            and os.path.samefile(args.cfg_file, cfg_copy)):
-        shutil.copyfile(args.cfg_file, cfg_copy)
+    if is_main_process():
+        record_run_flags(output_dir, args.resume, bn_groups=args.bn_groups,
+                         bf16=bool(args.bf16), variant=args.variant,
+                         manualSeed=seed, world_size=world_size())
+        cfg_copy = os.path.join(output_dir, os.path.basename(args.cfg_file))
+        if not (os.path.exists(cfg_copy)
+                and os.path.samefile(args.cfg_file, cfg_copy)):
+            shutil.copyfile(args.cfg_file, cfg_copy)
+    barrier()
 
+    if not (training or mode == "sampling" or is_main_process()):
+        barrier()     # one process samples; only the dump shards
+        return []
     if mode is not None:
         print(f"coco-attngan {mode} on {device}: gf {mcfg.gf_dim}, "
               f"{mcfg.branch_num} branches, seed {seed}, "
@@ -375,6 +421,7 @@ def main(argv=None) -> list[dict]:
               f"output {output_dir}", flush=True)
         run_attngan_eval(cfg, mcfg, output_dir, mode, device=device,
                          seed=seed, num_images=args.num_images)
+        barrier()
         return []
     if stage2 and not training:
         print(f"coco-stackgan stage 2 sampling on {device}: gf "
@@ -384,12 +431,14 @@ def main(argv=None) -> list[dict]:
               f"{output_dir}", flush=True)
         sample_stage2(cfg, s1_cfg, mcfg, output_dir, seed=seed,
                       device=device, stochastic_ca=args.stochastic_ca)
+        barrier()
         return []
     if not training:
         sample_stage1(args, cfg, mcfg, output_dir, args.variant, seed,
                       device=device)
+        barrier()
         return []
-    if not args.resume and cfg.TRAIN.FLAG:
+    if not args.resume and cfg.TRAIN.FLAG and is_main_process():
         snapshot_sources(output_dir)
     if damsm:
         print(f"damsm on {device}: embedding {mcfg.embedding_dim}, "
@@ -418,8 +467,9 @@ def main(argv=None) -> list[dict]:
     width = (f"gf {mcfg.gf_dim}, df {mcfg.df_dim}, R_NUM {mcfg.r_num}, "
              f"frozen stage-1 G ngf {s1_cfg.ngf}" if stage2 else
              f"ngf {mcfg.ngf}, ndf {mcfg.df_dim}")
+    ranks = f" a rank of {world_size()}" if world_size() > 1 else ""
     print(f"{args.variant} stage {2 if stage2 else 1} on {device}: {width}, "
-          f"{mcfg.num_objects} objects, batch {loader.bs}, "
+          f"{mcfg.num_objects} objects, batch {loader.bs}{ranks}, "
           f"{len(loader)} steps an epoch, seed {seed}, "
           f"{'bf16' if args.bf16 else 'float32'}, BatchNorm groups "
           f"{mcfg.bn_groups}{kl}; output {output_dir}", flush=True)

@@ -39,8 +39,10 @@ from multiple_objects_gan_tpu_torch.io.weights import (
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import Stage1G, build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
+from multiple_objects_gan_tpu_torch.parallel import mesh
 from multiple_objects_gan_tpu_torch.train.loop import (
-    data_rng_extra, grid_noise, restore_data_rng, run_epochs)
+    data_rng_extra, grid_noise, restore_data_rng, run_epochs,
+    single_process)
 from multiple_objects_gan_tpu_torch.train.state import create_state_stage2
 from multiple_objects_gan_tpu_torch.train.step import make_stage2_train_step
 from multiple_objects_gan_tpu_torch.utils.images import (
@@ -92,9 +94,9 @@ def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
                resume_dir: Optional[str] = None,
                profile_dir: Optional[str] = None) -> list[dict]:
     """Train stage 2 (JAX ``run_stage2``): logs, grids and checkpoints
-    under ``output_dir``, as the stage-1 run's (``train/loop.py:train``),
-    and a torch.profiler trace into ``profile_dir`` when given. Returns
-    the per-epoch mean losses."""
+    under ``output_dir``, as the stage-1 run's (``train/loop.py:train``,
+    under a process group too), and a torch.profiler trace into
+    ``profile_dir`` when given. Returns the per-epoch mean losses."""
     device = torch.device(device)
     settings = train_settings(cfg)
     g1 = frozen_stage1_g(s1_cfg, cfg.get("STAGE1_G", ""), seed=seed,
@@ -113,6 +115,7 @@ def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
             start_epoch = epoch + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
+    mesh.replicate_state(state)
     n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)
     img_dir = os.path.join(output_dir, "images")
 
@@ -139,7 +142,7 @@ def run_stage2(cfg, s1_cfg: Stage1Config, s2_cfg: Stage1Config, loader,
             start_epoch=start_epoch, lr_decay_epochs=settings.lr_decay_epoch,
             snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
-            writer=writer, epoch_end_fn=epoch_grids,
+            writer=writer, epoch_end_fn=single_process(epoch_grids),
             checkpoint_extra=data_rng_extra(loader),
             profile_dir=profile_dir)
     finally:

@@ -327,21 +327,22 @@ def stage2_model_config(cfg: Config, *,
 
 
 def attngan_model_config(cfg: Config, *,
-                         compute_dtype: Optional[torch.dtype] = None
-                         ) -> attngan.AttnGanConfig:
+                         compute_dtype: Optional[torch.dtype] = None,
+                         bn_groups: int = 1) -> attngan.AttnGanConfig:
     """The AttnGanConfig of a coco-attngan cfg (JAX
     ``cli/attngan_runner.py:39-62 build_all``): ``COCO_ATTN`` with the
     cfg's GAN widths, Z_DIM, CONDITION_DIM, R_NUM and B_DCGAN, its
     TEXT.EMBEDDING_DIM and TREE.BRANCH_NUM, and the caller's compute
-    dtype."""
-    _check_knobs(compute_dtype, 1)
+    dtype and BatchNorm groups."""
+    _check_knobs(compute_dtype, bn_groups)
     return dataclasses.replace(
         attngan.COCO_ATTN, gf_dim=int(cfg.GAN.GF_DIM),
         df_dim=int(cfg.GAN.DF_DIM), z_dim=int(cfg.GAN.Z_DIM),
         condition_dim=int(cfg.GAN.CONDITION_DIM),
         embedding_dim=int(cfg.TEXT.EMBEDDING_DIM),
         branch_num=int(cfg.TREE.BRANCH_NUM), r_num=int(cfg.GAN.R_NUM),
-        b_dcgan=bool(cfg.GAN.B_DCGAN), compute_dtype=compute_dtype)
+        b_dcgan=bool(cfg.GAN.B_DCGAN), compute_dtype=compute_dtype,
+        bn_groups=int(bn_groups))
 
 
 @dataclasses.dataclass(frozen=True)

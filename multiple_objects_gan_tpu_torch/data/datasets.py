@@ -17,8 +17,13 @@ and travel as uint8; the model's normalise to [-1, 1] runs on the device
 shuffled, drop-last batcher with a prefetch thread (the COCO readers of
 ``data/coco.py`` and ``data/attngan.py`` decode in it);
 :class:`MemoryLoader` batches a set held on the device in the same order,
-for tests and timed steps. The JAX loader's multi-host ``shard`` and its
-native-decoder ``workers`` are not ported (ROADMAP Queue 1, item 14).
+for tests and timed steps. Both take the JAX loader's ``shard=(rank,
+world)``: every rank shuffles the same seeded order and takes
+``order[rank::world]``, ``len(ds) // world // batch`` batches an epoch, so
+that every rank runs the same number of steps (``parallel/multihost.py:
+shard_loader_kwargs`` gives a rank its share of the global batch and its
+shard). The JAX loader's native-decoder ``workers`` are not ported: the
+card decodes with nvjpeg.
 """
 
 from __future__ import annotations
@@ -140,22 +145,23 @@ class Loader:
     CUDA stream of the thread's own, so that its decodes and copies wait
     for the reader's work alone and not for the train step queued on the
     consumer's stream; the consumer's stream waits for each batch on an
-    event."""
+    event. ``shard=(rank, world)`` takes the rank's strided slice of the
+    order (module docstring)."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 shuffle: bool = True):
+                 shuffle: bool = True, shard: tuple = (0, 1)):
         self.ds = dataset
         self.bs = batch_size
         self.seed = seed
         self.shuffle = shuffle
+        self.shard = shard
 
     def __len__(self) -> int:
-        return len(self.ds) // self.bs
+        return len(self.ds) // self.shard[1] // self.bs
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
-        order = np.arange(len(self.ds))
-        if self.shuffle:
-            np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        order = _shard_order(len(self.ds), self.seed + epoch_idx,
+                             self.shuffle, self.shard)
         n_batches = len(self)
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         get_batch = getattr(self.ds, "get_batch", None)
@@ -204,15 +210,28 @@ class Loader:
             yield batch
 
 
+def _shard_order(n: int, seed: int, shuffle: bool, shard: tuple
+                 ) -> np.ndarray:
+    """The items of an epoch: ``arange(n)``, shuffled by
+    ``RandomState(seed)`` when asked, and of it ``shard``'s strided slice
+    (JAX ``Loader.epoch``)."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    rank, world = shard
+    return order[rank::world] if world > 1 else order
+
+
 class MemoryLoader:
     """A set held on ``device`` (arrays keyed ``image``, ``bbox``,
     ``label_onehot`` and, for COCO, ``text_embedding`` (n, captions, dim)),
-    batched in :class:`Loader`'s order. Each epoch gives every item one of
-    its captions, drawn from ``RandomState(seed)`` carried across epochs,
-    as the JAX COCO reader draws one a visit (``data/coco.py:102-103``)."""
+    batched in :class:`Loader`'s order, ``shard`` too. Each epoch gives
+    every item one of its captions, drawn from ``RandomState(seed)``
+    carried across epochs, as the JAX COCO reader draws one a visit
+    (``data/coco.py:102-103``)."""
 
     def __init__(self, data: dict, batch_size: int, seed: int = 0,
-                 device="cpu"):
+                 device="cpu", shard: tuple = (0, 1)):
         self.tensors = {k: torch.as_tensor(v).to(device)
                         for k, v in data.items()}
         self.captions = self.tensors.pop("text_embedding", None)
@@ -220,15 +239,15 @@ class MemoryLoader:
         self.n = self.tensors["image"].shape[0]
         self.bs = batch_size
         self.seed = seed
+        self.shard = shard
 
     def __len__(self) -> int:
-        return self.n // self.bs
+        return self.n // self.shard[1] // self.bs
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
         device = self.tensors["image"].device
-        order = np.arange(self.n)
-        np.random.RandomState(self.seed + epoch_idx).shuffle(order)
-        order = torch.from_numpy(order).to(device)
+        order = torch.from_numpy(_shard_order(
+            self.n, self.seed + epoch_idx, True, self.shard)).to(device)
         tensors = dict(self.tensors)
         if self.captions is not None:
             pick = self._caption_rng.randint(self.captions.shape[1],

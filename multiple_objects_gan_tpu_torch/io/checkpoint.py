@@ -17,7 +17,10 @@ its state is what makes the resumed run draw the same noise.
 
 Each epoch's checkpoint is ``<directory>/<epoch>/state.pth``, written
 under a temporary name and renamed, so a crash while saving never leaves a
-half-written file under the name a restore reads.
+half-written file under the name a restore reads. Under a process group
+(``parallel/``) rank 0 writes and every rank waits at a barrier until the
+file is there; on resume every rank loads the same file (each reader's
+state is its own: ``train/loop.py:data_rng_extra``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import Optional, Union
 import torch
 
 from multiple_objects_gan_tpu_torch.io.pycompat import torch_load
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    barrier, is_main_process)
 from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, DamsmTrainState, GANTrainState)
 
@@ -59,17 +64,20 @@ class CheckpointManager:
              generator: Optional[torch.Generator] = None,
              extra: Optional[dict] = None) -> str:
         """Write ``epoch``'s checkpoint, then drop all but the newest
-        ``MAX_TO_KEEP``. Returns its path."""
+        ``MAX_TO_KEEP`` (on rank 0; every rank waits for it). Returns its
+        path."""
         path = self._path(epoch)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save({"epoch": epoch, **state.checkpoint_dict(),
-                    "generator": (None if generator is None
-                                  else generator.get_state()),
-                    "extra": extra or {}}, tmp)
-        os.replace(tmp, path)
-        for old in self.epochs()[:-MAX_TO_KEEP]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        if is_main_process():
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            torch.save({"epoch": epoch, **state.checkpoint_dict(),
+                        "generator": (None if generator is None
+                                      else generator.get_state()),
+                        "extra": extra or {}}, tmp)
+            os.replace(tmp, path)
+            for old in self.epochs()[:-MAX_TO_KEEP]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        barrier()
         return path
 
     def load(self, epoch: Optional[int] = None) -> tuple[dict, int]:

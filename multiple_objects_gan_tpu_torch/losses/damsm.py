@@ -18,6 +18,14 @@ length and its padded words are masked out of the attention's word softmax
 and out of the log-sum-exp, which gives the same values. The scores are
 image-major (row i: image i against every caption), as the reference builds
 them. Everything runs in float32.
+
+Under a process group of more than one rank (``parallel/``) the scores and
+class masks are those of the global batch: the image codes, region
+features, sentence embeddings, similarities and class ids are gathered
+with autograd (``parallel/mesh.py:gather_rows``), and each rank's losses
+are its rows' share, a sum over its rows of the cross-entropies over the
+global B, so that the ranks' losses sum to the global loss and no rank
+counts another's rows.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from multiple_objects_gan_tpu_torch.nn.attention import func_attention
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import world_size
 
 NEG_INF = -1e9
 EPS = 1e-8
@@ -53,15 +63,67 @@ def _masked(scores: torch.Tensor, class_ids: Optional[torch.Tensor]):
     return scores.masked_fill(_class_mask(class_ids), NEG_INF)
 
 
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, d), (m, d) -> (n, m): the cosine of every row of ``a`` with
+    every row of ``b``."""
+    an = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    bn = torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    return (a @ b.t()) / (an @ bn.t()).clamp(min=EPS)
+
+
+def _ce_rows(scores: torch.Tensor, class_ids: Optional[torch.Tensor]):
+    """This rank's share of a global cross-entropy: ``scores`` are its
+    rows (n, B) of the global (B, B) scores, whose labels are the rows'
+    global indices; the sum over them over B."""
+    rows = mesh.rank_rows(scores.shape[1])
+    if class_ids is not None:
+        scores = scores.masked_fill(
+            _class_mask(mesh.gather_rows(class_ids))[rows], NEG_INF)
+    labels = torch.arange(rows.start, rows.stop, device=scores.device)
+    return (F.cross_entropy(scores, labels, reduction="sum")
+            / scores.shape[1])
+
+
 def sent_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
               class_ids: Optional[torch.Tensor], gamma3: float = 10.0):
     """``cnn_code`` (B, nef) image codes, ``rnn_code`` (B, nef) sentence
-    embeddings -> (loss0, loss1)."""
+    embeddings -> (loss0, loss1). Under a process group, the rank's
+    share of the losses of the global batch (module docstring)."""
     cnn_code, rnn_code = cnn_code.float(), rnn_code.float()
-    cn = torch.linalg.vector_norm(cnn_code, dim=-1, keepdim=True)
-    rn = torch.linalg.vector_norm(rnn_code, dim=-1, keepdim=True)
-    scores = (cnn_code @ rnn_code.t()) / (cn @ rn.t()).clamp(min=EPS) * gamma3
-    return _ce_both_ways(_masked(scores, class_ids))
+    if world_size() == 1:
+        return _ce_both_ways(_masked(_cosines(cnn_code, rnn_code) * gamma3,
+                                     class_ids))
+    # this rank's images against every caption, its captions against
+    # every image: its rows of the scores and of their transpose
+    return (_ce_rows(_cosines(cnn_code, mesh.gather_rows(rnn_code))
+                     * gamma3, class_ids),
+            _ce_rows(_cosines(rnn_code, mesh.gather_rows(cnn_code))
+                     * gamma3, class_ids))
+
+
+def _caption_image_sims(words: torch.Tensor, cap_lens: torch.Tensor,
+                        img_features: torch.Tensor, gamma1: float,
+                        gamma2: float):
+    """Every caption of ``words`` (n, T, d) against every image of
+    ``img_features`` (m, d, h, w) in one batched attention: (sims (n, m),
+    attention (n, m, h, w, T)); pair (i, j) is caption i's words over
+    image j's regions."""
+    n, t, d = words.shape
+    m, _, h, w = img_features.shape
+    pad = (torch.arange(t, device=words.device)[None, :]
+           >= cap_lens.to(words.device)[:, None])                # (n, T)
+    query = words[:, None].expand(n, m, t, d).reshape(n * m, t, d)
+    context = img_features[None].expand(n, m, d, h, w).reshape(
+        n * m, d, h, w)
+    mask = pad[:, None].expand(n, m, t).reshape(n * m, t)
+    wei, attn = func_attention(query, context, gamma1, mask)
+    num = (query * wei).sum(dim=-1)
+    den = (torch.linalg.vector_norm(query, dim=-1)
+           * torch.linalg.vector_norm(wei, dim=-1))
+    row_sim = num / den.clamp(min=EPS)                         # (n*m, T)
+    e = torch.exp(row_sim * gamma2) * (~mask).float()
+    sims = torch.log(e.sum(dim=1).clamp(min=EPS)).reshape(n, m)
+    return sims, attn.reshape(n, m, h, w, t)
 
 
 def words_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
@@ -72,27 +134,24 @@ def words_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
     ``cap_lens`` (B,) -> (loss0, loss1, the attention of each caption over
     its own image (B, 17, 17, T)).
 
-    Every caption against every image in one batched attention: pair
-    (i, j) is caption i's words over image j's regions."""
-    b, t, d = words_emb.shape
-    _, _, h, w = img_features.shape
-    words = words_emb.float()
-    pad = (torch.arange(t, device=words.device)[None, :]
-           >= cap_lens.to(words.device)[:, None])                # (B, T)
-    query = words[:, None].expand(b, b, t, d).reshape(b * b, t, d)
-    context = img_features[None].expand(b, b, d, h, w).reshape(
-        b * b, d, h, w)
-    mask = pad[:, None].expand(b, b, t).reshape(b * b, t)
-    wei, attn = func_attention(query, context, gamma1, mask)
-    num = (query * wei).sum(dim=-1)
-    den = (torch.linalg.vector_norm(query, dim=-1)
-           * torch.linalg.vector_norm(wei, dim=-1))
-    row_sim = num / den.clamp(min=EPS)                         # (B*B, T)
-    e = torch.exp(row_sim * gamma2) * (~mask).float()
-    sims = torch.log(e.sum(dim=1).clamp(min=EPS)).reshape(b, b)
-    # sims[i, j]: caption i against image j; the reference's scores are
-    # image-major
-    scores = _masked(sims.t() * gamma3, class_ids)
-    loss0, loss1 = _ce_both_ways(scores)
-    own = attn.reshape(b, b, h, w, t)[torch.arange(b), torch.arange(b)]
+    Under a process group, the rank's captions attend over every rank's
+    images, the (B, B) similarities are gathered, and the losses are the
+    rank's share: the cross-entropy rows of its images and of its
+    captions (module docstring)."""
+    b = words_emb.shape[0]
+    if world_size() == 1:
+        sims, attn = _caption_image_sims(words_emb.float(), cap_lens,
+                                         img_features, gamma1, gamma2)
+        # sims[i, j]: caption i against image j; the reference's scores
+        # are image-major
+        loss0, loss1 = _ce_both_ways(_masked(sims.t() * gamma3, class_ids))
+        return loss0, loss1, attn[torch.arange(b), torch.arange(b)]
+    sims, attn = _caption_image_sims(
+        words_emb.float(), cap_lens, mesh.gather_rows(img_features), gamma1,
+        gamma2)
+    rows = mesh.rank_rows(sims.shape[1])
+    sims_all = mesh.gather_rows(sims)                      # (B, B)
+    loss0 = _ce_rows(sims_all.t()[rows] * gamma3, class_ids)
+    loss1 = _ce_rows(sims * gamma3, class_ids)
+    own = attn[torch.arange(b), torch.arange(rows.start, rows.stop)]
     return loss0, loss1, own

@@ -10,10 +10,14 @@ D forwards, and the wrong pairs (real features [:-1] against conditions
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def _whole(loss: torch.Tensor) -> torch.Tensor:
+    return loss
 
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -27,16 +31,20 @@ def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
 def discriminator_loss(real_logits: torch.Tensor, wrong_logits: torch.Tensor,
                        fake_logits: torch.Tensor,
                        uncond_real_logits: Optional[torch.Tensor] = None,
-                       uncond_fake_logits: Optional[torch.Tensor] = None):
+                       uncond_fake_logits: Optional[torch.Tensor] = None,
+                       share: Callable = _whole, wrong_share: Callable = _whole):
     """Matching-aware D loss: real + (fake + wrong) / 2, or with the
     unconditional head (real + u_real) / 2 + (fake + wrong + u_fake) / 3.
-    Returns (errD, dict of its parts)."""
-    err_real = bce_with_logits(real_logits, 1.0)
-    err_wrong = bce_with_logits(wrong_logits, 0.0)
-    err_fake = bce_with_logits(fake_logits, 0.0)
+    ``share`` and ``wrong_share`` turn a term's mean into a rank's share of
+    the global mean (``parallel/mesh.py:share``): the wrong pair's, over
+    B - 1 rows, and every other term's. Returns (errD, dict of its parts).
+    """
+    err_real = share(bce_with_logits(real_logits, 1.0))
+    err_wrong = wrong_share(bce_with_logits(wrong_logits, 0.0))
+    err_fake = share(bce_with_logits(fake_logits, 0.0))
     if uncond_real_logits is not None:
-        u_real = bce_with_logits(uncond_real_logits, 1.0)
-        u_fake = bce_with_logits(uncond_fake_logits, 0.0)
+        u_real = share(bce_with_logits(uncond_real_logits, 1.0))
+        u_fake = share(bce_with_logits(uncond_fake_logits, 0.0))
         err_d = (err_real + u_real) / 2.0 + (err_fake + err_wrong + u_fake) / 3.0
         parts = {"d_loss_real": (err_real + u_real) / 2.0,
                  "d_loss_wrong": err_wrong,

@@ -42,7 +42,11 @@ embedding's and the init stage's fc are plain ``nn.Dense`` in the JAX
 package and the word attention is float32, so they run in float32 here
 too; their inputs are promoted to float32 as JAX promotes them, and a
 stage's residual stream, which adds a float32 context, is float32 between
-its ResBlocks.
+its ResBlocks. ``bn_groups`` (the JAX package's ``set_bn_groups``, whose
+knob reaches every ``TorchBatchNorm`` of G and the Ds) sets the statistic
+groups of every BatchNorm of G and of each D (``nn/blocks.py:
+set_bn_groups``); the DAMSM encoders keep theirs, as they run in eval
+mode.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from multiple_objects_gan_tpu_torch.nn.attention import GlobalAttention
 from multiple_objects_gan_tpu_torch.nn.blocks import (
     GLU, BatchNorm1d, BatchNorm2d, Block3x3LeakReLU, Conv2d, Conv3x3,
     DownBlock, EncodeImageBy16Times, Linear, ObjectBatchNorm2d, ResBlockGLU,
-    UpBlockGLU)
+    UpBlockGLU, set_bn_groups)
 from multiple_objects_gan_tpu_torch.nn.pathways import (
     CANet, LabelEmbed, LayoutEncoder, ObjectPathwayD, object_pathway_g)
 
@@ -78,6 +82,8 @@ class AttnGanConfig:
     b_dcgan: bool = False
     # the JAX package's COMPUTE_DTYPE knob, as in Stage1Config
     compute_dtype: Optional[torch.dtype] = None
+    # the JAX package's BN_GROUPS knob: every BatchNorm of G and the Ds
+    bn_groups: int = 1
 
     @property
     def ngf(self) -> int:
@@ -199,6 +205,7 @@ class GNet(nn.Module):
         for i in range(2, cfg.branch_num + 1):
             setattr(self, f"h_net{i}", NextStageG(cfg))
             setattr(self, f"img_net{i}", GetImageG(cfg.gf_dim, dt))
+        set_bn_groups(self, cfg.bn_groups)
 
     def outputs(self, z, sent_emb, word_embs, mask, bbox, label_onehot,
                 eps: Optional[torch.Tensor] = None) -> AttnGanGOutput:
@@ -259,6 +266,7 @@ class _AttnD(nn.Module):
                                         dt)
         self.UNCOND_DNET = AttnDGetLogits(cfg.df_dim, cfg.embedding_dim,
                                           False, dt)
+        set_bn_groups(self, cfg.bn_groups)     # the D's last modules
 
     def cond_logits(self, h_code: torch.Tensor,
                     c_code: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,17 @@ here, carried from the model config:
   ``groups`` GPUs gives them; the running statistics take chunk 0's update
   only, as the master replica's buffers are the module's.
 
+Under a process group of more than one rank (``parallel/``), train-mode
+statistics are those of the global batch, as XLA's sync-BN computes them
+over a sharded batch: each rank's count, mean and sum of squared
+deviations, gathered with autograd and combined (Chan et al.), so that
+local counts may differ (the wrong pair's last rank holds one row fewer)
+and no E[x^2] - E[x]^2 loses digits across ranks. ``groups`` G then
+counts the global batch's chunks: each rank normalizes its G / world
+chunks, the running buffers take global chunk 0's update (rank 0's) and
+are broadcast from rank 0; a G that the world size does not divide is
+refused. At world size 1 the code path is the one described above.
+
 BatchNorm on bf16 input follows the JAX ``TorchBatchNorm``
 (nn/blocks.py:213-226): statistics in float32 with var = E[x^2] - E[x]^2,
 the normalize in bf16 with the float32 per-channel terms cast down; in eval
@@ -42,6 +53,9 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import world_size
 
 
 class Conv2d(nn.Conv2d):
@@ -119,6 +133,42 @@ def _stats(x: torch.Tensor, dims: tuple[int, ...]):
     return sq - mean.square(), mean
 
 
+def _synced_stats(x: torch.Tensor, dims: tuple[int, ...]):
+    """(biased var, mean, count) over ``dims`` of the global batch: this
+    rank's :func:`_stats` and count gathered with every rank's (autograd
+    through the gather) and combined by Chan et al.'s pairwise rule. A
+    rank with no rows adds nothing."""
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    if n:
+        var, mean = _stats(x, dims)
+    else:
+        shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
+        var = mean = x.new_zeros(shape, dtype=torch.float32 if _bf16(x)
+                                 else x.dtype)
+    local = torch.stack([torch.full_like(mean, float(n)), mean, var * n])
+    counts, means, m2s = mesh.all_gather(local).unbind(1)
+    total = counts.sum(0)
+    mean_g = (counts * means).sum(0) / total
+    m2 = m2s.sum(0) + (counts * (means - mean_g).square()).sum(0)
+    return m2 / total, mean_g, total
+
+
+def _local_groups(groups: int) -> int:
+    """A rank's share of ``groups`` global BatchNorm chunks (one group is
+    the global batch's statistics, whatever the world size)."""
+    world = world_size()
+    if groups == 1:
+        return 1
+    if groups % world:
+        raise ValueError(
+            f"BatchNorm groups {groups} over {world} processes: the groups "
+            "must be a multiple of the world size (each rank normalizes "
+            "whole chunks of the global batch)")
+    return groups // world
+
+
 class _GroupedBatchNorm:
     """The train and eval forward shared by :class:`BatchNorm1d` and
     :class:`BatchNorm2d`: torch's own for float32 with one group, else the
@@ -128,7 +178,9 @@ class _GroupedBatchNorm:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
-        if not _bf16(x) and (self.groups == 1 or not self.training):
+        world = world_size() if self.training else 1
+        if not _bf16(x) and world == 1 and (self.groups == 1
+                                            or not self.training):
             return super().forward(x)
         nd = x.dim()
         w, b = _channel(self.weight, nd), _channel(self.bias, nd)
@@ -137,19 +189,37 @@ class _GroupedBatchNorm:
                            _channel(self.running_var, nd), w, b, self.eps)
             return y.to(x.dtype)
         dims = (0,) + tuple(range(2, nd))
+        if world > 1 and self.groups == 1:
+            var, mean, n = _synced_stats(x, dims)
+            self._update_running(mean.flatten(), var.flatten(), n.flatten())
+            return _normalize(x, mean, var, w, b, self.eps)
         outs, first = [], None
-        for chunk in torch.chunk(x, self.groups, dim=0):
+        for chunk in torch.chunk(x, _local_groups(self.groups), dim=0):
             var, mean = _stats(chunk, dims)
             outs.append(_normalize(chunk, mean, var, w, b, self.eps))
             if first is None:
                 first = (mean, var, chunk.numel() // chunk.shape[1])
         mean, var, n = first
+        self._update_running(mean.flatten(), var.flatten(), n)
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def _update_running(self, mean, var, n) -> None:
+        """One running-statistic update from a batch of ``n`` values a
+        channel (unbiased variance); with groups under a process group,
+        rank 0's chunk 0 gives it and the replicas take rank 0's
+        buffers."""
         with torch.no_grad():
-            self.running_mean.lerp_(mean.flatten(), self.momentum)
-            self.running_var.lerp_(var.flatten() * (n / max(n - 1, 1)),
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * (n / _at_least_one(n - 1)),
                                    self.momentum)
             self.num_batches_tracked.add_(1)
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+            if self.groups > 1:
+                mesh.broadcast_([self.running_mean, self.running_var])
+
+
+def _at_least_one(n):
+    """max(n, 1) for an int or a tensor of counts."""
+    return n.clamp(min=1) if isinstance(n, torch.Tensor) else max(n, 1)
 
 
 class BatchNorm1d(_GroupedBatchNorm, nn.BatchNorm1d):
@@ -168,6 +238,18 @@ class BatchNorm2d(_GroupedBatchNorm, nn.BatchNorm2d):
     def __init__(self, num_features: int, groups: int = 1, **kwargs):
         super().__init__(num_features, **kwargs)
         self.groups = _check_groups(groups)
+
+
+def set_bn_groups(module: nn.Module, groups: int) -> nn.Module:
+    """Every BatchNorm of ``module`` (:class:`BatchNorm1d`,
+    :class:`BatchNorm2d` and the object pathways') takes ``groups``, as
+    the JAX package's ``set_bn_groups`` reaches every ``TorchBatchNorm``.
+    Returns ``module``."""
+    groups = _check_groups(groups)
+    for m in module.modules():
+        if isinstance(m, _GroupedBatchNorm):
+            m.groups = groups
+    return module
 
 
 def _check_groups(groups: int) -> int:
@@ -192,8 +274,10 @@ class _ObjectBatchNorm:
     variance. With ``groups`` > 1 each contiguous chunk of the B axis runs
     its own loop over objects, as each DataParallel replica does, and the
     running buffers take chunk 0's; ``groups`` must divide B, as the JAX
-    package requires (object pathways always see the full batch). Eval
-    mode is the plain BatchNorm's. The state-dict keys are BatchNorm's.
+    package requires (object pathways always see the full batch). Under a
+    process group the per-object statistics are the global batch's, as the
+    module docstring says of the plain BatchNorm. Eval mode is the plain
+    BatchNorm's. The state-dict keys are BatchNorm's.
     """
 
     groups: int
@@ -206,7 +290,8 @@ class _ObjectBatchNorm:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        o, g = self.n_objects, self.groups
+        o, world = self.n_objects, world_size()
+        g = _local_groups(self.groups)
         bo, c = x.shape[:2]
         if bo % o:
             raise ValueError(f"{o} objects do not divide the folded batch "
@@ -219,17 +304,23 @@ class _ObjectBatchNorm:
         spatial = x.shape[2:]
         xg = x.reshape((g, b // g, o, c) + spatial)
         dims = (1,) + tuple(range(4, xg.dim()))
-        var, mean = _stats(xg, dims)              # (G, 1, O, C, 1...)
+        n = (b // g) * spatial.numel()
+        if world > 1 and self.groups == 1:
+            var, mean, n = _synced_stats(xg, dims)   # per object, global
+            n = n[0].view(o, c)
+        else:
+            var, mean = _stats(xg, dims)              # (G, 1, O, C, 1...)
         per_channel = (1, 1, 1, c) + (1,) * len(spatial)
         y = _normalize(xg, mean, var, self.weight.view(per_channel),
                        self.bias.view(per_channel), self.eps)
-        n = (b // g) * spatial.numel()
         with torch.no_grad():
-            unbiased = var[0].view(o, c) * (n / max(n - 1, 1))
+            unbiased = var[0].view(o, c) * (n / _at_least_one(n - 1))
             for i in range(o):
                 self.running_mean.lerp_(mean[0].view(o, c)[i], self.momentum)
                 self.running_var.lerp_(unbiased[i], self.momentum)
             self.num_batches_tracked.add_(o)
+            if self.groups > 1:
+                mesh.broadcast_([self.running_mean, self.running_var])
         return y.reshape(x.shape)
 
 

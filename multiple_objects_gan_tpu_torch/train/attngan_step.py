@@ -31,7 +31,13 @@ denominator p (1 - p) at 1e-12, which the JAX step emulates
 from the caller's generator in that order, or passed in (the tests replay
 the JAX step's draws). ``class_ids`` feeds the DAMSM class mask. The
 learning rates are set on every call; the AttnGAN runner never decays them.
-Under a bf16 compute dtype the modules compute in bf16; the losses, the
+Under a process group of more than one rank the step is the stage-1
+step's over the ranks (``train/step.py``): sync-BN, the wrong pair across
+the rank boundary, each loss term the rank's share of the global mean,
+the DAMSM scores over the global batch (``losses/damsm.py``), the
+gradients of each D and of G summed before their Adam steps, the noise
+drawn for the global batch and sliced; the EMA and the Adams stay
+replicated. Under a bf16 compute dtype the modules compute in bf16; the losses, the
 parameters, their gradients, the Adam states, the EMA and the BatchNorm
 running statistics stay float32.
 """
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 from multiple_objects_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from multiple_objects_gan_tpu_torch.losses.gan import kl_loss
 from multiple_objects_gan_tpu_torch.models.attngan import AttnGanConfig
+from multiple_objects_gan_tpu_torch.parallel import mesh
 from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, set_lr)
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
@@ -54,11 +61,14 @@ SMOOTH = {"GAMMA1": 4.0, "GAMMA2": 5.0, "GAMMA3": 10.0, "LAMBDA": 50.0}
 EMA_DECAY = 0.999
 
 
-def bce_probs(p: torch.Tensor, target: float) -> torch.Tensor:
+def bce_probs(p: torch.Tensor, target: float, total: int = 0
+              ) -> torch.Tensor:
     """torch BCELoss of probabilities ``p`` against a constant target, in
-    float32."""
+    float32; with ``total`` the global rows of ``p``, this rank's share
+    of the global mean (``parallel/mesh.py:share``)."""
     p = p.float()
-    return F.binary_cross_entropy(p, torch.full_like(p, target))
+    loss = F.binary_cross_entropy(p, torch.full_like(p, target))
+    return mesh.share(loss, p.shape[0], total or p.shape[0])
 
 
 def d_loss_one_scale(d: torch.nn.Module, real: torch.Tensor,
@@ -67,18 +77,19 @@ def d_loss_one_scale(d: torch.nn.Module, real: torch.Tensor,
                      ) -> torch.Tensor:
     """One D's loss (miscc/losses.py:136-174; JAX ``_d_loss_one_scale``):
     (real + u_real) / 2 + (fake + wrong + u_fake) / 3, with its forwards
-    in the reference's order. ``fake`` is detached here."""
-    b = real.shape[0]
+    in the reference's order. ``fake`` is detached here. Under a process
+    group, the rank's share, the wrong pair across the rank boundary."""
+    n = mesh.global_rows(real.shape[0])
     feat_real = d(real, labels, bbox)
     feat_fake = d(fake.detach(), labels, bbox)
     p_real = d.cond_logits(feat_real, cond)
     p_fake = d.cond_logits(feat_fake, cond)
-    p_wrong = d.cond_logits(feat_real[:b - 1], cond[1:])
+    p_wrong = d.cond_logits(*mesh.shifted_pair(feat_real, cond))
     pu_real = d.uncond_logits(feat_real)
     pu_fake = d.uncond_logits(feat_fake)
-    return ((bce_probs(p_real, 1.0) + bce_probs(pu_real, 1.0)) / 2.0
-            + (bce_probs(p_fake, 0.0) + bce_probs(p_wrong, 0.0)
-               + bce_probs(pu_fake, 0.0)) / 3.0)
+    return ((bce_probs(p_real, 1.0, n) + bce_probs(pu_real, 1.0, n)) / 2.0
+            + (bce_probs(p_fake, 0.0, n) + bce_probs(p_wrong, 0.0, n - 1)
+               + bce_probs(pu_fake, 0.0, n)) / 3.0)
 
 
 def update_ema(state: AttnGanTrainState) -> None:
@@ -125,11 +136,12 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
         labels, bbox = batch["label_onehot"], batch["bbox"]
         class_ids = batch.get("class_ids")
         b, dev = captions.shape[0], captions.device
+        n = mesh.global_rows(b)
         if z is None:
-            z = torch.randn((b, cfg.z_dim), generator=generator, device=dev)
+            z = mesh.draw(torch.randn, (b, cfg.z_dim), generator, dev)
         if eps is None:
-            eps = torch.randn((b, cfg.condition_dim), generator=generator,
-                              device=dev)
+            eps = mesh.draw(torch.randn, (b, cfg.condition_dim), generator,
+                            dev)
         with torch.no_grad():
             words, sent = text_encoder(captions, cap_lens)
         mask = captions == 0
@@ -144,14 +156,15 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
             set_lr(opt, lr_d)
             opt.zero_grad(set_to_none=True)
             err.backward()
+            mesh.all_reduce_grads(d.parameters())
             opt.step()
             metrics[f"d_loss_{name}"] = err
 
         total = 0.0
         for i, (name, d) in enumerate(state.ds.items()):
             feat = d(out.imgs[i], labels, bbox)
-            g_i = (bce_probs(d.cond_logits(feat, sent), 1.0)
-                   + bce_probs(d.uncond_logits(feat), 1.0))
+            g_i = (bce_probs(d.cond_logits(feat, sent), 1.0, n)
+                   + bce_probs(d.uncond_logits(feat), 1.0, n))
             metrics[f"g_loss_{name}"] = g_i
             total = total + g_i
         region, code = image_encoder(out.imgs[-1])
@@ -160,18 +173,20 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
         s0, s1 = sent_loss(code, sent, class_ids, sm["GAMMA3"])
         w_loss = (w0 + w1) * sm["LAMBDA"]
         s_loss = (s0 + s1) * sm["LAMBDA"]
-        kl = kl_loss(out.mu, out.logvar)
+        kl = mesh.share(kl_loss(out.mu, out.logvar), b, n)
         total = total + w_loss + s_loss + kl
         params = [p for p in g.parameters() if p.requires_grad]
         grads = torch.autograd.grad(total, params)
         for p, grad in zip(params, grads):
             p.grad = grad
+        mesh.all_reduce_grads(params)
         set_lr(state.g_opt, lr_g)
         state.g_opt.step()
         update_ema(state)
         state.step += 1
         metrics.update(w_loss=w_loss, s_loss=s_loss, kl_loss=kl,
                        g_loss_total=total)
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})
 
     return train_step

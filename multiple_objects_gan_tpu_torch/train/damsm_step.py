@@ -17,6 +17,13 @@ losses the AttnGAN generator later consumes (``losses/damsm.py``):
   scales by clip / (norm + 1e-6), another number, so it is not used. The
   metrics report the norm before the clip as ``rnn_grad_norm``.
 
+Under a process group of more than one rank each rank holds its slice of
+the global batch: the losses are the global batch's (``losses/damsm.py``),
+each rank's its share, the gradients are summed over the ranks before the
+clip, so the clip's norm is that of the global gradient, the dropout mask
+is drawn for the global batch and sliced, and the metrics are summed over
+the ranks (``rnn_grad_norm``, the same on every rank, is not).
+
 The backbone runs in ``eval()`` mode, on its running statistics, as the
 JAX package runs it (``damsm_step.py:22-25``: a frozen feature extractor
 whose batch statistics would only make its features drift between train
@@ -37,6 +44,9 @@ from typing import Callable, Optional
 import torch
 
 from multiple_objects_gan_tpu_torch.losses.damsm import sent_loss, words_loss
+from multiple_objects_gan_tpu_torch.nn.encoders import DROP_PROB
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import world_size
 from multiple_objects_gan_tpu_torch.train.state import (
     DamsmTrainState, set_lr)
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
@@ -92,9 +102,17 @@ def make_damsm_train_step(smooth: Optional[dict] = None,
                    keep: Optional[torch.Tensor] = None) -> dict:
         state.text.train()
         state.image.eval()
+        if keep is None and world_size() > 1:
+            captions = batch["captions"]
+            keep = mesh.draw(
+                torch.rand, tuple(captions.shape)
+                + (state.text.encoder.embedding_dim,), generator,
+                captions.device) < 1.0 - DROP_PROB
         metrics = damsm_losses(state, batch, sm, keep, generator)
         state.opt.zero_grad(set_to_none=True)
         metrics["damsm_loss"].backward()
+        mesh.all_reduce_grads(p for group in state.opt.param_groups
+                              for p in group["params"])
         grads = [p.grad for p in state.text.parameters()]
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -106,7 +124,8 @@ def make_damsm_train_step(smooth: Optional[dict] = None,
         state.opt.step()
         state.step += 1
         metrics["rnn_grad_norm"] = norm
-        return {k: v.detach() for k, v in metrics.items()}
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                   replicated=("rnn_grad_norm",))
 
     return train_step
 
@@ -123,7 +142,8 @@ def make_damsm_eval_fn(smooth: Optional[dict] = None) -> Callable:
         state.text.eval()
         state.image.eval()
         with torch.no_grad():
-            return {k: v.float()
-                    for k, v in damsm_losses(state, batch, sm).items()}
+            return mesh.reduce_metrics(
+                {k: v.float()
+                 for k, v in damsm_losses(state, batch, sm).items()})
 
     return eval_fn

@@ -20,6 +20,15 @@ Parity target: GANTrainer.train (code/multi-mnist/trainer.py:75-206):
   2-5 of the first epoch (JAX ``train/loop.py:84-112``): CPU activity, and
   CUDA's on the card, written there as a Chrome trace.
 
+Under a process group (``parallel/``) every rank runs the same steps on
+its shard of the data; rank 0 owns the scalar log and the epoch lines (the
+step's losses are already summed over the ranks), writes the checkpoints
+(every rank gives its reader's draws to them: :func:`data_rng_extra`) and
+alone takes a ``--profile`` trace. The image hooks (epoch grids, montages)
+run only in a single-process run, as in the JAX loop (``train/loop.py:
+68-69``): a multi-process run renders its grids offline from the
+checkpoints.
+
 Batches come from a loader (``data/datasets.py``: ``Loader`` for the sets
 on disk, ``MemoryLoader`` for a set held on the device). A batch of numpy
 arrays is copied to the device from pinned memory as uint8 and normalised
@@ -40,6 +49,9 @@ from multiple_objects_gan_tpu_torch.config.config import train_settings
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import warm_start
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
+from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    is_main_process, rank, world_size)
 from multiple_objects_gan_tpu_torch.train.state import (
     GANTrainState, create_state)
 from multiple_objects_gan_tpu_torch.train.step import (
@@ -94,6 +106,7 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
         raise ValueError(f"the loader makes no batch of {loader.bs}: no "
                          "training would run")
     device = state_device(state)
+    main = is_main_process()
     history = []
     prof = None
     for epoch in range(start_epoch, n_epochs):
@@ -107,13 +120,14 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
         last_batch, n_steps = None, 0
         for i, batch in enumerate(loader.epoch(epoch)):
             batch = to_device(batch, device)
-            if profile_dir and epoch == start_epoch and i == PROFILE_STEPS[0]:
+            if (profile_dir and main and epoch == start_epoch
+                    and i == PROFILE_STEPS[0]):
                 prof = _start_trace(device)
             step = state.step
             metrics = step_fn(state, batch, generator, lr_g_e, lr_d_e)
             if prof is not None and i == PROFILE_STEPS[1]:
                 prof = _stop_trace(prof, device, profile_dir)
-            if writer is not None and i % LOG_EVERY == 0:
+            if writer is not None and main and i % LOG_EVERY == 0:
                 writer.scalars(step, {k: float(v)
                                       for k, v in metrics.items()})
             if step_hook is not None:
@@ -127,18 +141,25 @@ def run_epochs(state: GANTrainState, loader, step_fn: Callable,
         means["steps"] = n_steps
         means["seconds"] = time.perf_counter() - t0
         history.append(means)
-        print(f"[{epoch}/{n_epochs}] "
-              + " ".join(f"{k}={means[k]:.4f}" for k in sorted(sums))
-              + f" lr_g={lr_g_e:g} lr_d={lr_d_e:g} steps={n_steps}"
-              f" time={means['seconds']:.1f}s", flush=True)
+        if main:
+            print(f"[{epoch}/{n_epochs}] "
+                  + " ".join(f"{k}={means[k]:.4f}" for k in sorted(sums))
+                  + f" lr_g={lr_g_e:g} lr_d={lr_d_e:g} steps={n_steps}"
+                  f" time={means['seconds']:.1f}s", flush=True)
         if epoch_end_fn is not None:
             epoch_end_fn(state, last_batch, epoch)
         if ckpt is not None and snapshot_every and (
                 (epoch + 1) % snapshot_every == 0 or epoch == n_epochs - 1):
-            ckpt.save(epoch, state, generator,
+            ckpt.save(epoch, state, generator,     # every rank takes part
                       None if checkpoint_extra is None
                       else checkpoint_extra())
     return history
+
+
+def single_process(hook: Optional[Callable]) -> Optional[Callable]:
+    """An image hook for :func:`run_epochs`: itself in a single-process
+    run, None under a process group of more ranks (module docstring)."""
+    return hook if world_size() == 1 else None
 
 
 def _start_trace(device: torch.device):
@@ -181,21 +202,46 @@ def grid_noise(seed: int, epoch: int, b: int, z_dim: int,
     return torch.from_numpy(z.astype(np.float32)).to(device)
 
 
+def rng_extra(**sets) -> dict:
+    """A checkpoint's ``extra`` for readers that carry their draws'
+    ``RandomState`` (the COCO readers' ``rng_state``), keyed as given:
+    each key holds this rank's state (rank 0's where rank 0 writes), and,
+    under a process group, ``<key>_ranks`` every rank's, so that each rank
+    of a resumed run draws what it would have drawn. Every rank calls it.
+    """
+    out = {}
+    for key, ds in sets.items():
+        out[key] = ds.rng_state()
+        if world_size() > 1:
+            out[f"{key}_ranks"] = mesh.gather_objects(out[key])
+    return out
+
+
+def restore_rng(ds, extra: dict, key: str) -> None:
+    """Put this rank's state of ``extra[key]`` (:func:`rng_extra`) back
+    into ``ds``: its own from ``<key>_ranks`` when the checkpoint has one
+    a rank, else the one ``key`` holds."""
+    ranks = extra.get(f"{key}_ranks")
+    ds.set_rng_state(ranks[rank()] if ranks and len(ranks) == world_size()
+                     else extra[key])
+
+
 def data_rng_extra(loader):
     """``run_epochs``'s ``checkpoint_extra`` for a loader whose set carries
-    its draws' ``RandomState`` (the COCO readers' ``rng_state``), so that a
-    resumed run draws what an uninterrupted one draws; None otherwise."""
+    its draws' ``RandomState`` (:func:`rng_extra` under ``data_rng``), so
+    that a resumed run draws what an uninterrupted one draws; None
+    otherwise."""
     ds = getattr(loader, "ds", None)
     if not hasattr(ds, "rng_state"):
         return None
-    return lambda: {"data_rng": ds.rng_state()}
+    return lambda: rng_extra(data_rng=ds)
 
 
 def restore_data_rng(loader, extra: dict) -> None:
     """Put a checkpoint's ``data_rng`` (:func:`data_rng_extra`) back."""
     ds = getattr(loader, "ds", None)
     if extra and "data_rng" in extra and hasattr(ds, "set_rng_state"):
-        ds.set_rng_state(extra["data_rng"])
+        restore_rng(ds, extra, "data_rng")
 
 
 def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
@@ -206,8 +252,9 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
     """The whole stage-1 run of JAX ``train/loop.py:train``: the state from
     the seed, warm-started from cfg ``NET_G``/``NET_D`` ``.pth`` files,
     then restored from ``resume_dir``'s latest checkpoint when there is one
-    (training continues at the epoch after it); logs, grids and checkpoints
-    under ``output_dir``; a torch.profiler trace into ``profile_dir`` when
+    (training continues at the epoch after it), and replicated from rank
+    0 under a process group; logs, grids and checkpoints under
+    ``output_dir``; a torch.profiler trace into ``profile_dir`` when
     given. Returns the final state and the per-epoch history."""
     device = torch.device(device)
     os.makedirs(output_dir, exist_ok=True)
@@ -226,6 +273,7 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
             start_epoch = epoch + 1
             print(f"resumed from {resume_dir} at epoch {start_epoch}",
                   flush=True)
+    mesh.replicate_state(state)
     n_epochs = settings.max_epoch if max_epochs is None else int(max_epochs)
     sample = make_sample_fn(mcfg)
 
@@ -250,7 +298,7 @@ def train(cfg, mcfg: Stage1Config, loader, output_dir: str, *, device,
             start_epoch=start_epoch, lr_decay_epochs=settings.lr_decay_epoch,
             snapshot_every=int(cfg.TRAIN.SNAPSHOT_INTERVAL),
             ckpt=CheckpointManager(os.path.join(output_dir, "models")),
-            writer=writer, epoch_end_fn=epoch_grids,
+            writer=writer, epoch_end_fn=single_process(epoch_grids),
             checkpoint_extra=data_rng_extra(loader),
             profile_dir=profile_dir)
     finally:

@@ -19,14 +19,25 @@ The D condition is the label sum for mnist (miscc/utils.py:78), clamped at
 D and the G loss (JAX ``train/step.py:91-99``); under the CA net the G loss
 adds ``kl_coeff`` times the KL of (mu, logvar) (JAX ``train/step.py:230-
 233``), reported as ``kl_loss``. Noise is drawn from the caller's
-``torch.Generator`` on the device, or passed in: ``z``, and the CA net's
-``eps`` (the tests replay the JAX step's z and ``rng_ca`` draws). There is
+``torch.Generator`` on the device, or passed in (the rank's rows): ``z``,
+and the CA net's ``eps`` (the tests replay the JAX step's z and ``rng_ca``
+draws). There is
 one G forward a step.
 
 Stage 2 shares the D-then-G core (:func:`_alternating_step`, the JAX
 ``_fused_alternating_step``): the frozen stage-1 G makes a 64px image, the
 stage-2 G refines it to 256px, and D works on 256px with the stage-2 boxes
 (:func:`make_stage2_train_step`).
+
+Under a process group of more than one rank (``parallel/``) each rank
+holds its contiguous slice of the global batch and the step keeps JAX's
+semantics of one global batch: BatchNorm statistics over the global batch
+(``nn/blocks.py``), the wrong pair across the rank boundary
+(``parallel/mesh.py:shifted_pair``), every loss term a rank's share of
+the global mean (a local sum over the global count: B, or B - 1 for the
+wrong pair), the gradients summed over the ranks before each Adam step,
+the noise drawn for the global batch and sliced, and the losses returned
+summed over the ranks. At world size 1 none of this runs.
 
 Under a bf16 compute dtype (``Stage1Config.compute_dtype``) the modules
 compute in bf16 and the step does not change: the losses take the logits
@@ -45,6 +56,7 @@ from multiple_objects_gan_tpu_torch.losses.gan import (
     discriminator_loss, generator_adv_loss, kl_loss)
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import Stage1G
+from multiple_objects_gan_tpu_torch.parallel import mesh
 from multiple_objects_gan_tpu_torch.train.state import GANTrainState, set_lr
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
 
@@ -75,6 +87,7 @@ def _alternating_step(state: GANTrainState, g_fwd: Callable,
     g.train()
     d.train()
     b = image.shape[0]
+    n = mesh.global_rows(b)
     fake, mu, logvar = g_fwd(g)
     cond = cond_fn(mu)
 
@@ -82,32 +95,38 @@ def _alternating_step(state: GANTrainState, g_fwd: Callable,
     feat_real = d(image, *d_args)
     feat_fake = d(fake.detach(), *d_args)
     real_logits = d.cond_logits(feat_real, cond)
-    wrong_logits = d.cond_logits(feat_real[:b - 1], cond[1:])
+    feat_wrong, cond_wrong = mesh.shifted_pair(feat_real, cond)
+    wrong_logits = d.cond_logits(feat_wrong, cond_wrong)
     fake_logits = d.cond_logits(feat_fake, cond)
     u_real = u_fake = None
     if use_uncond:
         u_real = d.uncond_logits(feat_real)
         u_fake = d.uncond_logits(feat_fake)
-    err_d, d_parts = discriminator_loss(real_logits, wrong_logits,
-                                        fake_logits, u_real, u_fake)
+    err_d, d_parts = discriminator_loss(
+        real_logits, wrong_logits, fake_logits, u_real, u_fake,
+        share=lambda loss: mesh.share(loss, b, n),
+        wrong_share=lambda loss: mesh.share(loss, feat_wrong.shape[0],
+                                            n - 1))
     set_lr(state.d_opt, lr_d)
     state.d_opt.zero_grad(set_to_none=True)
     err_d.backward()
+    mesh.all_reduce_grads(d.parameters())
     state.d_opt.step()
 
     # ---- G update through the updated D
     feat_fake = d(fake, *d_args)
     fake_logits = d.cond_logits(feat_fake, cond)
     u_fake = d.uncond_logits(feat_fake) if use_uncond else None
-    err_g = generator_adv_loss(fake_logits, u_fake)
+    err_g = mesh.share(generator_adv_loss(fake_logits, u_fake), b, n)
     total = err_g
     if kl_coeff is not None:
-        kl = kl_loss(mu, logvar)
+        kl = mesh.share(kl_loss(mu, logvar), b, n)
         total = err_g + kl * kl_coeff
     params = [p for p in g.parameters() if p.requires_grad]
     grads = torch.autograd.grad(total, params, allow_unused=True)
     for p, grad in zip(params, grads):
         p.grad = grad      # None for the reference's unused label module
+    mesh.all_reduce_grads(params)
     set_lr(state.g_opt, lr_g)
     state.g_opt.step()
     state.step += 1
@@ -116,7 +135,7 @@ def _alternating_step(state: GANTrainState, g_fwd: Callable,
                "g_loss_total": total}
     if kl_coeff is not None:
         metrics["kl_loss"] = kl
-    return {k: v.detach() for k, v in metrics.items()}
+    return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
 
 def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
@@ -140,11 +159,11 @@ def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
         text = batch.get("text_embedding")
         b = image.shape[0]
         if z is None:
-            z = torch.randn((b, cfg.z_dim), generator=generator,
-                            device=image.device)
+            z = mesh.draw(torch.randn, (b, cfg.z_dim), generator,
+                          image.device)
         if cfg.use_ca and eps is None:
-            eps = torch.randn((b, cfg.condition_dim), generator=generator,
-                              device=image.device)
+            eps = mesh.draw(torch.randn, (b, cfg.condition_dim), generator,
+                            image.device)
         return _alternating_step(
             state,
             lambda g: g.outputs(z, bbox, labels, text,
@@ -199,14 +218,13 @@ def make_stage2_train_step(s2_cfg: Stage1Config, s1_cfg: Stage1Config,
         bbox_s1, bbox_s2 = batch["bbox"], batch["bbox_s2"]
         b, dev = image.shape[0], image.device
         if z is None:
-            z = torch.randn((b, s1_cfg.z_dim), generator=generator,
-                            device=dev)
+            z = mesh.draw(torch.randn, (b, s1_cfg.z_dim), generator, dev)
         if eps1 is None:
-            eps1 = torch.randn((b, s1_cfg.condition_dim),
-                               generator=generator, device=dev)
+            eps1 = mesh.draw(torch.randn, (b, s1_cfg.condition_dim),
+                             generator, dev)
         if eps2 is None:
-            eps2 = torch.randn((b, s2_cfg.condition_dim),
-                               generator=generator, device=dev)
+            eps2 = mesh.draw(torch.randn, (b, s2_cfg.condition_dim),
+                             generator, dev)
         stage1_img = frozen_forward(g1, z, bbox_s1, labels, text, eps1)
         return _alternating_step(
             state,

@@ -326,7 +326,9 @@ def test_serve_turns_tf32_off_for_any_float32_card_service(monkeypatch,
 
 def test_attngan_config_matches_jax(setup):
     """The coco-attngan default tree, and the model config a cfg gives,
-    against the JAX package's tree and build_all's."""
+    against the JAX package's tree and build_all's; the port's config also
+    carries the JAX package's global knobs, the compute dtype and the
+    BatchNorm groups, here at their defaults."""
     assert default_config("coco-attngan") == jdefault_config("coco-attngan")
     for path in (setup["yml"], "cfg/coco_attn_eval.yml",
                  "cfg/coco_attn_train.yml"):
@@ -334,6 +336,7 @@ def test_attngan_config_matches_jax(setup):
         theirs = build_all(jcfg_from_file(path, "coco-attngan"), 10)[0]
         got = dataclasses.asdict(mine)
         assert got.pop("compute_dtype") is None
+        assert got.pop("bn_groups") == 1
         assert got == dataclasses.asdict(theirs), path
     assert attngan_model_config(cfg_from_file(
         "cfg/coco_attn_train.yml", "coco-attngan")).ngf == 768
