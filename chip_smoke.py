@@ -22,7 +22,9 @@ AttnGAN's sampling dump with FID and IS, the layout-fidelity tool and a
 --profile trace, and 47-49 scale out: the train entry as world size 1
 over NCCL, the mnist, AttnGAN and DAMSM steps as two processes of one
 process group (parallel/, tools/dist_steps.py) against one process, and
-AttnGAN's sampling dump sharded over two processes. Every COCO entry reads
+AttnGAN's sampling dump sharded over two processes, and 50 runs the tools:
+validate_learning (whether a run learns), export_checkpoint,
+check_dataset, parity_harness and the general STN. Every COCO entry reads
 its JPEGs from
 disk (nvjpeg on the card). The train entries' data and runs go to a
 temporary directory, removed at the end. Phases, each logged with the
@@ -138,10 +140,10 @@ elapsed time:
                 the device alone beside the bound;
  26. s2step   - one full-width float32 stage-2 step (frozen G1, G2, D2)
                 from the reference init on the card against the same step
-                on the CPU at batch S2_STEP_BATCH: from fresh Adams read
-                against the CPU in float32 and float64, and from warm
-                Adams (an update linear in the gradient) held at phase 8's
-                limits; the frozen G1 bit-identical after every one;
+                on the CPU at batch S2_STEP_BATCH: from fresh Adams read,
+                and from warm Adams (an update linear in the gradient)
+                held at phase 8's limits; the frozen G1 bit-identical
+                after every one;
  27. s2time   - the stage-2 step at batch 40, float32 and bf16: median of
                 CUDA events, images/s, peak memory, K1 and K2 launches a
                 step (5 and 4), the frozen G1's share;
@@ -297,7 +299,26 @@ elapsed time:
                 timed; the same start runs phase 49's dump;
  49. dump2    - phase 45's sampling dump (56 images) as two processes: the
                 same PNG names, pixels within 1 level, FID and IS beside
-                phase 45's, one K1 a batch on each rank.
+                phase 45's, one K1 a batch on each rank;
+ 50. validate - tools/validate_learning.py at its defaults (20 epochs in 2
+                segments, bf16) for mnist (n 5120) and, in a process of
+                its own at the same time, clevr (n 2560),
+                held: the FID trend falls, separation >= 0.15, mnist
+                layout-fidelity recall >= 0.2; mnist's final G exported
+                by tools/export_checkpoint.py and loaded as a strict
+                reference NET_G, its images equal bit for bit to the run's
+                G's; the wiring of coco-stackgan-2 (2 epochs, n 64,
+                --export_pth: the STAGE1_G-embedded .pth loads strictly)
+                and coco-attngan (DAMSM 1 epoch, 2 epochs, n 64, the
+                sampling dump, --export_pth; the Ds exported with --out_d
+                load strictly), every number finite; K1/K2 launches of
+                each train entry and generation; tools/check_dataset.py
+                on the sets written (ok) and on a truncated JPEG and a
+                missing pickle (both named); tools/parity_harness.py on
+                the AttnGAN export (not comparable, FID finite); the
+                general STN on the card against stn_separable and the
+                CPU; K1 at the tool's generation places (32,3,256,16²)
+                and (32,4,192,16²) -> 16², f32 and bf16, held and timed.
 
 After the phases come three lines: {"kernel_details": ...} (every
 kernel reading), {"summary": ...} (under 4 KB: the step medians of every
@@ -313,11 +334,14 @@ from __future__ import annotations
 import argparse
 import base64
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import glob
 import http.client
+import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -333,10 +357,11 @@ import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch import float32_pinned
+from multiple_objects_gan_tpu_torch import ops as port_ops
 from multiple_objects_gan_tpu_torch.cli import attngan_runner
 from multiple_objects_gan_tpu_torch.cli import main as train_main
 from multiple_objects_gan_tpu_torch.cli.sample import (
-    _draw_white_bbox_edges, sample_noise, sample_stage1)
+    _draw_white_bbox_edges, load_generator, sample_noise, sample_stage1)
 from multiple_objects_gan_tpu_torch.cli.serve import (
     Stage1Service, Stage2Service, _item_boxes_s2, _item_layout, _png_b64,
     attngan_images, build_service, parse_args as serve_parse_args, serve)
@@ -364,8 +389,8 @@ from multiple_objects_gan_tpu_torch.data.synthetic import (
     synthetic_multimnist)
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.io.weights import (
-    load_image_encoder, load_reference_attngan_g, load_reference_g,
-    load_text_encoder)
+    load_image_encoder, load_reference_attngan_d, load_reference_attngan_g,
+    load_reference_g, load_text_encoder, split_stage2_g)
 from multiple_objects_gan_tpu_torch.models.attngan import (
     COCO_ATTN, D_NAMES, build_attngan_d, build_attngan_g)
 from multiple_objects_gan_tpu_torch.models.common import MNIST
@@ -380,7 +405,10 @@ from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.tools import (
-    dist_steps, eval_layout_fidelity as layout_tool)
+    check_dataset as check_tool, dist_steps, export_checkpoint as export_tool,
+    parity_harness as parity_tool, validate_learning as vl)
+from multiple_objects_gan_tpu_torch.tools import (
+    eval_layout_fidelity as layout_tool)
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
 from multiple_objects_gan_tpu_torch.train.attngan_step import (
     make_attngan_train_step)
@@ -390,7 +418,7 @@ from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, create_damsm_state, create_state, create_state_stage2,
     ema_of, make_optimizer)
 from multiple_objects_gan_tpu_torch.train.step import (
-    frozen_forward, make_stage2_train_step, make_train_step)
+    frozen_forward, make_sample_fn, make_stage2_train_step, make_train_step)
 from multiple_objects_gan_tpu_torch.utils.images import (
     PNG_SIGNATURE, draw_bboxes, make_grid, png_chunk, tile_uint8, to_uint8)
 from multiple_objects_gan_tpu_torch.utils.layout_fidelity import (
@@ -571,7 +599,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/49 device")
+    log("phase 1/50 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -589,7 +617,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/49 build")
+    log("phase 2/50 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -634,7 +662,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/49 kernel against its plain version, on the card")
+    log("phase 3/50 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -769,7 +797,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/49 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/50 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -852,7 +880,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/49 serve: the port's main path over HTTP, on the card")
+    log("phase 5/50 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -999,7 +1027,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/49 grad: K2 (place backward) against its plain version, "
+    log("phase 6/50 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1106,7 +1134,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/49 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/50 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1262,7 +1290,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/49 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/50 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1296,7 +1324,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/49 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/50 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1378,7 +1406,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/49 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/50 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1477,7 +1505,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/49 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/50 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1512,7 +1540,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/49 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/50 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1574,7 +1602,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/49 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/50 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1618,7 +1646,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/49 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/50 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1742,7 +1770,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/49 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/50 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1817,7 +1845,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/49 fstep: one full-width float32 train step of each "
+    log(f"phase 17/50 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1856,7 +1884,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/49 ftime: each family's train step at batch "
+    log("phase 18/50 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1864,13 +1892,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/49 ftime, {key}",
+                                       f"18/50 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/49 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/50 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1907,7 +1935,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/49 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/50 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2059,7 +2087,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/49 probe: the image decoders this machine has, read only "
+    log("phase 21/50 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2313,7 +2341,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/49 disk: the train entries from disk (cli/main.py "
+    log("phase 22/50 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2493,7 +2521,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/49 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/50 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2536,7 +2564,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/49 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/50 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2715,7 +2743,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/49 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/50 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2769,20 +2797,16 @@ def he_randomize(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
-def step2_once(device, data, z, eps1, eps2, warm=False,
-               dtype=torch.float32):
-    """One full-width stage-2 step on ``device`` from the reference init
-    (G1 and G2 from seed 0, D2 from seed 1) with the noise given, in
-    ``dtype`` (float32, or float64 on the CPU as the exact reference),
-    from fresh Adams or, ``warm``, from :func:`warm_adam`. Returns its
+def step2_once(device, data, z, eps1, eps2, warm=False):
+    """One full-width float32 stage-2 step on ``device`` from the
+    reference init (G1 and G2 from seed 0, D2 from seed 1) with the noise
+    given, from fresh Adams or, ``warm``, from :func:`warm_adam`. Returns its
     losses, G2's and D2's state dicts before and after, their gradients
     (float32), the step's host time, and whether the frozen G1 kept every
     parameter and buffer bit for bit without a gradient."""
     s1, s2 = stage2_cfgs()
-    g1 = build_stage1_g(s1, seed=0, device=device).to(dtype)
+    g1 = build_stage1_g(s1, seed=0, device=device)
     state = create_state_stage2(s2, seed=0, device=device)
-    state.g.to(dtype)
-    state.d.to(dtype)
     if warm:
         warm_adam(state)
     nets = (("G", state.g), ("D", state.d))
@@ -2791,12 +2815,12 @@ def step2_once(device, data, z, eps1, eps2, warm=False,
     g1_pre = {k: v.detach().clone() for k, v in g1.state_dict().items()}
     batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
     for k in ("label_onehot", "text_embedding"):
-        batch[k] = batch[k].to(dtype)
-    batch["image"] = batch["image"].to(dtype) / 127.5 - 1.0
+        batch[k] = batch[k].float()
+    batch["image"] = batch["image"].float() / 127.5 - 1.0
     t = time.perf_counter()
     metrics = make_stage2_train_step(s2, s1, g1, KL_COEFF)(
         state, batch, None, LR, LR,
-        *(torch.from_numpy(a).to(device).to(dtype) for a in (z, eps1, eps2)))
+        *(torch.from_numpy(a).to(device) for a in (z, eps1, eps2)))
     metrics = {k: float(v) for k, v in metrics.items()}
     seconds = time.perf_counter() - t
     post = {n: {k: v.detach().float().cpu()
@@ -2828,7 +2852,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/49 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/50 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2840,18 +2864,15 @@ def phase_stage2_step():
     args = (data, z, eps1, eps2)
     # From fresh Adams the first update is lr * sign(g): float32 noise
     # flips the sign of D2's near-zero gradients, and the G2 gradient,
-    # taken through the updated D2, carries that on. Read against the
-    # same step in float64 on the CPU, not held (PERF.md §6).
-    exact = step2_once("cpu", *args, dtype=torch.float64)
+    # taken through the updated D2, carries that on; read, not held
+    # (PERF.md §6: the CPU's float32 step strays as far from float64)
     fresh = {dev: step2_once(dev, *args) for dev in ("cpu", DEVICE)}
     log(f"  G2 gf {s2.gf_dim}, D2 df {s2.df_dim}, frozen G1 ngf {s1.ngf}; "
         f"step on the CPU {fresh['cpu'][4]:.1f} s ({torch.get_num_threads()}"
-        f" threads; float64 {exact[4]:.1f} s), on the card "
-        f"{fresh[DEVICE][4]:.2f} s (host clock, first call)")
+        f" threads), on the card {fresh[DEVICE][4]:.2f} s (host clock, "
+        "first call)")
     log("  from fresh Adams, read and not held:")
     _step_lines("card f32 against CPU f32", fresh[DEVICE], fresh["cpu"])
-    _step_lines("CPU f32 against CPU f64", fresh["cpu"], exact)
-    _step_lines("card f32 against CPU f64", fresh[DEVICE], exact)
     # held: the same step from warm Adams, whose update is linear in the
     # gradient
     cpu = step2_once("cpu", *args, warm=True)
@@ -2859,7 +2880,7 @@ def phase_stage2_step():
     log(f"  from warm Adams (step {ADAM_WARM_COUNT}, moments 0 and 1), "
         "held:")
     bad, worst = _step_lines("card f32 against CPU f32", card, cpu)
-    runs = (exact, *fresh.values(), cpu, card)
+    runs = (*fresh.values(), cpu, card)
     log(f"    frozen G1 bit-identical after the step, no gradient: "
         f"{[r[5] for r in runs]}")
     for msg in bad:
@@ -2873,7 +2894,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/49 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/50 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2946,7 +2967,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/49 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/50 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -3021,7 +3042,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/49 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/50 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3186,7 +3207,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/49 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/50 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3276,7 +3297,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/49 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/50 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3385,7 +3406,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/49 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/50 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3530,7 +3551,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/49 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/50 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3635,7 +3656,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/49 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/50 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3705,7 +3726,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/49 attntime: the AttnGAN step at batch "
+    log(f"phase 35/50 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3843,7 +3864,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/49 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/50 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3990,7 +4011,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/49 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/50 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4029,7 +4050,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/49 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/50 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4101,7 +4122,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/49 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/50 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4241,7 +4262,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/49 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/50 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4413,7 +4434,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/49 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/50 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4667,7 +4688,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/49 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/50 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4783,7 +4804,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/49 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/50 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4918,7 +4939,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/49 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/50 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -4990,7 +5011,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/49 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/50 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -5114,7 +5135,7 @@ def phase_sampling(model, fid):
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/49 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/50 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5195,7 +5216,7 @@ def phase_layout(clevr_run):
 # ------------------------------------------------------------ scale-out
 
 DIST_WORLD = 2              # the ranks of phases 48 and 49
-DIST_STEP_RUNS = 3          # timed steps a case, at world 1 and world 2
+DIST_STEP_RUNS = 1          # timed steps a case, at world 1 and world 2
 DIST_LOSS_ATOL = 1e-3       # world 2 against world 1 on the card: losses
 DIST_LOSS_RTOL = 1e-4       # (atol plus rtol of the loss)
 # per parameter tensor, world 2 against world 1, from warm Adams (the
@@ -5220,42 +5241,57 @@ def _rank_env() -> dict:
 
 
 def phase_dist_entry():
-    log("phase 47/49 nccl1: cli/main.py --variant multi-mnist --synthetic "
+    log("phase 47/50 nccl1: cli/main.py --variant multi-mnist --synthetic "
         "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
         "against the same run without the environment, bit for bit "
-        "(cudnn.deterministic in both, each in a process of its own)")
+        "(cudnn.deterministic in both, each in a process of its own, the "
+        "two at once)")
     code = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
             "from multiple_objects_gan_tpu_torch.cli.main import main; "
             "main(sys.argv[1:])")
     data = os.path.join(WORK, "data", "dist1")
+    # the set the entries' --synthetic would write (DECODE_ITEMS, seed 7),
+    # written once here so that the two entries only read it
+    write_synthetic_multimnist(data, n=DECODE_ITEMS, split="train", seed=7)
     group = {"MOG_COORDINATOR": f"localhost:{dist_steps.free_port()}",
              "MOG_NUM_PROCESSES": "1", "MOG_PROCESS_ID": "0"}
-    runs, seconds = {}, {}
-    for name in ("plain", "nccl"):
-        out = os.path.join(WORK, "dist1", name)
-        argv = ["--variant", "multi-mnist", "--cfg", MNIST_TRAIN,
-                "--synthetic", "--max_epochs", "1", "--manualSeed", "7",
-                "--device", DEVICE, "--data_dir", data, "--output_dir", out]
-        # each in a process of its own: this process's cached memory could
-        # steer cuDNN's choice of algorithm
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", code, *argv],
-            env={**_rank_env(), **(group if name == "nccl" else {})},
-            cwd=ROOT, capture_output=True, text=True, timeout=DIST_TIMEOUT)
-        seconds[name] = time.perf_counter() - t
-        check(proc.returncode == 0, f"the {name} entry failed:\n"
-              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        runs[name] = {"out": proc.stdout,
-                      "ckpt": CheckpointManager(os.path.join(
-                          out, "models")).load(0)[0],
-                      "log": open(os.path.join(out, "logs",
-                                               "metrics.jsonl")).read()}
+    runs, seconds, procs = {}, {}, {}
+    # each in a process of its own (this process's cached memory could
+    # steer cuDNN's choice of algorithm), both started together
+    t = time.perf_counter()
+    try:
+        for name in ("plain", "nccl"):
+            out = os.path.join(WORK, "dist1", name)
+            argv = ["--variant", "multi-mnist", "--cfg", MNIST_TRAIN,
+                    "--synthetic", "--max_epochs", "1", "--manualSeed", "7",
+                    "--device", DEVICE, "--data_dir", data, "--output_dir",
+                    out]
+            procs[name] = (out, subprocess.Popen(
+                [sys.executable, "-c", code, *argv],
+                env={**_rank_env(), **(group if name == "nccl" else {})},
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        for name, (out, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=DIST_TIMEOUT)
+            seconds[name] = time.perf_counter() - t
+            check(proc.returncode == 0, f"the {name} entry failed:\n"
+                  f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            runs[name] = {"out": stdout,
+                          "ckpt": CheckpointManager(os.path.join(
+                              out, "models")).load(0)[0],
+                          "log": open(os.path.join(out, "logs",
+                                                   "metrics.jsonl")).read()}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     banner = [ln for ln in runs["nccl"]["out"].splitlines()
               if ln.startswith("torch.distributed:")]
     log(f"  {banner[0] if banner else 'no process-group line'}; entries "
         f"{seconds['plain']:.1f} s without the environment, "
-        f"{seconds['nccl']:.1f} s with it (host clock, processes included)")
+        f"{seconds['nccl']:.1f} s with it (host clock from their common "
+        "start, processes included)")
     check(not any(ln.startswith("torch.distributed:")
                   for ln in runs["plain"]["out"].splitlines()),
           "the run without the environment started a process group")
@@ -5402,7 +5438,7 @@ def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
 
 
 def phase_dist_steps(attn_weights, sampling):
-    log(f"phase 48/49 dist2: the mnist, AttnGAN and DAMSM steps as "
+    log(f"phase 48/50 dist2: the mnist, AttnGAN and DAMSM steps as "
         f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
         "one process on the same global batch, from warm Adams; the same "
         "start runs phase 49's dump")
@@ -5501,7 +5537,7 @@ def phase_dist_steps(attn_weights, sampling):
 
 
 def phase_dist_sampling(sampling, dist2):
-    log(f"phase 49/49 dump2: AttnGAN's --eval_mode sampling dump of "
+    log(f"phase 49/50 dump2: AttnGAN's --eval_mode sampling dump of "
         f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
         "(phase 48's start), against phase 45's one-process dump")
     out, one = dist2["dump_dir"], sampling["out"]
@@ -5540,6 +5576,469 @@ def phase_dist_sampling(sampling, dist2):
     SUMMARY["dump2"] = {"s": seconds, "levels": levels}
     return launches, {"seconds": seconds, "levels": levels,
                       "metrics": m2}
+
+
+# ------------------------------------------------------------ the tools
+
+# the limits of the learning runs at the tool's defaults, set in PERF.md
+# §6 before the first card run; a miss is a finding, not a limit to lower
+VALIDATE_MIN_SEPARATION = 0.15  # final in-box minus out-of-box luminance
+VALIDATE_MIN_RECALL = 0.2       # mnist layout-fidelity recall (chance 0.1)
+VALIDATE_WIRING = ("--epochs", "2", "--n", "64", "--segments", "1")
+VALIDATE_SAMPLING = 28          # the AttnGAN dump's and the harness's cap
+VALIDATE_SEED = 7               # the tool's default --seed
+STN_ATOL = 1e-5                 # the general STN, card vs separable and CPU
+# the tool's generation places (batch 32, on 16x16), not on a path before
+VALIDATE_GEN = {"mnist": ("multi-mnist", 10, False),
+                "clevr": ("clevr", 0, True)}
+
+
+def _entry_label(argv) -> str:
+    """A train or eval entry's argv -> 'variant mode -> output dir'."""
+    def arg(k):
+        return argv[argv.index(k) + 1] if k in argv else ""
+    mode = arg("--eval_mode") or ("resume" if "--resume" in argv
+                                  else "train")
+    return (f"{arg('--variant')} {mode} -> "
+            f"{os.path.basename(arg('--output_dir'))}")
+
+
+def run_validate(argv):
+    """``tools/validate_learning.py`` on ``argv``: its JSON, the K1 and K2
+    launches of each train entry and each generation it made (in order),
+    the launches of the whole run, and its seconds (host clock)."""
+    calls, saved = [], {n: getattr(vl, n) for n in (
+        "cli_main", "_generate_stage1", "_generate_stage2",
+        "_generate_attngan")}
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            k0, g0 = k1.launch_count(), k1.grad_launch_count()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                calls.append({
+                    "call": (_entry_label(args[0]) if name == "cli_main"
+                             else f"generate #{len(calls)}"),
+                    "launches": (k1.launch_count() - k0,
+                                 k1.grad_launch_count() - g0)})
+        return wrapped
+
+    k1.reset_launch_count()
+    t = time.perf_counter()
+    try:
+        for name, fn in saved.items():
+            setattr(vl, name, counted(name, fn))
+        out = vl.main([*argv, "--device", DEVICE])
+    finally:
+        for name, fn in saved.items():
+            setattr(vl, name, fn)
+    torch.cuda.synchronize()
+    return (out, calls, (k1.launch_count(), k1.grad_launch_count()),
+            time.perf_counter() - t)
+
+
+def _numbers(x):
+    """Every int and float of a JSON value (booleans left out)."""
+    if isinstance(x, bool):
+        return []
+    if isinstance(x, (int, float)):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [v for item in x for v in _numbers(item)]
+    return []
+
+
+def _check_calls(name, calls, entries, generations):
+    """The launches of each train entry (``entries``: label substring ->
+    expected (K1, K2)) and of each generation (``generations``: expected
+    (K1, K2) each)."""
+    for c in calls:
+        want = (generations if c["call"].startswith("generate") else next(
+            (v for k, v in entries.items() if k in c["call"]), None))
+        log(f"    {c['call']}: K1/K2 {c['launches']}"
+            + ("" if want is None else f" (expected {want})"))
+        check(want is None or tuple(c["launches"]) == tuple(want),
+              f"{name}: {c['call']} launched K1/K2 {c['launches']}, "
+              f"expected {want}")
+
+
+# a learning run in a process of its own: run_validate's result as JSON
+VALIDATE_CHILD = (
+    "import json, sys; import chip_smoke as cs; cs.DEVICE = sys.argv[3]; "
+    "out, calls, total, s = cs.run_validate(json.loads(sys.argv[1])); "
+    "json.dump({'json': out, 'calls': calls, 'launches': total, "
+    "'seconds': s}, open(sys.argv[2], 'w'))")
+
+
+def _learning_argv(variant):
+    work = os.path.join(WORK, f"validate_{variant}")
+    return [variant, "--workdir", work], work
+
+
+def _start_learning(variant):
+    """Start a learning run at the tool's defaults in a process of its own
+    (the runs are host-bound: two at once share the card); returns what
+    :func:`_join_learning` takes."""
+    argv, work = _learning_argv(variant)
+    result = os.path.join(WORK, f"validate_{variant}.json")
+    out = open(os.path.join(WORK, f"validate_{variant}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", VALIDATE_CHILD, json.dumps(argv), result,
+         DEVICE], env=_rank_env(), cwd=ROOT, stdout=out,
+        stderr=subprocess.STDOUT)
+    return {"variant": variant, "proc": proc, "result": result,
+            "log": out, "work": work, "t": time.perf_counter()}
+
+
+def _join_learning(child):
+    """Wait for a run :func:`_start_learning` started; its result."""
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=DIST_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        child["log"].close()
+    if proc.returncode != 0:
+        with open(child["log"].name) as f:
+            tail = f.read()[-3000:]
+        check(False, f"the {child['variant']} run failed:\n{tail}")
+    with open(child["result"]) as f:
+        run = json.load(f)
+    run["launches"] = tuple(run["launches"])
+    run["calls"] = [{**c, "launches": tuple(c["launches"])}
+                    for c in run["calls"]]
+    joined = time.perf_counter() - child["t"]
+    log(f"  {child['variant']} ran in a process of its own beside the "
+        f"phase's other work on the card (joined {joined:.1f} s after its "
+        "start, host clock)")
+    return {**run, "work": child["work"]}
+
+
+def _learning_run(variant):
+    """A learning run at the tool's defaults in this process."""
+    argv, work = _learning_argv(variant)
+    out, calls, total, seconds = run_validate(argv)
+    return {"json": out, "calls": calls, "launches": total,
+            "seconds": seconds, "work": work}
+
+
+def _held_learning(variant, run):
+    """A learning run's launches and its limits."""
+    out, calls, total, seconds = (run["json"], run["calls"],
+                                  run["launches"], run["seconds"])
+    vcfg = vl.CFG_FILES[vl.VARIANTS[variant]]
+    cfg = cfg_from_file(vcfg, vl.VARIANTS[variant])
+    batch, n = int(cfg.TRAIN.BATCH_SIZE), vl.SET_SIZES[variant]
+    defaults = vl.parse_args([variant])
+    seg = defaults.epochs // defaults.segments   # epochs a segment
+    steps = seg * (n // batch)
+    _check_calls(variant, calls, {"train": (4 * steps + seg, 4 * steps),
+                                  "resume": (4 * steps + seg, 4 * steps)},
+                 (1, 0))
+    lfid = out["layout_fidelity"]
+    recall = lfid.get("recall", lfid.get("recall_both"))
+    log(f"  {variant}: separation {out['separation']} (in {out['in_box']}, "
+        f"out {out['out_box']}; trend {out['separation_trend']}; limit >= "
+        f"{VALIDATE_MIN_SEPARATION}); FID trend {out['fid_trend']}, "
+        f"decreasing {out['fid_decreasing']}; layout fidelity "
+        f"{'recall' if variant == 'mnist' else 'recall_both'} {recall}, "
+        f"loc_iou {lfid['loc_iou']} over {lfid['n_objects']} objects "
+        f"(trend {out['layout_fidelity_trend']}"
+        + (f"; limit >= {VALIDATE_MIN_RECALL})" if variant == "mnist"
+           else "; chance 1/24, printed)")
+        + f"; {seconds:.1f} s (host clock, the set's writing included); "
+        f"K1/K2 {total}")
+    check(out["fid_decreasing"], f"{variant}: the FID trend "
+          f"{out['fid_trend']} does not fall")
+    check(out["separation"] >= VALIDATE_MIN_SEPARATION,
+          f"{variant}: separation {out['separation']}")
+    if variant == "mnist":
+        check(recall >= VALIDATE_MIN_RECALL, f"mnist: recall {recall}")
+    return run
+
+
+def _same_images(pth, run_dir, mcfg):
+    """The G of a reference NET_G .pth (``cli/sample.py:load_generator``,
+    a strict load) and the run checkpoint's G on one batch of the tool's
+    layouts, on the card: whether the images are equal bit for bit."""
+    bbox, labels, _ = vl._random_layouts(vl.GEN_BATCH, mcfg.num_objects,
+                                         mcfg.label_dim, VALIDATE_SEED + 1,
+                                         n_classes=mcfg.label_dim)
+    z = torch.from_numpy(sample_noise(VALIDATE_SEED, 0, vl.GEN_BATCH,
+                                      mcfg.z_dim)).to(DEVICE)
+    sample = make_sample_fn(mcfg)
+    imgs = [sample(load_generator(mcfg, src, VALIDATE_SEED, DEVICE), z,
+                   torch.from_numpy(bbox).to(DEVICE),
+                   torch.from_numpy(labels).to(DEVICE))
+            for src in (pth, run_dir)]
+    return torch.equal(*imgs), float((imgs[0] - imgs[1]).abs().max())
+
+
+def _gen_places():
+    """K1 at the tool's generation places, its layouts and random
+    features, f32 and bf16, held against its plain version and timed."""
+    rows, worst = {}, 0.0
+    for name, (variant, n_classes, clevr) in VALIDATE_GEN.items():
+        mcfg = stage1_model_config(cfg_from_file(
+            vl.CFG_FILES[variant], variant), variant)
+        bbox, _, _ = vl._random_layouts(vl.GEN_BATCH, mcfg.num_objects,
+                                        mcfg.label_dim, VALIDATE_SEED + 1,
+                                        n_classes=n_classes, clevr=clevr)
+        bbox = torch.from_numpy(bbox).to(DEVICE)
+        hw = (16, 16)
+        feats = torch.from_numpy(np.random.RandomState(50).randn(
+            vl.GEN_BATCH, mcfg.num_objects, mcfg.ngf // 4, *hw).astype(
+                np.float32)).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            f = feats.to(dtype)
+            label = f"validate {name} {tuple(f.shape)} {str(dtype)[6:]}"
+            err = _held(k1.stn_place_multi_nchw(f, bbox, hw),
+                        k1.stn_place_multi_plain(f, bbox, hw), dtype, "K1",
+                        label)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            row = time_place(f, bbox, hw, f"K1 {label}")
+            rows[f"{name}_{str(dtype)[6:]}"] = {
+                "shape": list(f.shape), **{k: row[k] for k in (
+                    "ms", "plain_ms", "graph_ms", "bound_ms", "bound_by",
+                    "share_of_bound", "graph_share_of_bound")}}
+    return rows, worst
+
+
+def _general_stn():
+    """The general STN (affine_grid + grid_sample) on the card: equal to
+    stn_separable at axis-aligned thetas and to the CPU's result at random
+    thetas, within STN_ATOL."""
+    rs = np.random.RandomState(50)
+    img = torch.from_numpy(rs.uniform(-1, 1, (8, 16, 16, 192)).astype(
+        np.float32))
+    boxes = np.concatenate([rs.uniform(0.0, 0.6, (8, 2)),
+                            rs.uniform(0.2, 0.5, (8, 2))], -1)
+    boxes[0] = -1.0                                  # a padded object
+    aligned = port_ops.transformation_matrix_inverse(
+        torch.from_numpy(boxes.astype(np.float32)))
+    general = torch.from_numpy(rs.uniform(-1.5, 1.5, (8, 2, 3)).astype(
+        np.float32))
+    errs = {}
+    dimg, dal = img.to(DEVICE), aligned.to(DEVICE)
+    with float32_pinned():
+        errs["card general vs separable, axis-aligned"] = float((
+            port_ops.stn(dimg, dal, (16, 16))
+            - port_ops.stn_separable(dimg, dal, (16, 16))).abs().max())
+        errs["card vs CPU, random thetas"] = float((
+            port_ops.stn(dimg, general.to(DEVICE), (16, 16)).cpu()
+            - port_ops.stn(img, general, (16, 16))).abs().max())
+    for k, v in errs.items():
+        log(f"  general stn {k} (8, 16, 16, 192) -> 16x16: max |diff| "
+            f"{v:.3e} (atol {STN_ATOL:g})")
+        check(v <= STN_ATOL, f"general stn: {k}")
+    return errs
+
+
+def _check_dataset(argv):
+    """``tools/check_dataset.py`` on the card: its JSON and exit code."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = check_tool.main([*argv, "--device", DEVICE])
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), rc
+
+
+def phase_validate():
+    log("phase 50/50 validate: the port's tools on the card: "
+        "validate_learning for mnist and clevr at the tool's defaults "
+        "(held: the FID trend falls, separation, mnist recall), the "
+        "exporter (the exported G's images bit for bit), the stage-2 and "
+        "AttnGAN wiring runs, check_dataset, parity_harness, the general "
+        "STN, and K1 at the tool's generation places")
+    launches, detail = {}, {}
+    # clevr in a process of its own while mnist and the tools run here
+    clevr = _start_learning("clevr")
+    try:
+        detail["mnist"] = _held_learning("mnist", _learning_run("mnist"))
+        launches["validate_mnist"] = detail["mnist"]["launches"]
+        wiring, ck_rows, result, harness_s = _tool_runs(detail["mnist"],
+                                                        launches)
+    except BaseException:
+        clevr["proc"].kill()
+        clevr["proc"].wait()
+        raise
+    run = _join_learning(clevr)
+    detail["clevr"] = _held_learning("clevr", run)
+    launches["validate_clevr"] = run["launches"]
+    errs = _general_stn()
+    places, worst = _gen_places()
+    SUMMARY["validate"] = {
+        v: {"sep": detail[v]["json"]["separation"],
+            "fid": [f for _, f in detail[v]["json"]["fid_trend"]],
+            "recall": detail[v]["json"]["layout_fidelity"].get(
+                "recall", detail[v]["json"]["layout_fidelity"].get(
+                    "recall_both")),
+            "iou": detail[v]["json"]["layout_fidelity"]["loc_iou"],
+            "s": detail[v]["seconds"]} for v in ("mnist", "clevr")}
+    SUMMARY["validate"]["wiring_s"] = {k: v["seconds"]
+                                       for k, v in wiring.items()}
+    SUMMARY["validate"]["harness"] = {"fid": result["fid"],
+                                      "s": harness_s}
+    return launches, {"max_abs_err": worst, **places, "general_stn": errs,
+                      "runs": {k: {"json": v["json"], "calls": v["calls"],
+                                   "seconds": v["seconds"]}
+                               for k, v in {**detail, **wiring}.items()},
+                      "check_dataset": ck_rows, "harness": result}
+
+
+def _tool_runs(mnist, launches):
+    """Phase 50's exporter check, wiring runs, check_dataset and
+    parity_harness; adds their launches to ``launches``."""
+    # the exporter: mnist's final G as a reference NET_G .pth
+    run_dir = os.path.join(mnist["work"], "out_e20")
+    pth = os.path.join(mnist["work"], "netG_export.pth")
+    export_tool.main(["stage1", "--variant", "multi-mnist", "--cfg",
+                      vl.CFG_FILES["multi-mnist"], "--ckpt", run_dir,
+                      "--out", pth, "--device", DEVICE])
+    mcfg = stage1_model_config(cfg_from_file(
+        vl.CFG_FILES["multi-mnist"], "multi-mnist"), "multi-mnist")
+    same, diff = _same_images(pth, run_dir, mcfg)
+    log(f"  export stage1 {os.path.getsize(pth) / 2**20:.1f} MiB: the "
+        f"exported NET_G's images against the run checkpoint's G, batch "
+        f"{vl.GEN_BATCH} on the card: bit for bit {same} (max |diff| "
+        f"{diff:.3e})")
+    check(same, "the exported G's images differ from the run's G's")
+
+    # wiring at small n, no learning limit
+    wiring = {}
+    for variant, extra in (("coco-stackgan-2", ()), (
+            "coco-attngan", ("--damsm_epochs", "1", "--sampling_images",
+                             str(VALIDATE_SAMPLING)))):
+        work = os.path.join(WORK, f"validate_{variant}")
+        pth = os.path.join(work, "netG_export.pth")
+        out, calls, total, seconds = run_validate(
+            [variant, *VALIDATE_WIRING, *extra, "--export_pth", pth,
+             "--workdir", work])
+        cfg_file = (vl.CFG_FILES[variant] if variant == "coco-stackgan-2"
+                    else os.path.join(work, "coco_attn_full.yml"))
+        cfg = cfg_from_file(cfg_file, variant)
+        steps = 2 * (64 // int(cfg.TRAIN.BATCH_SIZE))
+        if variant == "coco-stackgan-2":
+            entries, gen = {"train": (5 * steps + 2 * 2, 4 * steps)}, (2, 0)
+        else:
+            entries = {"damsm": (0, 0),
+                       "coco-attngan train": (4 * steps + 1 + 2, 4 * steps),
+                       "sampling": (1, 0)}
+            gen = (1, 0)
+        _check_calls(variant, calls, entries, gen)
+        shown = {k: v for k, v in out.items()
+                 if k not in ("workdir", "exported_pth")}
+        log(f"  {variant}: {json.dumps(shown)}; {seconds:.1f} s (host "
+            f"clock); K1/K2 {total}")
+        check(all(math.isfinite(v) for v in _numbers(out)),
+              f"{variant}: a number of the JSON line is not finite")
+        if variant == "coco-stackgan-2":
+            s1_cfg, s2_cfg = stage2_model_config(cfg)
+            s1_sd, s2_sd = split_stage2_g(load_reference_g(pth))
+            check(s1_sd is not None, "the stage-2 export embeds no STAGE1_G")
+            build_stage1_g(s1_cfg, s1_sd, device=DEVICE)
+            build_stage2_g(s2_cfg, s2_sd, device=DEVICE)
+            log(f"  the stage-2 .pth: STAGE1_G ({len(s1_sd)} tensors) and "
+                f"G2 ({len(s2_sd)}) load strictly into the port's G1 and G2")
+        else:
+            check(out["damsm_word_sent"].get("all_finite") is True,
+                  f"damsm_word_sent {out['damsm_word_sent']}")
+            acfg = attngan_model_config(cfg)
+            build_attngan_g(acfg, load_reference_attngan_g(pth),
+                            device=DEVICE)
+            d_dir = os.path.join(work, "netD_export")
+            export_tool.main(["attngan", "--cfg", cfg_file, "--ckpt",
+                              os.path.join(work, "out_e2"), "--out",
+                              os.path.join(work, "netG_raw.pth"), "--raw",
+                              "--out_d", d_dir, "--device", DEVICE])
+            names = sorted(os.listdir(d_dir))
+            check(names == [f"netD{i}.pth" for i in range(3)],
+                  f"the attngan D export wrote {names}")
+            for i, name in enumerate(names):
+                build_attngan_d(acfg, 64 * 2 ** i, load_reference_attngan_d(
+                    os.path.join(d_dir, name)), device=DEVICE)
+            log(f"  the EMA G .pth and {names} load strictly into the "
+                "port's GNet and Ds")
+        wiring[variant] = {"json": out, "calls": calls, "seconds": seconds,
+                           "work": work, "cfg": cfg_file}
+        launches[f"validate_{variant}"] = total
+
+    # check_dataset over the sets the phase wrote, then two faults
+    s2w, aw = (wiring["coco-stackgan-2"]["work"],
+               wiring["coco-attngan"]["work"])
+    sets = {"mnist": [os.path.join(mnist["work"], "data")],
+            "coco-stackgan": [os.path.join(s2w, "data"), "--img_dir",
+                              os.path.join(s2w, "imgs")],
+            "coco-attngan": [os.path.join(aw, "data"), "--img_dir",
+                             os.path.join(aw, "imgs")]}
+    ck_rows = {}
+    for variant, argv in sets.items():
+        out, rc = _check_dataset([variant, *argv])
+        ck_rows[variant] = {"ok": out["ok"], "rc": rc,
+                            "modes": out["report"].get("image_modes_sampled")}
+        log(f"  check_dataset {variant}: ok {out['ok']} (exit {rc}), "
+            f"{out['report'].get('n_items')} items, modes "
+            f"{out['report'].get('image_modes_sampled')}, warnings "
+            f"{out['warnings']}")
+        check(out["ok"] and rc == 0, f"check_dataset {variant}: "
+              f"{out['errors']}")
+    bad = os.path.join(WORK, "check_bad")
+    shutil.copytree(os.path.join(s2w, "data"), os.path.join(bad, "data"))
+    shutil.copytree(os.path.join(s2w, "imgs"), os.path.join(bad, "imgs"))
+    victim = os.path.join(bad, "imgs", sorted(os.listdir(
+        os.path.join(bad, "imgs")))[0])
+    with open(victim, "rb") as f:
+        head = f.read()
+    with open(victim, "wb") as f:
+        f.write(head[:len(head) // 2])
+    os.remove(os.path.join(bad, "data", "train", "labels.pickle"))
+    out, rc = _check_dataset(["coco-stackgan", os.path.join(bad, "data"),
+                              "--img_dir", os.path.join(bad, "imgs")])
+    log(f"  check_dataset on a truncated JPEG and a missing pickle: ok "
+        f"{out['ok']} (exit {rc}); errors {out['errors']}")
+    check(not out["ok"] and rc == 1, "check_dataset passed a broken set")
+    check(any(victim in e for e in out["errors"]),
+          "check_dataset did not name the truncated JPEG")
+    check(any("labels" in e and "missing file" in e for e in out["errors"]),
+          "check_dataset did not name the missing pickle")
+    shutil.rmtree(bad, ignore_errors=True)
+
+    # parity_harness on the attngan run's exported .pth
+    attn = wiring["coco-attngan"]
+    k1.reset_launch_count()
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = parity_tool.main([
+            "--net_g", os.path.join(aw, "netG_export.pth"),
+            "--data_dir", os.path.join(aw, "data"),
+            "--img_dir", os.path.join(aw, "imgs"),
+            "--net_e", attn["json"]["net_e"], "--cfg", attn["cfg"],
+            "--out", os.path.join(WORK, "parity"), "--num_images",
+            str(VALIDATE_SAMPLING), "--seed", str(VALIDATE_SEED),
+            "--device", DEVICE])
+    torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t
+    launches["parity_harness"] = (k1.launch_count(),
+                                  k1.grad_launch_count())
+    log(f"  parity_harness: FID {result['fid']!r}, IS "
+        f"{result['inception_score_mean']!r}, {result['n_images']} images, "
+        f"provenance fid_encoder {result['fid_encoder']}, is_backbone "
+        f"{result['is_backbone']}, is_head {result['is_head']}; "
+        f"comparable_to_published {result['comparable_to_published']}; "
+        f"{harness_s:.1f} s (host clock); K1/K2 {launches['parity_harness']}")
+    check(result["comparable_to_published"] is False,
+          "the harness called seeded weights comparable")
+    check(math.isfinite(result["fid"]), "the harness's FID")
+    check(launches["parity_harness"] == (1, 0), "the harness's dump: one "
+          f"K1 a batch of {result['n_images']} expected")
+    return wiring, ck_rows, result, harness_s
 
 
 def _post(port, body):
@@ -5619,7 +6118,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/49 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/50 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -5666,22 +6165,25 @@ def run_phases() -> int:
     dist_paths, dist2 = timed("dist2", phase_dist_steps, attn_step["weights"],
                               sampling)
     dump_paths, dump2 = timed("dump2", phase_dist_sampling, sampling, dist2)
+    validate_paths, validate = timed("validate", phase_validate)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
                **attn_entry, **damsm_entry, **attn_eval_paths,
                **s2_sample_paths, **sampling_paths, **layout_paths,
-               **dist_paths, **dump_paths}
+               **dist_paths, **dump_paths, **validate_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
                  "train_coco-attngan", "train_coco-attngan_resume",
                  "train_damsm", "train_damsm_resume", *attn_eval_paths,
                  *s2_sample_paths, *sampling_paths, *layout_paths,
-                 *dist_paths, *dump_paths)
+                 *dist_paths, *dump_paths, "parity_harness")
+    # the validate tool's runs are --bf16, its default
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
-                  "train_coco-attngan_bf16", "train_damsm_bf16")
+                  "train_coco-attngan_bf16", "train_damsm_bf16",
+                  *(p for p in validate_paths if p.startswith("validate_")))
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -5703,6 +6205,7 @@ def run_phases() -> int:
             "attngan_train": {**attn_places["place"], "entry": attn_run},
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
             "attngan_sampling": sampling, "layout_tool": layout,
+            "validate_tool": validate,
             "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
                        "places": dist2["places"]["place"],
                        "dump": dump2}},
@@ -5742,7 +6245,8 @@ def run_phases() -> int:
                            attn_eval["max_abs_err"],
                            s2_sample["max_abs_err"],
                            sampling["max_abs_err"], layout["max_abs_err"],
-                           dist2["places"]["max_abs_err"]["place"]),
+                           dist2["places"]["max_abs_err"]["place"],
+                           validate["max_abs_err"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -5755,7 +6259,10 @@ def run_phases() -> int:
                    **{f"layout_{k}": _compact(layout[k])
                       for k in ("mnist", "clevr")},
                    **{k: _compact(v)
-                      for k, v in dist2["places"]["place"].items()}},
+                      for k, v in dist2["places"]["place"].items()},
+                   **{f"validate_gen_{k}": _compact(validate[k])
+                      for k in ("mnist_float32", "mnist_bfloat16",
+                                "clevr_float32", "clevr_bfloat16")}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

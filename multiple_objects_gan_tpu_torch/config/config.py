@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import re
 from typing import Optional
 
@@ -256,6 +257,45 @@ def parse_yaml(text: str) -> dict:
         stack[-1][1][key.strip()] = _scalar(value)
         last_key = key.strip()
     return root
+
+
+def _dump_scalar(key: str, value) -> str:
+    """``value`` as :func:`_scalar` reads it back to the same value."""
+    if value is None or isinstance(value, bool):
+        return {None: "null", True: "True", False: "False"}[value]
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if not math.isfinite(value):
+            raise ValueError(f"{key}: cannot write {value!r}")
+        text = repr(value)
+        # PyYAML and _FLOAT read a float only with a dot: 1e-05 -> 1.0e-05
+        return text if "." in text else text.replace("e", ".0e", 1)
+    if isinstance(value, str):
+        if "'" in value or "\n" in value:
+            raise ValueError(f"{key}: cannot write {value!r} (a quote or a "
+                             "line break)")
+        return f"'{value}'"
+    raise ValueError(f"{key}: cannot write a {type(value).__name__}")
+
+
+def dump_yaml(doc: dict, indent: int = 0) -> str:
+    """Write a nested mapping of plain scalars as YAML that
+    :func:`parse_yaml` (and PyYAML's safe loader) reads back to ``doc``:
+    strings quoted, floats with a dot, nested mappings indented by 4."""
+    lines = []
+    for key, value in doc.items():
+        if not isinstance(key, str) or not key or ":" in key \
+                or key != key.strip():
+            raise ValueError(f"cannot write the key {key!r}")
+        if isinstance(value, dict):
+            if not value:
+                raise ValueError(f"{key}: cannot write an empty mapping")
+            lines.append(" " * indent + f"{key}:")
+            lines.append(dump_yaml(value, indent + 4).rstrip("\n"))
+        else:
+            lines.append(" " * indent + f"{key}: {_dump_scalar(key, value)}")
+    return "\n".join(lines) + "\n"
 
 
 def cfg_from_file(path: str, variant: str) -> Config:

@@ -13,7 +13,9 @@ outside the input give all-zero rows, which is how a padded object
 Public functions keep the JAX package's layout, (B, H, W, C) and
 (B, O, h, w, C), so the tests compare like with like. The model runs NCHW:
 it calls :func:`stn_extract_multi_nchw` and the kernel wrapper in
-``ops/stn_place_cuda.py`` directly.
+``ops/stn_place_cuda.py`` directly. :func:`affine_grid`,
+:func:`grid_sample` and :func:`stn` are the general (any affine matrix)
+path of the JAX package's ``ops/stn.py:240-294``; no model calls them.
 """
 
 from __future__ import annotations
@@ -180,3 +182,62 @@ def stn_place_const_multi(labels: torch.Tensor, bbox: torch.Tensor,
         return torch.einsum("bohw,boc->bhwc", mask.to(labels.dtype), labels)
     out = torch.einsum("bohw,boc->bhwc", mask, labels.float())
     return out.to(labels.dtype)
+
+
+# ---------------------------------------------------------------------------
+# General affine grid + gather-based sampling (the JAX package's parity path)
+# ---------------------------------------------------------------------------
+
+def affine_grid(theta: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """theta (B, 2, 3) -> sampling grid (B, Ho, Wo, 2) of (x, y) in [-1, 1].
+
+    PyTorch-0.4 ``F.affine_grid`` semantics (align_corners=True): the grid
+    coordinates are linspace(-1, 1, size), both ends included. Computed
+    element by element in theta's dtype, as the JAX package does.
+    """
+    ho, wo = out_hw
+    ys = torch.linspace(-1.0, 1.0, ho, dtype=theta.dtype, device=theta.device)
+    xs = torch.linspace(-1.0, 1.0, wo, dtype=theta.dtype, device=theta.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    t = theta[:, :, :, None, None]                       # (B, 2, 3, 1, 1)
+    out_x = t[:, 0, 0] * gx + t[:, 0, 1] * gy + t[:, 0, 2]
+    out_y = t[:, 1, 0] * gx + t[:, 1, 1] * gy + t[:, 1, 2]
+    return torch.stack([out_x, out_y], dim=-1)           # (B, Ho, Wo, 2)
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of (B, H, W, C) at grid (B, Ho, Wo, 2); zero padding.
+
+    PyTorch-0.4 ``F.grid_sample`` semantics: pixel coordinates
+    ix = (x + 1) / 2 * (W - 1) (align_corners=True), zeros outside. Float32
+    arithmetic; the result comes back in the image's dtype.
+    """
+    b, hi, wi, c = image.shape
+    flat = image.float().reshape(b, hi * wi, c)
+    gx = (grid[..., 0].float() + 1.0) * 0.5 * (wi - 1)
+    gy = (grid[..., 1].float() + 1.0) * 0.5 * (hi - 1)
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1.0, y0 + 1.0
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+
+    def fetch(xi, yi):
+        inside = (xi >= 0) & (xi <= wi - 1) & (yi >= 0) & (yi <= hi - 1)
+        xc = xi.clamp(0, wi - 1).long()
+        yc = yi.clamp(0, hi - 1).long()
+        idx = (yc * wi + xc).reshape(b, -1, 1).expand(-1, -1, c)
+        val = torch.gather(flat, 1, idx).reshape(*xi.shape, c)
+        return val * inside[..., None].float()
+
+    out = (fetch(x0, y0) * (wx0 * wy0)[..., None]
+           + fetch(x1, y0) * (wx1 * wy0)[..., None]
+           + fetch(x0, y1) * (wx0 * wy1)[..., None]
+           + fetch(x1, y1) * (wx1 * wy1)[..., None])
+    return out.to(image.dtype)
+
+
+def stn(image: torch.Tensor, theta: torch.Tensor,
+        out_hw: tuple[int, int]) -> torch.Tensor:
+    """The general STN (reference model.py:73-77): :func:`affine_grid` then
+    :func:`grid_sample`, for any affine ``theta`` (B, 2, 3)."""
+    return grid_sample(image, affine_grid(theta, out_hw))

@@ -43,7 +43,8 @@ from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_multimnist
 from multiple_objects_gan_tpu_torch.io.weights import (
     stage1_d_state_dict_from_jax, stage1_g_state_dict_from_jax)
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
-from multiple_objects_gan_tpu_torch.ops import stn, stn_place_cuda
+from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
+stn = importlib.import_module("multiple_objects_gan_tpu_torch.ops.stn")
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import (
     make_sample_fn, make_train_step)

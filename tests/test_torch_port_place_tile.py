@@ -19,11 +19,13 @@ it against the plain version there.
 
 from __future__ import annotations
 
+import importlib
 import numpy as np
 import pytest
 import torch
 
-from multiple_objects_gan_tpu_torch.ops import stn, stn_place_cuda as m
+from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as m
+stn = importlib.import_module("multiple_objects_gan_tpu_torch.ops.stn")
 
 
 def _boxes(rng, b, o, kind):

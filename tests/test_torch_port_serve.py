@@ -236,12 +236,15 @@ def test_build_service_from_yaml(tmp_path):
 # ------------------------------------------------------ boundary and device
 
 
-_BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "PIL",
+_BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
            "multiple_objects_gan_tpu"}
-# modules the scan must reach (the eval slice's among them)
+# modules the scan must reach (the eval slice's and the tools' among them)
 _SCANNED = ("nn/fid_inception.py", "utils/metrics.py",
             "utils/layout_fidelity.py", "tools/eval_fid.py",
-            "tools/eval_layout_fidelity.py", "cli/attngan_runner.py")
+            "tools/eval_layout_fidelity.py", "cli/attngan_runner.py",
+            "tools/validate_learning.py", "tools/export_checkpoint.py",
+            "tools/check_dataset.py", "tools/parity_harness.py",
+            "ops/stn.py", "ops/__init__.py", "config/config.py")
 
 
 def _imported_roots(path):

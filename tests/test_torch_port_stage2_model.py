@@ -27,6 +27,7 @@ stage 1's:
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import numpy as np
 import jax
@@ -52,7 +53,7 @@ from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import (
     Stage2D, Stage2G, build_stage2_d, build_stage2_g)
 from multiple_objects_gan_tpu_torch.nn.blocks import ObjectBatchNorm2d
-from multiple_objects_gan_tpu_torch.ops import stn
+stn = importlib.import_module("multiple_objects_gan_tpu_torch.ops.stn")
 from multiple_objects_gan_tpu_torch.ops.stn_place_cuda import (
     place_tile, stn_place_multi_plain)
 from multiple_objects_gan_tpu_torch.train.state import create_state_stage2

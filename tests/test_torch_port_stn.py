@@ -11,6 +11,7 @@ on unit-normal features). Padded objects must place exact zeros."""
 
 from __future__ import annotations
 
+import importlib
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,7 +20,8 @@ from jax.experimental import pallas as pl
 
 import multiple_objects_gan_tpu.ops as jstn
 import multiple_objects_gan_tpu.ops.stn_pallas as sp
-from multiple_objects_gan_tpu_torch.ops import _build, stn, stn_place_cuda
+from multiple_objects_gan_tpu_torch.ops import _build, stn_place_cuda
+stn = importlib.import_module("multiple_objects_gan_tpu_torch.ops.stn")
 
 ATOL = 1e-5
 
@@ -155,6 +157,75 @@ def test_wrapper_refuses_devices_other_than_cuda_and_cpu():
     bbox = torch.empty((1, 3, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         stn_place_cuda.stn_place_multi_nchw(feats, bbox, (16, 16))
+
+
+def _thetas(rng, b):
+    """Random general affine matrices (rotation, shear, scale, shift; some
+    sampling far outside the image), the place matrix of a padded box
+    (bbox = -1) and the extract matrix of an off-canvas box."""
+    theta = rng.uniform(-1.5, 1.5, (b, 2, 3)).astype(np.float32)
+    theta[0, :, 2] = [2.5, -3.0]            # the whole grid off the image
+    pad = np.asarray(jstn.transformation_matrix_inverse(
+        jnp.full((4,), -1.0, jnp.float32)))
+    off = np.asarray(jstn.transformation_matrix(
+        jnp.asarray([-0.3, 0.8, 0.5, 0.4], jnp.float32)))
+    return np.concatenate([theta, pad[None], off[None]])
+
+
+@pytest.mark.parametrize("out_hw", [(16, 16), (7, 12)])
+def test_affine_grid_matches_jax(out_hw):
+    theta = _thetas(np.random.RandomState(11), 4)
+    want = np.asarray(jstn.affine_grid(jnp.asarray(theta), out_hw))
+    got = stn.affine_grid(torch.from_numpy(theta), out_hw).numpy()
+    assert got.shape == (6,) + out_hw + (2,)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((16, 16), (16, 16)),
+                                          ((15, 13), (9, 20))])
+def test_grid_sample_and_stn_match_jax(in_hw, out_hw):
+    rng = np.random.RandomState(12)
+    theta = _thetas(rng, 4)
+    img = rng.uniform(-1.0, 1.0, (len(theta),) + in_hw + (5,)).astype(
+        np.float32)
+    grid = np.array(jstn.affine_grid(jnp.asarray(theta), out_hw))
+    want = np.asarray(jstn.grid_sample(jnp.asarray(img), jnp.asarray(grid)))
+    got = stn.grid_sample(torch.from_numpy(img),
+                          torch.from_numpy(grid)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert not got[0].any() and not got[-2].any()   # off the image: zeros
+    want = np.asarray(jstn.stn(jnp.asarray(img), jnp.asarray(theta), out_hw))
+    got = stn.stn(torch.from_numpy(img), torch.from_numpy(theta),
+                  out_hw).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_general_stn_equals_separable_at_axis_aligned_thetas():
+    rng = np.random.RandomState(13)
+    img = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, 15, 15, 4)).astype(
+        np.float32))
+    theta = stn.transformation_matrix_inverse(torch.from_numpy(
+        _boxes(rng, 3, 1)[:, 0]))
+    np.testing.assert_allclose(stn.stn(img, theta, (16, 16)).numpy(),
+                               stn.stn_separable(img, theta, (16, 16)).numpy(),
+                               atol=ATOL)
+
+
+def test_grid_sample_keeps_the_image_dtype():
+    img = torch.ones((1, 4, 4, 2), dtype=torch.bfloat16)
+    theta = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]])
+    out = stn.stn(img, theta, (4, 4))
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, img)
+
+
+def test_ops_namespace_exports_the_jax_names():
+    import multiple_objects_gan_tpu_torch.ops as tops
+
+    assert sorted(tops.__all__) == sorted(jstn.__all__)
+    for name in jstn.__all__:
+        assert callable(getattr(tops, name)), name
+    assert tops.stn is stn.stn
 
 
 @pytest.fixture

@@ -18,6 +18,7 @@ these plain versions there.
 
 from __future__ import annotations
 
+import importlib
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,8 @@ from jax.experimental import pallas as pl
 
 import multiple_objects_gan_tpu.ops as jstn
 import multiple_objects_gan_tpu.ops.stn_pallas as sp
-from multiple_objects_gan_tpu_torch.ops import stn, stn_place_cuda
+from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
+stn = importlib.import_module("multiple_objects_gan_tpu_torch.ops.stn")
 
 ATOL = 1e-5
 
