@@ -22,9 +22,11 @@ AttnGAN's sampling dump with FID and IS, the layout-fidelity tool and a
 --profile trace, and 47-49 scale out: the train entry as world size 1
 over NCCL, the mnist, AttnGAN and DAMSM steps as two processes of one
 process group (parallel/, tools/dist_steps.py) against one process, and
-AttnGAN's sampling dump sharded over two processes, and 50 runs the tools:
+AttnGAN's sampling dump sharded over two processes, 50 runs the tools:
 validate_learning (whether a run learns), export_checkpoint,
-check_dataset, parity_harness and the general STN. Every COCO entry reads
+check_dataset, parity_harness and the general STN, and 51 the last train
+and serve options: MOG_REMAT, BatchNorm groups that span ranks and the
+server's --max_batch. Every COCO entry reads
 its JPEGs from
 disk (nvjpeg on the card). The train entries' data and runs go to a
 temporary directory, removed at the end. Phases, each logged with the
@@ -318,7 +320,24 @@ elapsed time:
                 the AttnGAN export (not comparable, FID finite); the
                 general STN on the card against stn_separable and the
                 CPU; K1 at the tool's generation places (32,3,256,16²)
-                and (32,4,192,16²) -> 16², f32 and bf16, held and timed.
+                and (32,4,192,16²) -> 16², f32 and bf16, held and timed;
+ 51. options  - the train and serve options added last: the mnist f32
+                step (batch 128, warm Adams, one z) under each MOG_REMAT
+                mode (0, full, convs, dots) held against mode 0 under
+                cudnn.deterministic (mode 0 twice at the default
+                algorithms read for their spread) (losses
+                1e-5 of the loss, running statistics 1e-6 and
+                num_batches_tracked equal, per-tensor update cosines
+                >= 0.99999), its ms (CUDA events, median of 10), peak
+                memory and K1/K2 launches (8 and 4 under recompute, 4 and
+                4 at mode 0); peak memory and ms at 0 and full of the
+                stage-2 f32 step (batch 40) and the AttnGAN f32 step
+                (batch 14); the mnist step at --bn_groups 3 of a global
+                batch of 96 as two ranks (a group spans them) against one
+                process, at phase 48's limits; the trained mnist G served
+                at --max_batch 8 and 128 (/healthz, a full request in one
+                device batch, one item more refused with a 400) and K1 at
+                (8,3,256,16²) and (128,3,256,16²) -> 16² held and timed.
 
 After the phases come three lines: {"kernel_details": ...} (every
 kernel reading), {"summary": ...} (under 4 KB: the step medians of every
@@ -599,7 +618,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/50 device")
+    log("phase 1/51 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -617,7 +636,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/50 build")
+    log("phase 2/51 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -662,7 +681,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/50 kernel against its plain version, on the card")
+    log("phase 3/51 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -797,7 +816,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/50 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/51 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -880,7 +899,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/50 serve: the port's main path over HTTP, on the card")
+    log("phase 5/51 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -1027,7 +1046,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/50 grad: K2 (place backward) against its plain version, "
+    log("phase 6/51 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1134,7 +1153,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/50 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/51 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1290,7 +1309,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/50 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/51 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1324,7 +1343,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/50 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/51 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1406,7 +1425,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/50 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/51 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1505,7 +1524,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/50 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/51 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1540,7 +1559,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/50 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/51 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1602,7 +1621,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/50 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/51 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1646,7 +1665,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/50 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/51 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1770,7 +1789,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/50 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/51 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1845,7 +1864,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/50 fstep: one full-width float32 train step of each "
+    log(f"phase 17/51 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1884,7 +1903,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/50 ftime: each family's train step at batch "
+    log("phase 18/51 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1892,13 +1911,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/50 ftime, {key}",
+                                       f"18/51 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/50 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/51 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1935,7 +1954,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/50 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/51 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2087,7 +2106,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/50 probe: the image decoders this machine has, read only "
+    log("phase 21/51 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2341,7 +2360,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/50 disk: the train entries from disk (cli/main.py "
+    log("phase 22/51 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2521,7 +2540,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/50 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/51 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2564,7 +2583,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/50 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/51 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2743,7 +2762,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/50 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/51 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2852,7 +2871,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/50 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/51 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2894,7 +2913,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/50 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/51 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2967,7 +2986,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/50 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/51 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -3042,7 +3061,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/50 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/51 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3207,7 +3226,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/50 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/51 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3297,7 +3316,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/50 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/51 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3406,7 +3425,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/50 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/51 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3551,7 +3570,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/50 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/51 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3656,7 +3675,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/50 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/51 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3726,7 +3745,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/50 attntime: the AttnGAN step at batch "
+    log(f"phase 35/51 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3864,7 +3883,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/50 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/51 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -4011,7 +4030,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/50 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/51 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4050,7 +4069,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/50 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/51 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4122,7 +4141,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/50 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/51 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4262,7 +4281,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/50 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/51 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4434,7 +4453,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/50 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/51 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4688,7 +4707,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/50 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/51 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4804,7 +4823,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/50 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/51 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4939,7 +4958,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/50 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/51 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -5011,7 +5030,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/50 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/51 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -5135,7 +5154,7 @@ def phase_sampling(model, fid):
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/50 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/51 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5241,7 +5260,7 @@ def _rank_env() -> dict:
 
 
 def phase_dist_entry():
-    log("phase 47/50 nccl1: cli/main.py --variant multi-mnist --synthetic "
+    log("phase 47/51 nccl1: cli/main.py --variant multi-mnist --synthetic "
         "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
         "against the same run without the environment, bit for bit "
         "(cudnn.deterministic in both, each in a process of its own, the "
@@ -5438,7 +5457,7 @@ def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
 
 
 def phase_dist_steps(attn_weights, sampling):
-    log(f"phase 48/50 dist2: the mnist, AttnGAN and DAMSM steps as "
+    log(f"phase 48/51 dist2: the mnist, AttnGAN and DAMSM steps as "
         f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
         "one process on the same global batch, from warm Adams; the same "
         "start runs phase 49's dump")
@@ -5537,7 +5556,7 @@ def phase_dist_steps(attn_weights, sampling):
 
 
 def phase_dist_sampling(sampling, dist2):
-    log(f"phase 49/50 dump2: AttnGAN's --eval_mode sampling dump of "
+    log(f"phase 49/51 dump2: AttnGAN's --eval_mode sampling dump of "
         f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
         "(phase 48's start), against phase 45's one-process dump")
     out, one = dist2["dump_dir"], sampling["out"]
@@ -5850,7 +5869,7 @@ def _check_dataset(argv):
 
 
 def phase_validate():
-    log("phase 50/50 validate: the port's tools on the card: "
+    log("phase 50/51 validate: the port's tools on the card: "
         "validate_learning for mnist and clevr at the tool's defaults "
         "(held: the FID trend falls, separation, mnist recall), the "
         "exporter (the exported G's images bit for bit), the stage-2 and "
@@ -6041,6 +6060,371 @@ def _tool_runs(mnist, launches):
     return wiring, ck_rows, result, harness_s
 
 
+# ------------------------------------------- phase 51: the last options
+
+REMAT_MODES = ("0", "full", "convs", "dots")
+REMAT_TIME_RUNS = 10        # CUDA-event readings a mode's step time
+# every mode against mode 0 on the card, both under cudnn.deterministic
+# (cuDNN's default backward differs run to run: mode 0 against itself
+# reads update cosines down to 0.99992, PERF.md): losses, per-tensor
+# updates from warm Adams, BatchNorm running statistics
+REMAT_LOSS_RTOL = 1e-5
+REMAT_MIN_UPDATE_COSINE = 0.99999
+REMAT_STATS_ATOL = 1e-6
+REMAT_LAUNCHES = {"0": (4, 4), "full": (8, 4), "convs": (8, 4),
+                  "dots": (8, 4)}   # K1, K2 a step: the recompute places
+SPAN_GROUPS = 3             # BatchNorm groups over DIST_WORLD ranks
+SPAN_BATCH = 96             # the global batch they split: 32 rows a group
+SERVE_MAX_BATCHES = (8, 128)
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+@contextlib.contextmanager
+def _remat_env(mode: str):
+    """MOG_REMAT set to ``mode`` for the steps built inside."""
+    prev = os.environ.get("MOG_REMAT")
+    os.environ["MOG_REMAT"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MOG_REMAT", None)
+        else:
+            os.environ["MOG_REMAT"] = prev
+
+
+def _timed_steps(step, runs):
+    """``runs`` calls of ``step`` after two warm-ups: the median ms (CUDA
+    events), the peak device memory (GiB) and K1/K2 launches a step."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launch_count()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          "non-finite losses while timing")
+    return (statistics.median(times),
+            torch.cuda.max_memory_allocated() / 2**30,
+            (k1.launch_count() / runs, k1.grad_launch_count() / runs))
+
+
+def _remat_mnist():
+    """The mnist f32 step at batch STEP_BATCH under every MOG_REMAT mode
+    from one state (tests/test_step_parity.py's weights, warm Adams) and
+    one z, held against mode 0 with cuDNN's deterministic algorithms; step
+    ms, peak memory and launches a mode at the default algorithms."""
+    dev = torch.device(DEVICE)
+    state0 = create_state(MNIST, seed=0, device="cpu")
+    randomize(state0.g, 3)
+    randomize(state0.d, 11)
+    warm_adam(state0)
+    pre = copy.deepcopy(state0.checkpoint_dict())
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_multimnist(STEP_BATCH, seed=51).items()}
+    z = torch.from_numpy(np.random.RandomState(51).randn(
+        STEP_BATCH, MNIST.z_dim).astype(np.float32)).to(dev)
+    rows, launches, runs = {}, {}, {}
+    # each mode once, then mode 0 again under cudnn.deterministic (the
+    # floor of the held comparison) and twice at the default algorithms
+    # (their run-to-run spread, read, not held)
+    plan = ([(m, m, True) for m in REMAT_MODES]
+            + [("again", "0", True), ("default", "0", False),
+               ("default_again", "0", False)])
+    for key, mode, deterministic in plan:
+        state = copy.deepcopy(state0)
+        dist_steps._to_device_(state, dev)
+        with _remat_env(mode):
+            step = make_train_step(MNIST, KL_COEFF)
+        k1.reset_launch_count()
+        with (_cudnn_deterministic() if deterministic
+              else contextlib.nullcontext()):
+            metrics = step(state, batch, None, LR, LR, z=z)
+            torch.cuda.synchronize()
+        got = (k1.launch_count(), k1.grad_launch_count())
+        runs[key] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "state": {k: {n: t.detach().cpu().clone()
+                                   for n, t in v.items()}
+                               for k, v in state.checkpoint_dict().items()
+                               if k in ("g", "d")}}
+        if key in REMAT_MODES:
+            launches[f"remat_{mode}"] = got
+            gen = torch.Generator(device=dev).manual_seed(51)
+            ms, peak, per_step = _timed_steps(
+                lambda: step(state, batch, gen, LR, LR), REMAT_TIME_RUNS)
+            rows[mode] = {"ms": ms, "peak_gib": peak, "launches": got,
+                          "timed_launches_per_step": per_step}
+        del state, step
+        torch.cuda.empty_cache()
+    _, spread, spread_at = _state_gaps(pre, runs["default_again"]["state"],
+                                       runs["default"]["state"])
+    log(f"  at cuDNN's default algorithms mode 0 against itself: lowest "
+        f"update cosine {spread:.8f} ({spread_at}; read, not held)")
+    want = runs["0"]
+    _, floor, floor_at = _state_gaps(pre, runs["again"]["state"],
+                                     want["state"])
+    failed = []
+    for mode in REMAT_MODES[1:]:
+        got = runs[mode]
+        same = _same_bits(got["state"], want["state"])
+        loss_rel = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in want["metrics"].items())
+        stats, cos, worst = _state_gaps(pre, got["state"], want["state"])
+        tracked = all(torch.equal(got["state"][p][k], t)
+                      for p in ("g", "d")
+                      for k, t in want["state"][p].items()
+                      if k.endswith("num_batches_tracked"))
+        rows[mode].update(loss_rel=loss_rel, stats=stats,
+                          update_cosine=cos, bit_for_bit=same)
+        log(f"  MOG_REMAT={mode} against mode 0: worst loss gap "
+            f"{loss_rel:.2e} of the loss (limit {REMAT_LOSS_RTOL:g}); "
+            f"running statistics {stats:.3e} (atol {REMAT_STATS_ATOL:g}); "
+            f"num_batches_tracked equal: {tracked}; lowest update cosine "
+            f"{cos:.8f} ({worst}; limit {REMAT_MIN_UPDATE_COSINE:g}; mode 0 "
+            f"run again: {floor:.8f}, {floor_at}); G and D equal mode 0's "
+            f"bit for bit: {same}")
+        for ok, msg in ((loss_rel <= REMAT_LOSS_RTOL, f"losses {loss_rel}"),
+                        (stats <= REMAT_STATS_ATOL, f"statistics {stats}"),
+                        (tracked, "num_batches_tracked differs"),
+                        (cos >= REMAT_MIN_UPDATE_COSINE,
+                         f"update {worst} {cos}")):
+            if not ok:
+                failed.append(f"{mode}: {msg}")
+    for mode, row in rows.items():
+        log(f"  mnist f32 step at batch {STEP_BATCH}, MOG_REMAT={mode}: "
+            f"{row['ms']:.2f} ms (CUDA events, median of {REMAT_TIME_RUNS}),"
+            f" {STEP_BATCH * 1e3 / row['ms']:.0f} images/s; peak memory "
+            f"{row['peak_gib']:.2f} GiB; K1/K2 launches in the held step "
+            f"{row['launches']}, a timed step "
+            f"{row['timed_launches_per_step']}")
+        if row["launches"] != REMAT_LAUNCHES[mode]:
+            failed.append(f"{mode}: K1/K2 launches {row['launches']} != "
+                          f"{REMAT_LAUNCHES[mode]}")
+    check(not failed, "; ".join(failed))
+    rows["floor_cosine"], rows["default_cosine"] = floor, spread
+    return rows, launches
+
+
+def _remat_peaks(attn_weights, ds):
+    """Peak device memory and step ms at mode 0 and ``full`` of the
+    stage-2 f32 step at batch S2_BATCH and the AttnGAN f32 step at batch
+    ATTN_TRAIN_BATCH (one timed step after two)."""
+    dev = torch.device(DEVICE)
+    out = {}
+    s2_data = {k: torch.from_numpy(v).to(dev)
+               for k, v in stage2_data(S2_BATCH, 51).items()}
+    attn_batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                  _attn_train_batch(ds, ATTN_TRAIN_BATCH, 51).items()}
+    g_sd, d_sds, e_sd, i_sd = attn_weights
+    mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG,
+                                              "coco-attngan"))
+    for mode in ("0", "full"):
+        s1, s2 = stage2_cfgs()
+        g1 = build_stage1_g(s1, seed=0, device=dev)
+        state = create_state_stage2(s2, seed=0, device=dev)
+        with _remat_env(mode):
+            step = make_stage2_train_step(s2, s1, g1, KL_COEFF)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ms, peak, per_step = _timed_steps(
+            lambda: step(state, s2_data, gen, LR, LR), 1)
+        out[f"stage2_{mode}"] = {"ms": ms, "peak_gib": peak,
+                                 "launches_per_step": per_step}
+        del g1, state, step
+        torch.cuda.empty_cache()
+        state, text, image = _attn_nets(dev, mcfg, g_sd, d_sds, ATTN_WORDS,
+                                        e_sd, i_sd)
+        with _remat_env(mode):
+            step = make_attngan_train_step(mcfg, text, image)
+        ms, peak, per_step = _timed_steps(
+            lambda: step(state, attn_batch, gen, LR, LR), 1)
+        out[f"attngan_{mode}"] = {"ms": ms, "peak_gib": peak,
+                                  "launches_per_step": per_step}
+        del state, text, image, step
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        log(f"  {name.replace('_', ' step, MOG_REMAT=')} f32: {row['ms']:.2f}"
+            f" ms (CUDA events, one step after two), peak memory "
+            f"{row['peak_gib']:.2f} GiB, K1/K2 a step "
+            f"{row['launches_per_step']}")
+    return out
+
+
+def _span_groups():
+    """The world-2 mnist step at SPAN_GROUPS BatchNorm groups of a global
+    batch of SPAN_BATCH (a group spans the two ranks) against one process
+    at the same groups, from warm Adams, held at phase 48's limits."""
+    cfg = dataclasses.replace(MNIST, bn_groups=SPAN_GROUPS)
+    state = create_state(cfg, seed=0, device="cpu")
+    randomize(state.g, 3)
+    randomize(state.d, 11)
+    warm_adam(state)
+    pre = copy.deepcopy(state.checkpoint_dict())
+    case = {"name": "span", "kind": "stage1", "config": cfg, "state": state,
+            "batch": {k: torch.from_numpy(v) for k, v in
+                      synthetic_multimnist(SPAN_BATCH, seed=51).items()},
+            "seed": 51, "lr": LR}
+    path = os.path.join(WORK, "span_cases.pth")
+    torch.save([case], path)
+    del case, state
+    t = time.perf_counter()
+    ranks = dist_steps.spawn(path, os.path.join(WORK, "span_out"),
+                             world=DIST_WORLD, device=DEVICE,
+                             timeout=DIST_TIMEOUT, env=_rank_env())
+    spawn_s = time.perf_counter() - t
+    want = dist_steps.run_cases(torch.load(path, weights_only=False),
+                                DEVICE)["span"]
+    os.remove(path)
+    shutil.rmtree(os.path.join(WORK, "span_out"), ignore_errors=True)
+    got = [r["results"]["span"] for r in ranks]
+    bad = [k for k, v in want["metrics"].items()
+           if abs(got[0]["metrics"][k] - v)
+           > DIST_LOSS_ATOL + DIST_LOSS_RTOL * abs(v)]
+    loss_rel = max(abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want["metrics"].items())
+    stats, cos, worst = _state_gaps(pre, got[0]["state"], want["state"])
+    same = _same_bits(got[0]["state"], got[1]["state"])
+    log(f"  --bn_groups {SPAN_GROUPS} over {DIST_WORLD} ranks "
+        f"({ranks[0]['backend']}), global batch {SPAN_BATCH}: worst loss "
+        f"gap {loss_rel:.2e} of the loss (limit {DIST_LOSS_ATOL:g} + "
+        f"{DIST_LOSS_RTOL:g} of it); running statistics {stats:.3e} (atol "
+        f"{STATS_ATOL:g}); lowest update cosine {cos:.8f} ({worst}; limit "
+        f"{DIST_MIN_UPDATE_COSINE:g}); replicas equal bit for bit: {same}; "
+        f"K1/K2 a rank {[r['launches'] for r in got]} (one process "
+        f"{want['launches']}); the spawn {spawn_s:.1f} s (host clock)")
+    failed = [msg for ok, msg in (
+        (same, "the replicas differ after the step"),
+        (not bad, f"losses world 2 vs world 1 {bad}"),
+        (stats <= STATS_ATOL, f"running statistics {stats}"),
+        (cos > DIST_MIN_UPDATE_COSINE, f"update {worst} {cos}"),
+        (all(r["launches"] == (4, 4) for r in got),
+         f"launches a rank {[r['launches'] for r in got]}")) if not ok]
+    check(not failed, "; ".join(failed))
+    return ({f"span_g{SPAN_GROUPS}_rank{r}": got[r]["launches"]
+             for r in range(DIST_WORLD)},
+            {"loss_rel": loss_rel, "stats": stats, "update_cosine": cos,
+             "spawn_s": spawn_s})
+
+
+def _serve_max_batch():
+    """The trained mnist G served at each ``--max_batch`` of
+    SERVE_MAX_BATCHES: /healthz, a request of max_batch items in one
+    device batch (content in its boxes), one more item refused with a
+    400; K1 at the device batch's shape held and timed."""
+    rs = np.random.RandomState(51)
+    launches, rows, worst = {}, {}, 0.0
+    dev = torch.device(DEVICE)
+    for mb in SERVE_MAX_BATCHES:
+        httpd = serve(serve_parse_args(
+            ["--variant", "multi-mnist", "--net_g", CKPT, "--device", DEVICE,
+             "--port", "0", "--max_batch", str(mb)]))
+        k1.reset_launch_count()
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        port = httpd.server_address[1]
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+            items, boxes = [], []
+            for _ in range(mb):
+                n = int(rs.randint(1, 4))
+                w, h = rs.uniform(0.25, 0.4, n), rs.uniform(0.25, 0.4, n)
+                bb = np.stack([rs.uniform(0, 1 - w), rs.uniform(0, 1 - h),
+                               w, h], -1).round(4).tolist()
+                items.append({"labels": rs.randint(0, 10, n).tolist(),
+                              "bboxes": bb})
+                boxes.append(bb)
+            t = time.perf_counter()
+            status, body = _post(port, {"items": items})
+            latency_ms = (time.perf_counter() - t) * 1e3
+            over, refused = _post(port, {"items": items + [{}]})
+            fill = httpd.batcher.snapshot()["avg_batch_fill"]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.batcher.close()
+            thread.join(timeout=30)
+        launches[f"serve_max_batch_{mb}"] = (k1.launch_count(),
+                                             k1.grad_launch_count())
+        check(health["max_batch"] == mb, f"/healthz {health}")
+        check(status == 200 and len(body["images"]) == mb,
+              f"{mb}-item request: {status}")
+        sep = [np.subtract(*_separation(_png_gray64(b)[None], [bb]))
+               for b, bb in zip(body["images"], boxes)]
+        check(float(np.mean(sep)) > MIN_SEPARATION,
+              f"max_batch {mb}: content not in the boxes")
+        check(over == 400 and refused["error"]
+              == f"at most {mb} items per request", f"{mb + 1} items: "
+              f"{over} {refused}")
+        check(fill == mb, f"avg_batch_fill {fill} != {mb}")
+        check(launches[f"serve_max_batch_{mb}"] == (1, 0),
+              f"K1/K2 launches {launches[f'serve_max_batch_{mb}']} for one "
+              "device batch")
+        feats = torch.from_numpy(rs.randn(mb, 3, 256, 16, 16).astype(
+            np.float32)).to(dev)
+        bbox = torch.from_numpy(_service_boxes(rs, mb, 3)).to(dev)
+        worst = max(worst, _held(
+            k1.stn_place_multi_nchw(feats, bbox, (16, 16)),
+            k1.stn_place_multi_plain(feats, bbox, (16, 16)), torch.float32,
+            "K1", f"serve_b{mb} {tuple(feats.shape)} -> (16, 16)"))
+        rows[f"serve_b{mb}"] = time_place(feats, bbox, (16, 16),
+                                          f"K1 at --max_batch {mb}")
+        rows[f"serve_b{mb}"]["latency_ms"] = latency_ms
+        log(f"  --max_batch {mb}: /healthz {health['max_batch']}; a "
+            f"{mb}-item request {latency_ms:.1f} ms end to end (host clock)"
+            f", one device batch (avg_batch_fill {fill:g}), separation mean "
+            f"{np.mean(sep):.3f}; {mb + 1} items: {over} "
+            f"({refused['error']!r}); K1/K2 launches "
+            f"{launches[f'serve_max_batch_{mb}']}")
+    return launches, rows, worst
+
+
+def phase_options(attn_weights):
+    log("phase 51/51 options: MOG_REMAT's four modes in the mnist f32 step "
+        "(each against mode 0) and peak memory at 0 and full for stage 2 "
+        "and AttnGAN; --bn_groups 3 over two ranks against one process; "
+        "serving at --max_batch 8 and 128 with K1 at both batches")
+    with float32_pinned():
+        remat_rows, launches = _remat_mnist()
+        _, ds = _attn_set()
+        peaks = _remat_peaks(attn_weights, ds)
+        span_launches, span = _span_groups()
+        serve_launches, places, worst = _serve_max_batch()
+    launches.update(span_launches)
+    launches.update(serve_launches)
+    SUMMARY["remat"] = {m: {"ms": remat_rows[m]["ms"],
+                            "gib": remat_rows[m]["peak_gib"]}
+                        for m in REMAT_MODES}
+    SUMMARY["remat"].update({k: {"ms": v["ms"], "gib": v["peak_gib"]}
+                             for k, v in peaks.items()})
+    SUMMARY["span"] = {"loss_rel": span["loss_rel"],
+                       "cos": span["update_cosine"]}
+    SUMMARY["serve_mb"] = {k: {"ms": v["ms"], "graph_ms": v["graph_ms"],
+                               "lat_ms": v["latency_ms"]}
+                           for k, v in places.items()}
+    return launches, {"max_abs_err": worst, **places, "remat": remat_rows,
+                      "remat_peaks": peaks, "span": span}
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -6118,7 +6502,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/50 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/51 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -6166,20 +6550,24 @@ def run_phases() -> int:
                               sampling)
     dump_paths, dump2 = timed("dump2", phase_dist_sampling, sampling, dist2)
     validate_paths, validate = timed("validate", phase_validate)
+    options_paths, options = timed("options", phase_options,
+                                   attn_step["weights"])
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
                **sampled["launches"], **s2_entry, **s2_serve, **attn_serve,
                **attn_entry, **damsm_entry, **attn_eval_paths,
                **s2_sample_paths, **sampling_paths, **layout_paths,
-               **dist_paths, **dump_paths, **validate_paths}
+               **dist_paths, **dump_paths, **validate_paths,
+               **options_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
                  "train_coco-attngan", "train_coco-attngan_resume",
                  "train_damsm", "train_damsm_resume", *attn_eval_paths,
                  *s2_sample_paths, *sampling_paths, *layout_paths,
-                 *dist_paths, *dump_paths, "parity_harness")
+                 *dist_paths, *dump_paths, "parity_harness",
+                 *options_paths)
     # the validate tool's runs are --bf16, its default
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16",
@@ -6205,7 +6593,7 @@ def run_phases() -> int:
             "attngan_train": {**attn_places["place"], "entry": attn_run},
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
             "attngan_sampling": sampling, "layout_tool": layout,
-            "validate_tool": validate,
+            "validate_tool": validate, "options": options,
             "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
                        "places": dist2["places"]["place"],
                        "dump": dump2}},
@@ -6246,7 +6634,7 @@ def run_phases() -> int:
                            s2_sample["max_abs_err"],
                            sampling["max_abs_err"], layout["max_abs_err"],
                            dist2["places"]["max_abs_err"]["place"],
-                           validate["max_abs_err"]),
+                           validate["max_abs_err"], options["max_abs_err"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -6262,7 +6650,9 @@ def run_phases() -> int:
                       for k, v in dist2["places"]["place"].items()},
                    **{f"validate_gen_{k}": _compact(validate[k])
                       for k in ("mnist_float32", "mnist_bfloat16",
-                                "clevr_float32", "clevr_bfloat16")}},
+                                "clevr_float32", "clevr_bfloat16")},
+                   **{k: _compact(options[k])
+                      for k in (f"serve_b{b}" for b in SERVE_MAX_BATCHES)}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

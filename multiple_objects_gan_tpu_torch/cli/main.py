@@ -52,8 +52,10 @@ raises. It runs on several processes when the environment says so
 torchrun's): each process trains on its shard of every global batch
 (``parallel/``), NCCL between cards and gloo on the CPU or on a shared
 card, rank 0 writing the logs, records and checkpoints; ``--bn_groups``
-must then be a multiple of the world size, and of the eval modes only
-AttnGAN's ``sampling`` dump shards (the others run on rank 0). A float32
+and the world size must then divide the global batch (a group may span
+ranks), and of the eval modes only AttnGAN's ``sampling`` dump shards
+(the others run on rank 0). ``MOG_REMAT=0|full|convs|dots`` recomputes
+the train steps' regions in their backward (``train/remat.py``). A float32
 run on the card computes in float32: TF32 is turned off
 (``float32_policy``, as the server does).
 """
@@ -329,19 +331,21 @@ def main(argv=None) -> list[dict]:
             destroy_distributed()
 
 
-def check_bn_groups(groups: int) -> None:
-    """Exit unless ``groups`` BatchNorm chunks of the global batch split
-    into whole chunks a rank (``nn/blocks.py``)."""
+def check_bn_groups(groups: int, batch_size: int) -> None:
+    """Exit where the JAX package fails too: ``groups`` > 1 BatchNorm
+    chunks of a global batch of ``batch_size`` that they, or the world
+    size, do not divide (the object pathways' chunks must be whole, and so
+    must the ranks' shares). Any other count of groups runs at any world
+    size: a chunk may span ranks (``nn/blocks.py``)."""
     world = world_size()
-    if groups > 1 and groups % world:
-        sys.exit(f"--bn_groups {groups} over {world} processes is not "
-                 "supported: the groups must be a multiple of the world "
-                 "size")
+    if groups > 1 and (batch_size % groups or batch_size % world):
+        sys.exit(f"--bn_groups {groups} over {world} processes at global "
+                 f"batch {batch_size} is not supported: the groups and the "
+                 "world size must divide the batch")
 
 
 def _run(args) -> list[dict]:
     device = rank_device(resolve_device(args.device))
-    check_bn_groups(args.bn_groups)
     cfg = cfg_from_file(args.cfg_file, args.variant)
     if args.data_dir:
         cfg.DATA_DIR = args.data_dir
@@ -374,6 +378,8 @@ def _run(args) -> list[dict]:
     damsm = args.variant == "damsm"
     # a stage-1 StackGAN cfg trains whatever TRAIN.FLAG says, as there
     training = bool(cfg.TRAIN.FLAG) or damsm or (stackgan and not stage2)
+    if training and not damsm:
+        check_bn_groups(args.bn_groups, int(cfg.TRAIN.BATCH_SIZE))
     mode = None
     if attn:
         # damsm's backbone runs in eval mode and its text encoder has no

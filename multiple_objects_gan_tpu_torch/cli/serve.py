@@ -4,10 +4,11 @@ The PyTorch counterpart of the JAX package's ``cli/serve.py`` for the
 Stage-1 generators (multi-mnist, clevr, coco-stackgan-1), COCO StackGAN
 stage 2 (256px) and COCO AttnGAN (free-text captions, 256px): a
 micro-batcher coalesces concurrent requests into device batches of a
-fixed size (``MAX_BATCH``), each batch is one eval-mode ``Stage1G``
-forward (stage 2: the frozen stage-1 G, then ``Stage2G``; AttnGAN: the
-DAMSM text encoder, then ``GNet``), whose object pathways place their
-objects with the CUDA kernel of ``ops/stn_place_cuda.py``.
+fixed size (``--max_batch``, default ``MAX_BATCH`` 64), each batch is one
+eval-mode ``Stage1G`` forward (stage 2: the frozen stage-1 G, then
+``Stage2G``; AttnGAN: the DAMSM text encoder, then ``GNet``), whose object
+pathways place their objects with the CUDA kernel of
+``ops/stn_place_cuda.py``.
 
 HTTP API (stdlib http.server, threaded):
   POST /generate  {"items": [{"labels": [3], "bboxes": [[x, y, w, h]]}]}
@@ -18,15 +19,16 @@ HTTP API (stdlib http.server, threaded):
                   coco-stackgan-2 items may carry "bboxes_s2", the boxes of
                   its 256px object pathway (default: "bboxes");
                   coco-attngan items carry "caption", free text, and up to
-                  3 objects (a random layout without "labels"/"bboxes")
-  GET  /healthz   -> {"ok": true, ...}
+                  3 objects (a random layout without "labels"/"bboxes");
+                  at most max_batch items a request, else a 400
+  GET  /healthz   -> {"ok": true, "max_batch": N, ...}
   GET  /stats     -> batcher counters, device batches and K1 launches
 
 Usage:
   python -m multiple_objects_gan_tpu_torch.cli.serve \
       --variant multi-mnist|clevr|coco-stackgan-1|coco-stackgan-2 \
       [--net_g G.pth] [--cfg CFG] [--device cuda] [--port 8000] \
-      [--max_wait_ms 5] [--bf16]
+      [--max_batch 64] [--max_wait_ms 5] [--bf16]
   python -m multiple_objects_gan_tpu_torch.cli.serve --variant coco-attngan \
       --cfg CFG --data_dir D [--img_dir I] [--net_g G.pth] [--bf16] ...
 
@@ -80,7 +82,7 @@ from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
 from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils.images import png_bytes, to_uint8
 
-MAX_BATCH = 64
+MAX_BATCH = 64              # the device batch without --max_batch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 # the cfg each variant is served with when no --cfg is given (coco-stackgan-1:
@@ -93,6 +95,15 @@ DEFAULT_CFGS = {"multi-mnist": "",
                                                 "coco_s2_eval.yml"),
                 "coco-attngan": os.path.join(ROOT, "cfg",
                                              "coco_attn_eval.yml")}
+
+
+def _max_batch(max_batch: Optional[int]) -> int:
+    """A service's device batch: ``max_batch``, else ``MAX_BATCH`` (read
+    when the service is built); at least 1."""
+    b = MAX_BATCH if max_batch is None else int(max_batch)
+    if b < 1:
+        raise ValueError(f"max_batch must be at least 1, got {b}")
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +296,8 @@ def _item_text(item: dict, text_dim: int) -> np.ndarray:
 
 
 class Stage1Service:
-    """Stage-1 generation at ``MAX_BATCH`` on one device, for any of the
+    """Stage-1 generation at ``max_batch`` (default ``MAX_BATCH``) on one
+    device, for any of the
     three families (JAX ``cli/serve.py:Stage1Service``).
 
     ``net_g`` is a reference-format ``.pth``; without one the generator
@@ -299,10 +311,11 @@ class Stage1Service:
     """
 
     def __init__(self, mcfg: Stage1Config = MNIST, net_g: str = "",
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda",
+                 max_batch: Optional[int] = None):
         self.device = resolve_device(device)
         self.mcfg = mcfg
-        self.max_batch = MAX_BATCH
+        self.max_batch = _max_batch(max_batch)
         state_dict = load_reference_g(net_g) if net_g else None
         self.weights = net_g or f"random init, seed {seed}"
         self.g = build_stage1_g(mcfg, state_dict, seed=seed,
@@ -369,7 +382,7 @@ def _item_boxes_s2(item: dict, bbox: np.ndarray) -> np.ndarray:
 
 
 class Stage2Service:
-    """COCO StackGAN stage 2 at ``MAX_BATCH`` on one device: 256px images,
+    """COCO StackGAN stage 2 at ``max_batch`` on one device: 256px images,
     the paper's headline output (JAX ``cli/serve.py:Stage2Service``).
 
     Each device batch runs the frozen stage-1 G and then Stage2G, both in
@@ -388,10 +401,10 @@ class Stage2Service:
 
     def __init__(self, s1_cfg: Stage1Config, s2_cfg: Stage1Config,
                  net_g: str = "", stage1_g: str = "", seed: int = 0,
-                 device="cuda"):
+                 device="cuda", max_batch: Optional[int] = None):
         self.device = resolve_device(device)
         self.mcfg, self.s2_cfg = s1_cfg, s2_cfg
-        self.max_batch = MAX_BATCH
+        self.max_batch = _max_batch(max_batch)
         random_init = f"random init, seed {seed}"
         s1_sd = load_reference_g(stage1_g) if stage1_g else None
         g1_src, s2_sd = stage1_g or random_init, None
@@ -486,7 +499,7 @@ def _read_weights(path: str, name: str, kind: str, load, what: str,
 
 
 class AttnGanService:
-    """COCO AttnGAN at ``MAX_BATCH`` on one device: free-text caption and
+    """COCO AttnGAN at ``max_batch`` on one device: free-text caption and
     layout -> 256px image (JAX ``cli/serve.py:AttnGanService``).
 
     The vocabulary is the data directory's (``data/attngan.py:
@@ -508,10 +521,10 @@ class AttnGanService:
     def __init__(self, mcfg: AttnGanConfig, data_dir: str, net_g: str = "",
                  net_e: str = "", words_num: int = 12,
                  captions_per_image: int = 5, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", max_batch: Optional[int] = None):
         self.device = resolve_device(device)
         self.mcfg, self.words_num = mcfg, int(words_num)
-        self.max_batch = MAX_BATCH
+        self.max_batch = _max_batch(max_batch)
         ds = AttnGanDataset(data_dir, split="test",
                             captions_per_image=captions_per_image)
         self.wordtoix = ds.wordtoix
@@ -551,7 +564,7 @@ class AttnGanService:
         return (ids or [self.max_word])[:self.words_num]
 
     def batch(self, items: list) -> dict:
-        """A device batch's inputs as numpy arrays, ``MAX_BATCH`` rows:
+        """A device batch's inputs as numpy arrays, ``max_batch`` rows:
         ``caps`` (zero-padded ids), ``lens`` (1 for the padding rows),
         ``label_onehot`` and ``bbox`` (items without a layout draw one
         from the service's RandomState)."""
@@ -645,16 +658,19 @@ def make_handler(batcher: MicroBatcher, info: dict, validate=None,
 def build_service(args):
     """The service the CLI arguments name: the model config and NET_G of
     ``--cfg`` (or of the variant's ``DEFAULT_CFGS`` entry; the MNIST preset
-    for multi-mnist); ``--net_g`` wins over the YAML, and ``--bf16`` makes
-    the generators compute in bf16. coco-stackgan-2 gives a
+    for multi-mnist); ``--net_g`` wins over the YAML, ``--bf16`` makes
+    the generators compute in bf16, and ``--max_batch`` sets the device
+    batch (``MAX_BATCH`` without it). coco-stackgan-2 gives a
     :class:`Stage2Service`, with the cfg's STAGE1_G for the frozen G;
     coco-attngan an :class:`AttnGanService` on ``--data_dir`` (else the
     cfg's DATA_DIR)."""
     dt = torch.bfloat16 if getattr(args, "bf16", False) else None
+    mb = getattr(args, "max_batch", None)
     mcfg, net_g = dataclasses.replace(MNIST, compute_dtype=dt), args.net_g
     path = args.cfg or DEFAULT_CFGS[args.variant]
     if not path:
-        return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
+        return Stage1Service(mcfg, net_g, seed=args.seed,
+                             device=args.device, max_batch=mb)
     cfg = cfg_from_file(path, args.variant)
     if args.variant == "coco-attngan":
         # as the JAX service: TRAIN.NET_G and TRAIN.NET_E whatever the cfg
@@ -663,7 +679,7 @@ def build_service(args):
             args.data_dir or cfg.DATA_DIR, net_g or cfg.TRAIN.NET_G,
             cfg.TRAIN.NET_E, words_num=cfg.TEXT.WORDS_NUM,
             captions_per_image=cfg.TEXT.CAPTIONS_PER_IMAGE, seed=args.seed,
-            device=args.device)
+            device=args.device, max_batch=mb)
     # a cfg's NET_G and STAGE1_G are served only when its --cfg names them:
     # the default cfgs' are paths of the reference's own layout
     net_g = net_g or (cfg.NET_G if args.cfg else "")
@@ -671,9 +687,11 @@ def build_service(args):
         s1_cfg, s2_cfg = stage2_model_config(cfg, compute_dtype=dt)
         return Stage2Service(s1_cfg, s2_cfg, net_g,
                              cfg.STAGE1_G if args.cfg else "",
-                             seed=args.seed, device=args.device)
+                             seed=args.seed, device=args.device,
+                             max_batch=mb)
     mcfg = stage1_model_config(cfg, args.variant, compute_dtype=dt)
-    return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device)
+    return Stage1Service(mcfg, net_g, seed=args.seed, device=args.device,
+                         max_batch=mb)
 
 
 def serve(args, service=None) -> ThreadingHTTPServer:
@@ -721,6 +739,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max_batch", type=int, default=MAX_BATCH,
+                   help="the device batch and the most items a request "
+                        "may carry (default %(default)s)")
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",

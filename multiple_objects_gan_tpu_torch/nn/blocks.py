@@ -32,10 +32,24 @@ over a sharded batch: each rank's count, mean and sum of squared
 deviations, gathered with autograd and combined (Chan et al.), so that
 local counts may differ (the wrong pair's last rank holds one row fewer)
 and no E[x^2] - E[x]^2 loses digits across ranks. ``groups`` G then
-counts the global batch's chunks: each rank normalizes its G / world
-chunks, the running buffers take global chunk 0's update (rank 0's) and
-are broadcast from rank 0; a G that the world size does not divide is
-refused. At world size 1 the code path is the one described above.
+counts the global batch's chunks, as JAX groups them whatever the device
+count (nn/blocks.py:95-104 of the JAX package): chunk k is the rows
+torch.chunk gives it of the global batch, and a rank holds rows
+[r N / W, (r + 1) N / W). When G is a multiple of the world size W, every
+chunk a rank touches lies inside it: each rank normalizes its G / W
+chunks and no statistic is gathered. Otherwise a chunk spans ranks: each
+rank gathers the row counts (its offset), computes count, mean and sum
+of squared deviations for its rows of every chunk (count 0 for a chunk it
+does not touch), and the ranks combine them per chunk as above. Either
+way the running buffers take global chunk 0's update and are broadcast
+from rank 0. At world size 1 the code path is the one described above.
+
+A checkpointed region (``train/remat.py``, ``MOG_REMAT``) runs its
+forward again in the backward. Those runs happen under
+:func:`running_stats_frozen`: they normalize exactly as the first run did
+(the same statistics, the same collectives on every rank) and leave the
+running statistics and ``num_batches_tracked`` as the first run left
+them, as the JAX package's functional BatchNorm updates them once.
 
 BatchNorm on bf16 input follows the JAX ``TorchBatchNorm``
 (nn/blocks.py:213-226): statistics in float32 with var = E[x^2] - E[x]^2,
@@ -48,6 +62,7 @@ parameters' dtype.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -55,7 +70,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from multiple_objects_gan_tpu_torch.parallel import mesh
-from multiple_objects_gan_tpu_torch.parallel.multihost import world_size
+from multiple_objects_gan_tpu_torch.parallel.multihost import (
+    rank, world_size)
+
+# > 0 while a checkpointed region runs its forward again (train/remat.py)
+_RECOMPUTING = 0
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Train-mode BatchNorm inside normalizes as usual but updates no
+    running statistic and no ``num_batches_tracked``: the context of a
+    checkpointed region's second and later runs (module docstring)."""
+    global _RECOMPUTING
+    _RECOMPUTING += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING -= 1
 
 
 class Conv2d(nn.Conv2d):
@@ -133,11 +165,9 @@ def _stats(x: torch.Tensor, dims: tuple[int, ...]):
     return sq - mean.square(), mean
 
 
-def _synced_stats(x: torch.Tensor, dims: tuple[int, ...]):
-    """(biased var, mean, count) over ``dims`` of the global batch: this
-    rank's :func:`_stats` and count gathered with every rank's (autograd
-    through the gather) and combined by Chan et al.'s pairwise rule. A
-    rank with no rows adds nothing."""
+def _moments(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """(count, mean, count x biased var) of ``x`` over ``dims``, stacked on
+    a new leading axis, kept dims (:func:`_stats`); zeros without rows."""
     n = 1
     for d in dims:
         n *= x.shape[d]
@@ -147,7 +177,13 @@ def _synced_stats(x: torch.Tensor, dims: tuple[int, ...]):
         shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
         var = mean = x.new_zeros(shape, dtype=torch.float32 if _bf16(x)
                                  else x.dtype)
-    local = torch.stack([torch.full_like(mean, float(n)), mean, var * n])
+    return torch.stack([torch.full_like(mean, float(n)), mean, var * n])
+
+
+def _combined(local: torch.Tensor):
+    """(biased var, mean, count) of every rank's :func:`_moments`
+    ``local`` (3, ...), gathered with autograd and combined by Chan et
+    al.'s pairwise rule. A rank with no rows adds nothing."""
     counts, means, m2s = mesh.all_gather(local).unbind(1)
     total = counts.sum(0)
     mean_g = (counts * means).sum(0) / total
@@ -155,18 +191,50 @@ def _synced_stats(x: torch.Tensor, dims: tuple[int, ...]):
     return m2 / total, mean_g, total
 
 
+def _synced_stats(x: torch.Tensor, dims: tuple[int, ...]):
+    """(biased var, mean, count) over ``dims`` of the global batch."""
+    return _combined(_moments(x, dims))
+
+
+def _chunk_rows(rows: list[int], groups: int) -> tuple[list, int]:
+    """torch.chunk's ``groups`` chunks of a global leading axis held by
+    ranks with ``rows`` rows each, in rank order: this rank's part of each
+    chunk it touches, [(chunk, first, end)] in its own rows, and the number
+    of chunks."""
+    total, offset = sum(rows), sum(rows[:rank()])
+    size = -(-total // groups)
+    n_chunks = -(-total // size)
+    parts = []
+    for k in range(n_chunks):
+        lo = max(k * size, offset)
+        hi = min((k + 1) * size, offset + rows[rank()])
+        if lo < hi:
+            parts.append((k, lo - offset, hi - offset))
+    return parts, n_chunks
+
+
+def _spanning_stats(x: torch.Tensor, dims: tuple[int, ...], parts: list,
+                    n_chunks: int):
+    """(biased var, mean, count), each (n_chunks, ...), of every chunk of
+    the global batch (:func:`_chunk_rows`), this rank's rows of a chunk
+    the leading-axis slices of ``x`` in ``parts``."""
+    mine = {k: (lo, hi) for k, lo, hi in parts}
+    local = [_moments(x[slice(*mine[k])] if k in mine else x[:0], dims)
+             for k in range(n_chunks)]
+    return _combined(torch.stack(local, dim=1))
+
+
+def _spans_ranks(groups: int, world: int) -> bool:
+    """Whether a chunk of ``groups`` may span ranks: G > 1 chunks over a
+    world size that does not divide them."""
+    return world > 1 and groups > 1 and groups % world != 0
+
+
 def _local_groups(groups: int) -> int:
-    """A rank's share of ``groups`` global BatchNorm chunks (one group is
-    the global batch's statistics, whatever the world size)."""
-    world = world_size()
-    if groups == 1:
-        return 1
-    if groups % world:
-        raise ValueError(
-            f"BatchNorm groups {groups} over {world} processes: the groups "
-            "must be a multiple of the world size (each rank normalizes "
-            "whole chunks of the global batch)")
-    return groups // world
+    """A rank's share of ``groups`` global BatchNorm chunks when the world
+    size divides them (one group is the global batch's statistics,
+    whatever the world size)."""
+    return 1 if groups == 1 else groups // world_size()
 
 
 class _GroupedBatchNorm:
@@ -181,6 +249,13 @@ class _GroupedBatchNorm:
         world = world_size() if self.training else 1
         if not _bf16(x) and world == 1 and (self.groups == 1
                                             or not self.training):
+            if self.training and _RECOMPUTING:
+                # torch's own with momentum 0, which leaves the buffers as
+                # they are: the first run's ops and saved tensors, which
+                # a checkpoint's recompute must repeat
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, True, 0.0,
+                                    self.eps)
             return super().forward(x)
         nd = x.dim()
         w, b = _channel(self.weight, nd), _channel(self.bias, nd)
@@ -193,6 +268,16 @@ class _GroupedBatchNorm:
             var, mean, n = _synced_stats(x, dims)
             self._update_running(mean.flatten(), var.flatten(), n.flatten())
             return _normalize(x, mean, var, w, b, self.eps)
+        if _spans_ranks(self.groups, world):
+            counts = mesh.all_gather(torch.tensor(x.shape[0],
+                                                  device=x.device))
+            parts, n_chunks = _chunk_rows(counts.tolist(), self.groups)
+            var, mean, n = _spanning_stats(x, dims, parts, n_chunks)
+            outs = [_normalize(x[lo:hi], mean[k], var[k], w, b, self.eps)
+                    for k, lo, hi in parts]
+            self._update_running(mean[0].flatten(), var[0].flatten(),
+                                 n[0].flatten())
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         outs, first = [], None
         for chunk in torch.chunk(x, _local_groups(self.groups), dim=0):
             var, mean = _stats(chunk, dims)
@@ -208,6 +293,8 @@ class _GroupedBatchNorm:
         channel (unbiased variance); with groups under a process group,
         rank 0's chunk 0 gives it and the replicas take rank 0's
         buffers."""
+        if _RECOMPUTING:
+            return
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var * (n / _at_least_one(n - 1)),
@@ -273,11 +360,12 @@ class _ObjectBatchNorm:
     buffers take the O updates in object order, with the unbiased
     variance. With ``groups`` > 1 each contiguous chunk of the B axis runs
     its own loop over objects, as each DataParallel replica does, and the
-    running buffers take chunk 0's; ``groups`` must divide B, as the JAX
-    package requires (object pathways always see the full batch). Under a
-    process group the per-object statistics are the global batch's, as the
-    module docstring says of the plain BatchNorm. Eval mode is the plain
-    BatchNorm's. The state-dict keys are BatchNorm's.
+    running buffers take chunk 0's; ``groups`` must divide the global B, as
+    the JAX package requires (object pathways always see the full batch).
+    Under a process group the per-object statistics are the global batch's,
+    or its chunks', which may span ranks, as the module docstring says of
+    the plain BatchNorm. Eval mode is the plain BatchNorm's. The state-dict
+    keys are BatchNorm's.
     """
 
     groups: int
@@ -291,37 +379,58 @@ class _ObjectBatchNorm:
         if not self.training:
             return super().forward(x)
         o, world = self.n_objects, world_size()
-        g = _local_groups(self.groups)
         bo, c = x.shape[:2]
         if bo % o:
             raise ValueError(f"{o} objects do not divide the folded batch "
                              f"({bo})")
         b = bo // o
-        if b % g:
-            raise ValueError(f"{g} BatchNorm groups must divide the "
-                             f"object-pathway batch ({b}): object pathways "
-                             "always see the full batch")
+        total = b * world if self.groups > 1 else b
+        if total % self.groups:
+            raise ValueError(f"{self.groups} BatchNorm groups must divide "
+                             f"the object-pathway batch ({total}): object "
+                             "pathways always see the full batch")
         spatial = x.shape[2:]
-        xg = x.reshape((g, b // g, o, c) + spatial)
-        dims = (1,) + tuple(range(4, xg.dim()))
-        n = (b // g) * spatial.numel()
-        if world > 1 and self.groups == 1:
-            var, mean, n = _synced_stats(xg, dims)   # per object, global
+        ones = (1,) * len(spatial)
+        if _spans_ranks(self.groups, world):
+            # every rank holds b rows: the chunks follow without a gather
+            xr = x.reshape((b, o, c) + spatial)
+            parts, n_chunks = _chunk_rows([b] * world, self.groups)
+            var, mean, n = _spanning_stats(
+                xr, (0,) + tuple(range(3, xr.dim())), parts, n_chunks)
+            w, bias = (t.view((1, 1, c) + ones)
+                       for t in (self.weight, self.bias))
+            y = torch.cat([_normalize(xr[lo:hi], mean[k], var[k], w, bias,
+                                      self.eps) for k, lo, hi in parts])
             n = n[0].view(o, c)
         else:
-            var, mean = _stats(xg, dims)              # (G, 1, O, C, 1...)
-        per_channel = (1, 1, 1, c) + (1,) * len(spatial)
-        y = _normalize(xg, mean, var, self.weight.view(per_channel),
-                       self.bias.view(per_channel), self.eps)
+            g = _local_groups(self.groups)
+            xg = x.reshape((g, b // g, o, c) + spatial)
+            dims = (1,) + tuple(range(4, xg.dim()))
+            n = (b // g) * spatial.numel()
+            if world > 1 and self.groups == 1:
+                var, mean, n = _synced_stats(xg, dims)   # per object, global
+                n = n[0].view(o, c)
+            else:
+                var, mean = _stats(xg, dims)             # (G, 1, O, C, 1...)
+            w, bias = (t.view((1, 1, 1, c) + ones)
+                       for t in (self.weight, self.bias))
+            y = _normalize(xg, mean, var, w, bias, self.eps)
+        if not _RECOMPUTING:
+            self._update_objects(mean[0].view(o, c), var[0].view(o, c), n)
+        return y.reshape(x.shape)
+
+    def _update_objects(self, mean, var, n) -> None:
+        """The O running-statistic updates, in object order, from global
+        chunk 0's per-object ``mean`` and biased ``var`` (O, C) over ``n``
+        values each; the replicas take rank 0's buffers."""
         with torch.no_grad():
-            unbiased = var[0].view(o, c) * (n / _at_least_one(n - 1))
-            for i in range(o):
-                self.running_mean.lerp_(mean[0].view(o, c)[i], self.momentum)
+            unbiased = var * (n / _at_least_one(n - 1))
+            for i in range(self.n_objects):
+                self.running_mean.lerp_(mean[i], self.momentum)
                 self.running_var.lerp_(unbiased[i], self.momentum)
-            self.num_batches_tracked.add_(o)
+            self.num_batches_tracked.add_(self.n_objects)
             if self.groups > 1:
                 mesh.broadcast_([self.running_mean, self.running_var])
-        return y.reshape(x.shape)
 
 
 class ObjectBatchNorm2d(_ObjectBatchNorm, BatchNorm2d):

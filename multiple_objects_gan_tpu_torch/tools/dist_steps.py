@@ -16,7 +16,9 @@ environment; :func:`spawn` starts them), or alone as world size 1.
   0, the rank keeps its contiguous slice of the batch, and one step runs
   from the generator (or from a case's ``"z"``, the global z, of which the
   rank takes its rows). Per kind: ``"config"`` (``Stage1Config``,
-  ``AttnGanConfig``), ``"kl_coeff"``, ``"encoders"`` (AttnGAN's frozen text
+  ``AttnGanConfig``; its ``bn_groups`` any count that divides the global
+  batch, a group spanning ranks where the world size does not divide
+  it), ``"kl_coeff"``, ``"encoders"`` (AttnGAN's frozen text
   and image encoders, modules), ``"smooth"``, ``"grad_clip"``. A float32
   case turns TF32 off on the card (``float32_policy``). With
   ``"time_runs"`` n the step then runs n more times, each between

@@ -39,7 +39,9 @@ gradients of each D and of G summed before their Adam steps, the noise
 drawn for the global batch and sliced; the EMA and the Adams stay
 replicated. Under a bf16 compute dtype the modules compute in bf16; the losses, the
 parameters, their gradients, the Adam states, the EMA and the BatchNorm
-running statistics stay float32.
+running statistics stay float32. ``MOG_REMAT`` (``train/remat.py``), read
+when the step is built, wraps the regions the JAX step wraps: G's forward,
+each D's loss, and the G loss with its DAMSM terms.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from multiple_objects_gan_tpu_torch.losses.damsm import sent_loss, words_loss
 from multiple_objects_gan_tpu_torch.losses.gan import kl_loss
 from multiple_objects_gan_tpu_torch.models.attngan import AttnGanConfig
 from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.train.remat import Remat
 from multiple_objects_gan_tpu_torch.train.state import (
     AttnGanTrainState, set_lr)
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
@@ -125,11 +128,37 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
     sm = dict(SMOOTH, **{k: float(v) for k, v in (smooth or {}).items()})
     text_encoder.eval()
     image_encoder.eval()
+    remat = Remat()
+
+    def g_loss(imgs, mu, logvar, words, sent, labels, bbox, cap_lens,
+               class_ids, ds, b, n):
+        """G's loss through the updated Ds, the DAMSM terms and the KL:
+        (total, {name: term})."""
+        total, terms = 0.0, {}
+        for i, (name, d) in enumerate(ds.items()):
+            feat = d(imgs[i], labels, bbox)
+            g_i = (bce_probs(d.cond_logits(feat, sent), 1.0, n)
+                   + bce_probs(d.uncond_logits(feat), 1.0, n))
+            terms[f"g_loss_{name}"] = g_i
+            total = total + g_i
+        region, code = image_encoder(imgs[-1])
+        w0, w1, _ = words_loss(region, words, cap_lens, class_ids,
+                               sm["GAMMA1"], sm["GAMMA2"], sm["GAMMA3"])
+        s0, s1 = sent_loss(code, sent, class_ids, sm["GAMMA3"])
+        terms["w_loss"] = (w0 + w1) * sm["LAMBDA"]
+        terms["s_loss"] = (s0 + s1) * sm["LAMBDA"]
+        terms["kl_loss"] = mesh.share(kl_loss(mu, logvar), b, n)
+        return (total + terms["w_loss"] + terms["s_loss"]
+                + terms["kl_loss"]), terms
 
     def train_step(state: AttnGanTrainState, batch: dict,
                    generator: Optional[torch.Generator], lr_g: float,
                    lr_d: float, z: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None) -> dict:
+        with remat.step((state.g, *state.ds.values(), image_encoder)):
+            return _step(state, batch, generator, lr_g, lr_d, z, eps)
+
+    def _step(state, batch, generator, lr_g, lr_d, z, eps) -> dict:
         g = state.g
         g.train()
         captions, cap_lens = batch["captions"], batch["cap_lens"]
@@ -145,13 +174,14 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
         with torch.no_grad():
             words, sent = text_encoder(captions, cap_lens)
         mask = captions == 0
-        out = g.outputs(z, sent, words, mask, bbox, labels, eps)
+        out = remat(g.outputs)(z, sent, words, mask, bbox, labels, eps)
 
         metrics = {}
         for i, (name, d) in enumerate(state.ds.items()):
             d.train()
             real = as_model_image(batch[f"image{64 * 2 ** i}"])
-            err = d_loss_one_scale(d, real, out.imgs[i], sent, labels, bbox)
+            err = remat(d_loss_one_scale)(d, real, out.imgs[i], sent, labels,
+                                          bbox)
             opt = state.d_opts[name]
             set_lr(opt, lr_d)
             opt.zero_grad(set_to_none=True)
@@ -160,21 +190,9 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
             opt.step()
             metrics[f"d_loss_{name}"] = err
 
-        total = 0.0
-        for i, (name, d) in enumerate(state.ds.items()):
-            feat = d(out.imgs[i], labels, bbox)
-            g_i = (bce_probs(d.cond_logits(feat, sent), 1.0, n)
-                   + bce_probs(d.uncond_logits(feat), 1.0, n))
-            metrics[f"g_loss_{name}"] = g_i
-            total = total + g_i
-        region, code = image_encoder(out.imgs[-1])
-        w0, w1, _ = words_loss(region, words, cap_lens, class_ids,
-                               sm["GAMMA1"], sm["GAMMA2"], sm["GAMMA3"])
-        s0, s1 = sent_loss(code, sent, class_ids, sm["GAMMA3"])
-        w_loss = (w0 + w1) * sm["LAMBDA"]
-        s_loss = (s0 + s1) * sm["LAMBDA"]
-        kl = mesh.share(kl_loss(out.mu, out.logvar), b, n)
-        total = total + w_loss + s_loss + kl
+        total, terms = remat(g_loss)(
+            out.imgs, out.mu, out.logvar, words, sent, labels, bbox,
+            cap_lens, class_ids, state.ds, b, n)
         params = [p for p in g.parameters() if p.requires_grad]
         grads = torch.autograd.grad(total, params)
         for p, grad in zip(params, grads):
@@ -184,8 +202,7 @@ def make_attngan_train_step(cfg: AttnGanConfig, text_encoder: torch.nn.Module,
         state.g_opt.step()
         update_ema(state)
         state.step += 1
-        metrics.update(w_loss=w_loss, s_loss=s_loss, kl_loss=kl,
-                       g_loss_total=total)
+        metrics.update(terms, g_loss_total=total)
         return mesh.reduce_metrics(
             {k: v.detach() for k, v in metrics.items()})
 

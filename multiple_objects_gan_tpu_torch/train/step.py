@@ -44,6 +44,13 @@ compute in bf16 and the step does not change: the losses take the logits
 in float32 (``losses/gan.py``), the parameters, their gradients, the Adam
 state and the BatchNorm running statistics stay float32, and the losses the
 step returns are float32.
+
+``MOG_REMAT`` (``train/remat.py``), read when a step is built, wraps the
+regions the JAX step wraps in ``maybe_remat``: the stage-1 G forward, the
+D update's forwards, heads and loss, and the G update's D forward, heads,
+adversarial and KL loss. Stage 2's G2 forward stays unwrapped, as in the
+JAX step. Every mode gives mode 0's losses, updates and running
+statistics.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from multiple_objects_gan_tpu_torch.losses.gan import (
 from multiple_objects_gan_tpu_torch.models.common import Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import Stage1G
 from multiple_objects_gan_tpu_torch.parallel import mesh
+from multiple_objects_gan_tpu_torch.train.remat import Remat
 from multiple_objects_gan_tpu_torch.train.state import GANTrainState, set_lr
 from multiple_objects_gan_tpu_torch.utils.images import as_model_image
 
@@ -75,14 +83,16 @@ def _cond(cfg: Stage1Config, label_onehot: torch.Tensor,
 def _alternating_step(state: GANTrainState, g_fwd: Callable,
                       image: torch.Tensor, d_args: tuple, cond_fn: Callable,
                       *, use_uncond: bool, kl_coeff: Optional[float],
-                      lr_g: float, lr_d: float) -> dict:
+                      lr_g: float, lr_d: float, remat: Remat) -> dict:
     """The D-then-G update both stages share (JAX
     ``train/step.py:_fused_alternating_step``).
 
     ``g_fwd(g) -> (fake, mu, logvar)`` is the one G forward of the step;
     ``d(image, *d_args)`` the D feature forward; ``cond_fn(mu)`` the
     condition of the D head. ``kl_coeff`` None leaves the KL out of the G
-    loss. Updates ``state`` in place; returns the losses, detached."""
+    loss. ``remat`` wraps the D-update and G-update regions
+    (``train/remat.py:Remat``). Updates ``state`` in place; returns
+    the losses, detached."""
     g, d = state.g, state.d
     g.train()
     d.train()
@@ -91,22 +101,35 @@ def _alternating_step(state: GANTrainState, g_fwd: Callable,
     fake, mu, logvar = g_fwd(g)
     cond = cond_fn(mu)
 
+    def d_region(image, fake, cond):
+        feat_real = d(image, *d_args)
+        feat_fake = d(fake, *d_args)
+        real_logits = d.cond_logits(feat_real, cond)
+        feat_wrong, cond_wrong = mesh.shifted_pair(feat_real, cond)
+        wrong_logits = d.cond_logits(feat_wrong, cond_wrong)
+        fake_logits = d.cond_logits(feat_fake, cond)
+        u_real = u_fake = None
+        if use_uncond:
+            u_real = d.uncond_logits(feat_real)
+            u_fake = d.uncond_logits(feat_fake)
+        return discriminator_loss(
+            real_logits, wrong_logits, fake_logits, u_real, u_fake,
+            share=lambda loss: mesh.share(loss, b, n),
+            wrong_share=lambda loss: mesh.share(loss, feat_wrong.shape[0],
+                                                n - 1))
+
+    def g_region(fake, cond, mu, logvar):
+        feat_fake = d(fake, *d_args)
+        fake_logits = d.cond_logits(feat_fake, cond)
+        u_fake = d.uncond_logits(feat_fake) if use_uncond else None
+        err_g = mesh.share(generator_adv_loss(fake_logits, u_fake), b, n)
+        if kl_coeff is None:
+            return err_g, err_g, None
+        kl = mesh.share(kl_loss(mu, logvar), b, n)
+        return err_g, err_g + kl * kl_coeff, kl
+
     # ---- D update
-    feat_real = d(image, *d_args)
-    feat_fake = d(fake.detach(), *d_args)
-    real_logits = d.cond_logits(feat_real, cond)
-    feat_wrong, cond_wrong = mesh.shifted_pair(feat_real, cond)
-    wrong_logits = d.cond_logits(feat_wrong, cond_wrong)
-    fake_logits = d.cond_logits(feat_fake, cond)
-    u_real = u_fake = None
-    if use_uncond:
-        u_real = d.uncond_logits(feat_real)
-        u_fake = d.uncond_logits(feat_fake)
-    err_d, d_parts = discriminator_loss(
-        real_logits, wrong_logits, fake_logits, u_real, u_fake,
-        share=lambda loss: mesh.share(loss, b, n),
-        wrong_share=lambda loss: mesh.share(loss, feat_wrong.shape[0],
-                                            n - 1))
+    err_d, d_parts = remat(d_region)(image, fake.detach(), cond)
     set_lr(state.d_opt, lr_d)
     state.d_opt.zero_grad(set_to_none=True)
     err_d.backward()
@@ -114,14 +137,7 @@ def _alternating_step(state: GANTrainState, g_fwd: Callable,
     state.d_opt.step()
 
     # ---- G update through the updated D
-    feat_fake = d(fake, *d_args)
-    fake_logits = d.cond_logits(feat_fake, cond)
-    u_fake = d.uncond_logits(feat_fake) if use_uncond else None
-    err_g = mesh.share(generator_adv_loss(fake_logits, u_fake), b, n)
-    total = err_g
-    if kl_coeff is not None:
-        kl = mesh.share(kl_loss(mu, logvar), b, n)
-        total = err_g + kl * kl_coeff
+    err_g, total, kl = remat(g_region)(fake, cond, mu, logvar)
     params = [p for p in g.parameters() if p.requires_grad]
     grads = torch.autograd.grad(total, params, allow_unused=True)
     for p, grad in zip(params, grads):
@@ -148,7 +164,9 @@ def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
     is TRAIN.COEFF.KL (``config.train_settings``), read only under the CA
     net. The step updates ``state`` in place and returns its losses as 0-d
     tensors on the device, so the host does not wait for the card.
+    ``MOG_REMAT`` is read here (module docstring).
     """
+    remat = Remat()
 
     def train_step(state: GANTrainState, batch: dict,
                    generator: Optional[torch.Generator], lr_g: float,
@@ -164,13 +182,15 @@ def make_train_step(cfg: Stage1Config, kl_coeff: float = 2.0) -> Callable:
         if cfg.use_ca and eps is None:
             eps = mesh.draw(torch.randn, (b, cfg.condition_dim), generator,
                             image.device)
-        return _alternating_step(
-            state,
-            lambda g: g.outputs(z, bbox, labels, text,
-                                eps if cfg.use_ca else None),
-            image, (labels, bbox), lambda mu: _cond(cfg, labels, mu),
-            use_uncond=cfg.use_uncond_head,
-            kl_coeff=kl_coeff if cfg.use_ca else None, lr_g=lr_g, lr_d=lr_d)
+        with remat.step((state.g, state.d)):
+            return _alternating_step(
+                state,
+                remat(lambda g: g.outputs(z, bbox, labels, text,
+                                          eps if cfg.use_ca else None)),
+                image, (labels, bbox), lambda mu: _cond(cfg, labels, mu),
+                use_uncond=cfg.use_uncond_head,
+                kl_coeff=kl_coeff if cfg.use_ca else None, lr_g=lr_g,
+                lr_d=lr_d, remat=remat)
 
     return train_step
 
@@ -206,7 +226,9 @@ def make_stage2_train_step(s2_cfg: Stage1Config, s1_cfg: Stage1Config,
     stage-2 boxes. The condition is G2's mu, detached; the unconditional
     head is always on, and KL x ``kl_coeff`` joins the G loss. Noise not
     passed is drawn from ``generator`` in the order z, eps1, eps2.
+    ``MOG_REMAT`` is read here; G2's forward stays unwrapped.
     """
+    remat = Remat()
 
     def train_step(state: GANTrainState, batch: dict,
                    generator: Optional[torch.Generator], lr_g: float,
@@ -226,12 +248,14 @@ def make_stage2_train_step(s2_cfg: Stage1Config, s1_cfg: Stage1Config,
             eps2 = mesh.draw(torch.randn, (b, s2_cfg.condition_dim),
                              generator, dev)
         stage1_img = frozen_forward(g1, z, bbox_s1, labels, text, eps1)
-        return _alternating_step(
-            state,
-            lambda g: g.outputs(stage1_img, bbox_s1, bbox_s2, labels, text,
-                                eps2),
-            image, (labels, bbox_s2), lambda mu: mu.detach(),
-            use_uncond=True, kl_coeff=kl_coeff, lr_g=lr_g, lr_d=lr_d)
+        with remat.step((state.g, state.d)):
+            return _alternating_step(
+                state,
+                lambda g: g.outputs(stage1_img, bbox_s1, bbox_s2, labels,
+                                    text, eps2),
+                image, (labels, bbox_s2), lambda mu: mu.detach(),
+                use_uncond=True, kl_coeff=kl_coeff, lr_g=lr_g, lr_d=lr_d,
+                remat=remat)
 
     return train_step
 

@@ -33,7 +33,8 @@ of tests/torch_port_dist_cases.py); the rest run in this process.
 * damsm with ``--bn_groups 2`` equals ``--bn_groups 1`` bit for bit (its
   backbone runs in eval mode, its text encoder has no BatchNorm), and
   ``run_flags.json`` records the 2.
-* Groups that the world size does not divide exit with both numbers.
+* ``--bn_groups`` exits only where the JAX package fails too (groups or a
+  world size that do not divide the global batch), with the numbers.
 """
 
 from __future__ import annotations
@@ -328,11 +329,25 @@ def test_damsm_bn_groups_2_equals_1_bit_for_bit(tmp_path,
 
 
 def test_groups_that_the_world_does_not_divide_exit(monkeypatch):
+    """``--bn_groups`` exits only where the JAX package fails too: groups
+    or a world size that do not divide the global batch. Groups that the
+    world size does not divide run, a group spanning ranks
+    (tests/test_torch_port_bn_span.py); an object pathway refuses groups
+    that do not divide its global batch before any collective."""
     monkeypatch.setattr(port_main, "world_size", lambda: 2)
-    with pytest.raises(SystemExit, match="--bn_groups 3 over 2 processes"):
-        port_main.check_bn_groups(3)
-    port_main.check_bn_groups(4)
-    port_main.check_bn_groups(1)
+    with pytest.raises(SystemExit, match="--bn_groups 3 over 2 processes "
+                       "at global batch 128"):
+        port_main.check_bn_groups(3, 128)
+    with pytest.raises(SystemExit, match="--bn_groups 4 over 2 processes "
+                       "at global batch 6"):
+        port_main.check_bn_groups(4, 6)
+    with pytest.raises(SystemExit, match="--bn_groups 3 over 2 processes "
+                       "at global batch 9"):
+        port_main.check_bn_groups(3, 9)
+    for groups, batch in ((3, 96), (3, 12), (4, 128), (2, 8), (1, 7)):
+        port_main.check_bn_groups(groups, batch)
     monkeypatch.setattr(blocks, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="groups 3 over 2 processes"):
-        blocks.BatchNorm2d(4, groups=3).train()(torch.randn(4, 4, 2, 2))
+    with pytest.raises(ValueError, match=r"3 BatchNorm groups must divide "
+                       r"the object-pathway batch \(8\)"):
+        blocks.ObjectBatchNorm2d(4, 3, groups=3).train()(
+            torch.randn(12, 4, 2, 2))

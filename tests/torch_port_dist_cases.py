@@ -1,12 +1,12 @@
-"""What the port's two-process tests run on each rank (not a test module).
+"""What the port's multi-process tests run on each rank (not a test module).
 
-tests/test_torch_port_multihost.py and tests/test_torch_port_sync_bn.py
-write lists of cases and hand them to
-``multiple_objects_gan_tpu_torch.tools.dist_steps.spawn``: two processes,
-a process group over gloo on localhost, on the CPU. Step cases run the
-port's train steps; call cases name a function of this module. The module
-imports no JAX, so that a rank starts in a few seconds, and the stand-in
-image encoders live here so that a rank can unpickle them.
+tests/test_torch_port_multihost.py, tests/test_torch_port_sync_bn.py and
+tests/test_torch_port_bn_span.py write lists of cases and hand them to
+``multiple_objects_gan_tpu_torch.tools.dist_steps.spawn``: two or four
+processes, a process group over gloo on localhost, on the CPU. Step cases
+run the port's train steps; call cases name a function of this module.
+The module imports no JAX, so that a rank starts in a few seconds, and the
+stand-in image encoders live here so that a rank can unpickle them.
 """
 
 from __future__ import annotations
@@ -133,6 +133,42 @@ def sync_bn_rank(counts: tuple, seed: int = 0) -> dict:
             m.bias.normal_()
     return {"plain": _bn_run(inp["x"][rows], inp["w"][rows], plain),
             "object": _bn_run(inp["xo"][orows], inp["wo"][orows], obj)}
+
+
+def span_bn_rank(counts: tuple, object_counts: tuple, groups: int,
+                 seed: int = 0) -> dict:
+    """This rank's rows (``counts[rank]`` of them, in rank order) of
+    :func:`bn_input`'s ``x`` through the port's BatchNorm2d, and its rows
+    (``object_counts[rank]``, equal on every rank, as an object pathway
+    sees the full batch) of ``xo`` of :func:`bn_input` (``object_counts``)
+    through an ObjectBatchNorm2d, in float32 at ``groups`` statistic
+    groups of the global batch, one train-mode forward and backward each:
+    the groups may span ranks (nn/blocks.py). Returns each module's
+    initial weights and buffers beside :func:`_bn_run`'s record."""
+    from multiple_objects_gan_tpu_torch.nn.blocks import (
+        BatchNorm2d, ObjectBatchNorm2d)
+    from multiple_objects_gan_tpu_torch.parallel.multihost import rank
+
+    def mine(key, cts, scale):
+        inp = bn_input(cts, seed)
+        lo = sum(cts[:rank()])
+        rows = slice(scale * lo, scale * (lo + cts[rank()]))
+        return inp[key][rows].float(), inp["w" + key[1:]][rows].float()
+
+    torch.manual_seed(seed)
+    out = {}
+    for kind, m, (x, w) in (
+            ("plain", BatchNorm2d(4, groups=groups), mine("x", counts, 1)),
+            ("object", ObjectBatchNorm2d(4, 3, groups=groups),
+             mine("xo", object_counts, 3))):
+        with torch.no_grad():
+            m.weight.uniform_(0.5, 1.5)
+            m.bias.normal_()
+            m.running_mean.normal_(0.0, 0.2)
+            m.running_var.uniform_(0.5, 1.5)
+        init = {k: v.clone() for k, v in m.state_dict().items()}
+        out[kind] = {"init": init, **_bn_run(x, w, m.train(), steps=1)}
+    return out
 
 
 # ----------------------------------------------------- the sharded dump
