@@ -24,13 +24,13 @@ over NCCL, the mnist, AttnGAN and DAMSM steps as two processes of one
 process group (parallel/, tools/dist_steps.py) against one process, and
 AttnGAN's sampling dump sharded over two processes, 50 runs the tools:
 validate_learning (whether a run learns), export_checkpoint,
-check_dataset, parity_harness and the general STN, and 51 the last train
+check_dataset, parity_harness and the general STN, 51 the last train
 and serve options: MOG_REMAT, BatchNorm groups that span ranks and the
-server's --max_batch. Every COCO entry reads
-its JPEGs from
-disk (nvjpeg on the card). The train entries' data and runs go to a
-temporary directory, removed at the end. Phases, each logged with the
-elapsed time:
+server's --max_batch, and 52 the bench tools (bench_variants,
+bench_sampling) and the MOG_COMPUTE_DTYPE / MOG_BN_GROUPS knobs. Every
+COCO entry reads its JPEGs from disk (nvjpeg on the card). The train
+entries' data and runs go to a temporary directory, removed at the end.
+Phases, each logged with the elapsed time:
 
   1. device   - the card's name and power limit, torch and CUDA versions;
   2. build    - nvcc builds csrc/stn_place.cu and csrc/normconv.cu for
@@ -275,7 +275,7 @@ elapsed time:
                 features card against CPU and its first PNG against the
                 card's image; K1 at the dump's (14,3,192,16²) held and
                 timed;
- 46. layout   - tools/eval_layout_fidelity.py at n 256 for mnist
+ 46. layout   - tools/eval_layout_fidelity.py at n 128 for mnist
                 (runs_r5/mnist_repin/netG_final.pth) and clevr (phase 22's
                 run), the score on the card equal to the CPU's on the same
                 images and classifier, one K1 a batch, K1 at the tool's
@@ -298,15 +298,17 @@ elapsed time:
                 replicas equal bit for bit, K1 and K2 launches a rank; the
                 steps' times at both world sizes and the gradient
                 all-reduce's; K1 and K2 at a rank's place shapes held and
-                timed; the same start runs phase 49's dump;
+                timed; the same start runs phase 49's dump and phase 51's
+                --bn_groups 3 step;
  49. dump2    - phase 45's sampling dump (56 images) as two processes: the
                 same PNG names, pixels within 1 level, FID and IS beside
                 phase 45's, one K1 a batch on each rank;
- 50. validate - tools/validate_learning.py at its defaults (20 epochs in 2
-                segments, bf16) for mnist (n 5120) and, in a process of
-                its own at the same time, clevr (n 2560),
-                held: the FID trend falls, separation >= 0.15, mnist
-                layout-fidelity recall >= 0.2; mnist's final G exported
+ 50. validate - tools/validate_learning.py at 6 epochs in 2 segments
+                (its default 20; bf16, its default) for mnist (n 5120)
+                and clevr (n 2560), each in a process of its own while
+                the wiring runs go on here, held: the FID trend falls,
+                separation >= 0.15, mnist layout-fidelity recall >= 0.2;
+                mnist's final G exported
                 by tools/export_checkpoint.py and loaded as a strict
                 reference NET_G, its images equal bit for bit to the run's
                 G's; the wiring of coco-stackgan-2 (2 epochs, n 64,
@@ -328,16 +330,35 @@ elapsed time:
                 algorithms read for their spread) (losses
                 1e-5 of the loss, running statistics 1e-6 and
                 num_batches_tracked equal, per-tensor update cosines
-                >= 0.99999), its ms (CUDA events, median of 10), peak
+                >= 0.99999), its ms (CUDA events, median of 5), peak
                 memory and K1/K2 launches (8 and 4 under recompute, 4 and
                 4 at mode 0); peak memory and ms at 0 and full of the
                 stage-2 f32 step (batch 40) and the AttnGAN f32 step
                 (batch 14); the mnist step at --bn_groups 3 of a global
-                batch of 96 as two ranks (a group spans them) against one
+                batch of 96 as two ranks (phase 48's; a group spans them)
+                against one
                 process, at phase 48's limits; the trained mnist G served
                 at --max_batch 8 and 128 (/healthz, a full request in one
                 device batch, one item more refused with a 400) and K1 at
                 (8,3,256,16²) and (128,3,256,16²) -> 16² held and timed.
+ 52. bench    - the port's bench tools in this process at full width and
+                the reference batches, bf16 (their default):
+                tools/bench_variants.py (mnist, clevr, stackgan1 at 128,
+                stage 2 at 40, AttnGAN at 14) and tools/bench_sampling.py
+                (the three families at 128, attngan256 at 32), each line
+                printed, with the JAX tools' keys, img_per_sec = batch /
+                ms to rounding, 0 < mfu <= 1.05 and hbm_util > 0, and
+                K1/K2 launches of every step (4/4, stage 2 5/4, AttnGAN
+                4/4) and batch (1/0); K1 at attngan256's (32,3,192,16²)
+                -> 16² held and timed; the mnist bf16 step whose config
+                the train entry parses under MOG_COMPUTE_DTYPE=bfloat16
+                and MOG_BN_GROUPS=2 (no flags) equal bit for bit to the
+                --bf16 --bn_groups 2 step under cudnn.deterministic, the
+                environment restored after.
+
+Every phase runs under a watchdog (``timed``): past max(120 s, twice its
+PHASE_BUDGET_S reading) the script prints every thread's stack to stderr,
+kills the processes it started and exits 70 naming the phase.
 
 After the phases come three lines: {"kernel_details": ...} (every
 kernel reading), {"summary": ...} (under 4 KB: the step medians of every
@@ -356,6 +377,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import glob
 import http.client
 import io
@@ -363,6 +385,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -424,6 +447,8 @@ from multiple_objects_gan_tpu_torch.ops import stn_place_cuda as k1
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
 from multiple_objects_gan_tpu_torch.tools import profile_step, spike_normconv
 from multiple_objects_gan_tpu_torch.tools import (
+    bench_sampling, bench_variants)
+from multiple_objects_gan_tpu_torch.tools import (
     check_dataset as check_tool, dist_steps, export_checkpoint as export_tool,
     parity_harness as parity_tool, validate_learning as vl)
 from multiple_objects_gan_tpu_torch.tools import (
@@ -449,7 +474,7 @@ T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "runs_r5", "mnist_repin", "netG_final.pth")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+F32_OPS_PER_S = bench_variants.F32_OPS_PER_S  # H100 SXM, no tensor cores
 KERNEL_ATOL = 1e-5
 MODEL_ATOL = 5e-4
 MIN_SEPARATION = 0.5
@@ -490,7 +515,7 @@ FAMILY_CFGS = {"clevr": os.path.join(ROOT, "cfg", "clevr_train.yml"),
                "coco-stackgan-1": os.path.join(ROOT, "cfg",
                                                "coco_s1_train.yml")}
 FAMILY_STEP_BATCH = STEP_BATCH  # the family steps card vs CPU (phase 17)
-FAMILY_TIME_RUNS = 20           # CUDA-event readings a family step time
+FAMILY_TIME_RUNS = 10           # CUDA-event readings a family step time
 
 
 def log(msg: str) -> None:
@@ -618,7 +643,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/51 device")
+    log("phase 1/52 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -636,7 +661,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/51 build")
+    log("phase 2/52 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -681,7 +706,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/51 kernel against its plain version, on the card")
+    log("phase 3/52 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -816,7 +841,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/51 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/52 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -899,7 +924,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/51 serve: the port's main path over HTTP, on the card")
+    log("phase 5/52 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -1046,7 +1071,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/51 grad: K2 (place backward) against its plain version, "
+    log("phase 6/52 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1153,7 +1178,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/51 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/52 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1309,7 +1334,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/51 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/52 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1343,7 +1368,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/51 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/52 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1425,7 +1450,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/51 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/52 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1524,7 +1549,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/51 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/52 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1559,7 +1584,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/51 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/52 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1621,7 +1646,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/51 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/52 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1665,7 +1690,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/51 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/52 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1789,7 +1814,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/51 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/52 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1864,7 +1889,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/51 fstep: one full-width float32 train step of each "
+    log(f"phase 17/52 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1903,7 +1928,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/51 ftime: each family's train step at batch "
+    log("phase 18/52 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1911,13 +1936,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/51 ftime, {key}",
+                                       f"18/52 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/51 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/52 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1954,7 +1979,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/51 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/52 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2106,7 +2131,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/51 probe: the image decoders this machine has, read only "
+    log("phase 21/52 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2360,7 +2385,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/51 disk: the train entries from disk (cli/main.py "
+    log("phase 22/52 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2540,7 +2565,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/51 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/52 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2583,7 +2608,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/51 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/52 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2642,7 +2667,7 @@ S2_CFG = os.path.join(ROOT, "cfg", "coco_s2_train.yml")
 S2_BATCH = 40               # cfg/coco_s2_train.yml TRAIN.BATCH_SIZE
 S2_STEP_BATCH = 4           # the stage-2 step card vs CPU (phase 26): the
                             # CPU's full-width step at 4 takes seconds
-S2_TIME_RUNS = 10           # CUDA-event readings a stage-2 step time
+S2_TIME_RUNS = 5            # CUDA-event readings a stage-2 step time
 S2_SERVE_BATCH = 4          # G1 + G2 eval forwards card vs CPU (phase 29)
 S2_LAUNCHES = (5, 4)        # K1 (G1, G2, D x 3) and K2 (D x 3, G2) a step
 
@@ -2762,7 +2787,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/51 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/52 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2871,7 +2896,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/51 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/52 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2913,7 +2938,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/51 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/52 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -2986,7 +3011,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/51 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/52 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -3061,7 +3086,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/51 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/52 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3176,7 +3201,7 @@ ATTN_WORDS = 140            # text_encoder29.pth's embedding rows
 ATTN_BATCH = 64             # the service's device batch (cli/serve.py)
 ATTN_CHECK_BATCH = 4        # the flagship forward card vs CPU (phase 31)
 ATTN_SERVE_CHECK = 8        # served items held against the CPU (phase 32)
-ATTN_TIME_RUNS = 10         # CUDA-event readings a forward time
+ATTN_TIME_RUNS = 5          # CUDA-event readings a forward time
 # the flagship card vs CPU (phase 31): the images at MODEL_ATOL, the text
 # encoder's embeddings and the attention maps at ATTN_ATOL (the CPU's
 # port against JAX read 4e-5 on the images, 1.2e-7 on the embeddings,
@@ -3226,7 +3251,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/51 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/52 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3292,7 +3317,10 @@ def _flops_by_stage(g, enc, inputs):
     return out
 
 
-def _profile_forward(fn, n: int = 3):
+PROFILE_CALLS = 1           # calls a torch.profiler trace reads
+
+
+def _profile_forward(fn, n: int = PROFILE_CALLS):
     """Device ms of ``fn`` by kernel group (tools/profile_step.py's), over
     ``n`` calls traced with torch.profiler after one untraced call:
     returns (wall ms a call on the host clock, busy ms a call, {group: ms
@@ -3316,7 +3344,7 @@ def _profile_forward(fn, n: int = 3):
 
 
 def phase_attn_model():
-    log("phase 31/51 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/52 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3391,7 +3419,8 @@ def phase_attn_model():
             lambda: attngan_images(enc, gen, *dev_in))
         rows[tname].update(profiled_wall_ms=wall, busy_ms=busy,
                            groups_ms=groups)
-        log(f"  {tname} forward traced (torch.profiler, 3 forwards): "
+        log(f"  {tname} forward traced (torch.profiler, {PROFILE_CALLS} "
+            "forward): "
             f"{wall:.2f} ms a forward on the host clock, the device busy "
             f"{busy:.2f} ms ({busy / wall:.1%}); by kernel group: "
             + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(
@@ -3425,7 +3454,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/51 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/52 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3551,7 +3580,7 @@ ATTN_TRAIN_BATCH = 14       # cfg/coco_attn_train.yml TRAIN.BATCH_SIZE
 ATTN_WIDTHS = (48, 96, 3, 3, 256)  # GF, DF, R_NUM, branches, embedding
 ATTN_STEP_BATCH = 4         # the step card vs CPU (phase 34)
 ATTN_ENCODER_BATCH = 2      # the image encoder card vs CPU (phase 34)
-ATTN_STEP_RUNS = 10         # CUDA-event readings a step time (phase 35)
+ATTN_STEP_RUNS = 5          # CUDA-event readings a step time (phase 35)
 # K1 a step: G's object pathway 1, D64 twice in the D update and once in
 # the G update; K2 the backward of each of those places
 ATTN_LAUNCHES = (4, 4)
@@ -3570,7 +3599,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/51 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/52 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3675,7 +3704,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/51 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/52 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3745,7 +3774,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/51 attntime: the AttnGAN step at batch "
+    log(f"phase 35/52 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3800,7 +3829,8 @@ def phase_attn_step_time(model):
         check(per_step == ATTN_LAUNCHES, f"AttnGAN K1/K2 launches per step "
               f"{per_step} != {ATTN_LAUNCHES}")
         wall, busy, groups, top = _profile_forward(one)
-        log(f"  {kind} step traced (torch.profiler, 3 steps): {wall:.2f} ms "
+        log(f"  {kind} step traced (torch.profiler, {PROFILE_CALLS} step): "
+            f"{wall:.2f} ms "
             f"a step on the host clock, the device busy {busy:.2f} ms "
             f"({busy / wall:.1%}); by kernel group: " + ", ".join(
                 f"{g} {v:.2f}" for g, v in sorted(groups.items(),
@@ -3883,7 +3913,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/51 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/52 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -3976,7 +4006,7 @@ def phase_attn_entry():
 DAMSM_CFG = os.path.join(ROOT, "cfg", "coco_damsm.yml")
 DAMSM_BATCH = 48            # cfg/coco_damsm.yml TRAIN.BATCH_SIZE
 DAMSM_CHECK_BATCH = 4       # the DAMSM step card vs CPU (phase 37)
-DAMSM_TIME_RUNS = 20        # CUDA-event readings a DAMSM step time
+DAMSM_TIME_RUNS = 10        # CUDA-event readings a DAMSM step time
 DAMSM_SET = (192, 7)        # the entry's set: a test split of 48 (phase 39)
 DAMSM_EPOCHS = 3
 # the DAMSM step card vs CPU: losses and the norm before the clip within
@@ -4030,7 +4060,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/51 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/52 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4069,7 +4099,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/51 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/52 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4112,8 +4142,9 @@ def phase_damsm_step_time():
             f"{max(times):.2f}) = {DAMSM_BATCH * 1e3 / ms:.0f} images/s; peak "
             f"memory {peak:.2f} GiB; {flops:.1f} GFLOP a step "
             f"({flops / DAMSM_BATCH:.2f} an image; torch.utils.flop_counter),"
-            f" {flops / ms:.1f} TFLOP/s of them; traced (torch.profiler, 3 "
-            f"steps): {wall:.2f} ms a step on the host clock, the device busy"
+            f" {flops / ms:.1f} TFLOP/s of them; traced (torch.profiler, "
+            f"{PROFILE_CALLS} step): {wall:.2f} ms a step on the host clock, "
+            "the device busy"
             f" {busy:.2f} ms ({busy / wall:.1%}); by kernel group: "
             + ", ".join(f"{g} {v:.2f}" for g, v in sorted(
                 groups.items(), key=lambda kv: -kv[1]))
@@ -4141,7 +4172,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/51 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/52 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4281,7 +4312,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/51 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/52 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4453,7 +4484,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/51 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/52 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4707,7 +4738,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/51 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/52 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4823,7 +4854,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/51 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/52 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4913,11 +4944,11 @@ def phase_stage2_sample(s2_run):
 
 FID_BATCH = ATTN_TRAIN_BATCH  # the sampling dump's batch (BATCH_SIZE 14)
 FID_REL = 2e-4              # pooled features card vs CPU, of their largest
-FID_TIME_RUNS = 10          # CUDA-event readings an Inception forward
+FID_TIME_RUNS = 5           # CUDA-event readings an Inception forward
 SAMPLING_IMAGES = 56        # the dump's --num_images: 4 batches of 14
 # runs_r5/attngan_flagship/result.json "sampling_eval" (JAX, 504 images)
 JAX_SAMPLING = {"fid": 1.8458772241006986e-07, "is_mean": 1.0, "is_std": 0.0}
-LAYOUT_N = 256
+LAYOUT_N = 128
 # runs_r5/mnist_repin/result.json "layout_fidelity" (JAX tool, another
 # seed and n: 62 objects)
 JAX_LAYOUT = {"recall": 0.677, "loc_iou": 0.489}
@@ -4958,7 +4989,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/51 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/52 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -5030,7 +5061,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/51 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/52 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -5154,7 +5185,7 @@ def phase_sampling(model, fid):
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/51 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/52 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5260,7 +5291,7 @@ def _rank_env() -> dict:
 
 
 def phase_dist_entry():
-    log("phase 47/51 nccl1: cli/main.py --variant multi-mnist --synthetic "
+    log("phase 47/52 nccl1: cli/main.py --variant multi-mnist --synthetic "
         "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
         "against the same run without the environment, bit for bit "
         "(cudnn.deterministic in both, each in a process of its own, the "
@@ -5457,10 +5488,10 @@ def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
 
 
 def phase_dist_steps(attn_weights, sampling):
-    log(f"phase 48/51 dist2: the mnist, AttnGAN and DAMSM steps as "
+    log(f"phase 48/52 dist2: the mnist, AttnGAN and DAMSM steps as "
         f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
         "one process on the same global batch, from warm Adams; the same "
-        "start runs phase 49's dump")
+        "start runs phase 49's dump and phase 51's --bn_groups 3 step")
     _, ds = _attn_set()
     cases = _dist_cases(attn_weights, ds)
     pre = {c["name"]: copy.deepcopy(c["state"].checkpoint_dict())
@@ -5468,13 +5499,17 @@ def phase_dist_steps(attn_weights, sampling):
     path = os.path.join(WORK, "dist_cases.pth")
     dump = os.path.join(WORK, "attn_sampling2")
     torch.save(cases, path)
-    torch.save([*cases, {"name": "dump", "call":
+    # phase 51's --bn_groups case runs on the same two ranks: one start
+    span, span_pre = _span_case()
+    span_path = os.path.join(WORK, "span_cases.pth")
+    torch.save([span], span_path)
+    torch.save([*cases, span, {"name": "dump", "call":
                          "multiple_objects_gan_tpu_torch.cli.main:main",
                          "kwargs": {"argv": [*sampling["argv"],
                                              "--output_dir", dump,
                                              "--device", DEVICE]}}],
                path + ".ranks")
-    del cases
+    del cases, span
     torch.cuda.empty_cache()
     t = time.perf_counter()
     ranks = dist_steps.spawn(path + ".ranks", os.path.join(WORK, "dist_out"),
@@ -5552,11 +5587,15 @@ def phase_dist_steps(attn_weights, sampling):
             "ar_ms": v["allreduce_ms"]} for k, v in rows.items()}}
     return launches, {"backend": backend, "rows": rows,
                       "places": dist_local_places(), "dump_dir": dump,
-                      "dump": [r["results"]["dump"] for r in ranks]}
+                      "dump": [r["results"]["dump"] for r in ranks],
+                      "span": {"pre": span_pre, "backend": backend,
+                               "cases": span_path,
+                               "ranks": [r["results"]["span"]
+                                         for r in ranks]}}
 
 
 def phase_dist_sampling(sampling, dist2):
-    log(f"phase 49/51 dump2: AttnGAN's --eval_mode sampling dump of "
+    log(f"phase 49/52 dump2: AttnGAN's --eval_mode sampling dump of "
         f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
         "(phase 48's start), against phase 45's one-process dump")
     out, one = dist2["dump_dir"], sampling["out"]
@@ -5599,13 +5638,16 @@ def phase_dist_sampling(sampling, dist2):
 
 # ------------------------------------------------------------ the tools
 
-# the limits of the learning runs at the tool's defaults, set in PERF.md
-# §6 before the first card run; a miss is a finding, not a limit to lower
+# the limits of the learning runs, set in PERF.md §6 before their first
+# card run; a miss is a finding, not a limit to lower
 VALIDATE_MIN_SEPARATION = 0.15  # final in-box minus out-of-box luminance
 VALIDATE_MIN_RECALL = 0.2       # mnist layout-fidelity recall (chance 0.1)
 VALIDATE_WIRING = ("--epochs", "2", "--n", "64", "--segments", "1")
 VALIDATE_SAMPLING = 28          # the AttnGAN dump's and the harness's cap
 VALIDATE_SEED = 7               # the tool's default --seed
+# the learning runs' --epochs (the tool's default 20: 800 mnist steps, 400
+# clevr steps in 2 segments)
+VALIDATE_EPOCHS = {"mnist": 6, "clevr": 6}
 STN_ATOL = 1e-5                 # the general STN, card vs separable and CPU
 # the tool's generation places (batch 32, on 16x16), not on a path before
 VALIDATE_GEN = {"mnist": ("multi-mnist", 10, False),
@@ -5695,11 +5737,12 @@ VALIDATE_CHILD = (
 
 def _learning_argv(variant):
     work = os.path.join(WORK, f"validate_{variant}")
-    return [variant, "--workdir", work], work
+    return [variant, "--workdir", work, "--epochs",
+            str(VALIDATE_EPOCHS[variant])], work
 
 
 def _start_learning(variant):
-    """Start a learning run at the tool's defaults in a process of its own
+    """Start a learning run (VALIDATE_EPOCHS) in a process of its own
     (the runs are host-bound: two at once share the card); returns what
     :func:`_join_learning` takes."""
     argv, work = _learning_argv(variant)
@@ -5739,14 +5782,6 @@ def _join_learning(child):
     return {**run, "work": child["work"]}
 
 
-def _learning_run(variant):
-    """A learning run at the tool's defaults in this process."""
-    argv, work = _learning_argv(variant)
-    out, calls, total, seconds = run_validate(argv)
-    return {"json": out, "calls": calls, "launches": total,
-            "seconds": seconds, "work": work}
-
-
 def _held_learning(variant, run):
     """A learning run's launches and its limits."""
     out, calls, total, seconds = (run["json"], run["calls"],
@@ -5754,8 +5789,8 @@ def _held_learning(variant, run):
     vcfg = vl.CFG_FILES[vl.VARIANTS[variant]]
     cfg = cfg_from_file(vcfg, vl.VARIANTS[variant])
     batch, n = int(cfg.TRAIN.BATCH_SIZE), vl.SET_SIZES[variant]
-    defaults = vl.parse_args([variant])
-    seg = defaults.epochs // defaults.segments   # epochs a segment
+    args = vl.parse_args(_learning_argv(variant)[0])
+    seg = args.epochs // args.segments   # epochs a segment
     steps = seg * (n // batch)
     _check_calls(variant, calls, {"train": (4 * steps + seg, 4 * steps),
                                   "resume": (4 * steps + seg, 4 * steps)},
@@ -5869,23 +5904,25 @@ def _check_dataset(argv):
 
 
 def phase_validate():
-    log("phase 50/51 validate: the port's tools on the card: "
-        "validate_learning for mnist and clevr at the tool's defaults "
+    log("phase 50/52 validate: the port's tools on the card: "
+        "validate_learning for mnist and clevr at 6 epochs "
         "(held: the FID trend falls, separation, mnist recall), the "
         "exporter (the exported G's images bit for bit), the stage-2 and "
         "AttnGAN wiring runs, check_dataset, parity_harness, the general "
         "STN, and K1 at the tool's generation places")
     launches, detail = {}, {}
-    # clevr in a process of its own while mnist and the tools run here
+    # the learning runs each in a process of its own while the wiring runs
+    # go on here (all are host-bound)
     clevr = _start_learning("clevr")
+    mnist = _start_learning("mnist")
     try:
-        detail["mnist"] = _held_learning("mnist", _learning_run("mnist"))
-        launches["validate_mnist"] = detail["mnist"]["launches"]
-        wiring, ck_rows, result, harness_s = _tool_runs(detail["mnist"],
-                                                        launches)
+        detail["mnist"], wiring, ck_rows, result, harness_s = _tool_runs(
+            mnist, launches)
     except BaseException:
-        clevr["proc"].kill()
-        clevr["proc"].wait()
+        for child in (clevr, mnist):
+            child["proc"].kill()
+            child["proc"].wait()
+            child["log"].close()
         raise
     run = _join_learning(clevr)
     detail["clevr"] = _held_learning("clevr", run)
@@ -5911,24 +5948,11 @@ def phase_validate():
                       "check_dataset": ck_rows, "harness": result}
 
 
-def _tool_runs(mnist, launches):
-    """Phase 50's exporter check, wiring runs, check_dataset and
-    parity_harness; adds their launches to ``launches``."""
-    # the exporter: mnist's final G as a reference NET_G .pth
-    run_dir = os.path.join(mnist["work"], "out_e20")
-    pth = os.path.join(mnist["work"], "netG_export.pth")
-    export_tool.main(["stage1", "--variant", "multi-mnist", "--cfg",
-                      vl.CFG_FILES["multi-mnist"], "--ckpt", run_dir,
-                      "--out", pth, "--device", DEVICE])
-    mcfg = stage1_model_config(cfg_from_file(
-        vl.CFG_FILES["multi-mnist"], "multi-mnist"), "multi-mnist")
-    same, diff = _same_images(pth, run_dir, mcfg)
-    log(f"  export stage1 {os.path.getsize(pth) / 2**20:.1f} MiB: the "
-        f"exported NET_G's images against the run checkpoint's G, batch "
-        f"{vl.GEN_BATCH} on the card: bit for bit {same} (max |diff| "
-        f"{diff:.3e})")
-    check(same, "the exported G's images differ from the run's G's")
-
+def _tool_runs(mnist_child, launches):
+    """Phase 50's wiring runs while mnist's learning run goes on in its own
+    process, then that run joined and held, the exporter check on its G,
+    check_dataset and parity_harness; adds their launches to
+    ``launches``."""
     # wiring at small n, no learning limit
     wiring = {}
     for variant, extra in (("coco-stackgan-2", ()), (
@@ -5987,6 +6011,24 @@ def _tool_runs(mnist, launches):
         wiring[variant] = {"json": out, "calls": calls, "seconds": seconds,
                            "work": work, "cfg": cfg_file}
         launches[f"validate_{variant}"] = total
+
+    mnist = _held_learning("mnist", _join_learning(mnist_child))
+    launches["validate_mnist"] = mnist["launches"]
+    # the exporter: mnist's final G as a reference NET_G .pth
+    run_dir = os.path.join(mnist["work"],
+                           f"out_e{VALIDATE_EPOCHS['mnist']}")
+    pth = os.path.join(mnist["work"], "netG_export.pth")
+    export_tool.main(["stage1", "--variant", "multi-mnist", "--cfg",
+                      vl.CFG_FILES["multi-mnist"], "--ckpt", run_dir,
+                      "--out", pth, "--device", DEVICE])
+    mcfg = stage1_model_config(cfg_from_file(
+        vl.CFG_FILES["multi-mnist"], "multi-mnist"), "multi-mnist")
+    same, diff = _same_images(pth, run_dir, mcfg)
+    log(f"  export stage1 {os.path.getsize(pth) / 2**20:.1f} MiB: the "
+        f"exported NET_G's images against the run checkpoint's G, batch "
+        f"{vl.GEN_BATCH} on the card: bit for bit {same} (max |diff| "
+        f"{diff:.3e})")
+    check(same, "the exported G's images differ from the run's G's")
 
     # check_dataset over the sets the phase wrote, then two faults
     s2w, aw = (wiring["coco-stackgan-2"]["work"],
@@ -6057,13 +6099,13 @@ def _tool_runs(mnist, launches):
     check(math.isfinite(result["fid"]), "the harness's FID")
     check(launches["parity_harness"] == (1, 0), "the harness's dump: one "
           f"K1 a batch of {result['n_images']} expected")
-    return wiring, ck_rows, result, harness_s
+    return mnist, wiring, ck_rows, result, harness_s
 
 
 # ------------------------------------------- phase 51: the last options
 
 REMAT_MODES = ("0", "full", "convs", "dots")
-REMAT_TIME_RUNS = 10        # CUDA-event readings a mode's step time
+REMAT_TIME_RUNS = 5         # CUDA-event readings a mode's step time
 # every mode against mode 0 on the card, both under cudnn.deterministic
 # (cuDNN's default backward differs run to run: mode 0 against itself
 # reads update cosines down to 0.99992, PERF.md): losses, per-tensor
@@ -6090,17 +6132,19 @@ def _cudnn_deterministic():
 
 
 @contextlib.contextmanager
-def _remat_env(mode: str):
-    """MOG_REMAT set to ``mode`` for the steps built inside."""
-    prev = os.environ.get("MOG_REMAT")
-    os.environ["MOG_REMAT"] = mode
+def _scoped_env(values: dict):
+    """The environment variables ``values`` set inside the block, each
+    restored (or removed) after it."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if prev is None:
-            os.environ.pop("MOG_REMAT", None)
-        else:
-            os.environ["MOG_REMAT"] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _timed_steps(step, runs):
@@ -6152,7 +6196,7 @@ def _remat_mnist():
     for key, mode, deterministic in plan:
         state = copy.deepcopy(state0)
         dist_steps._to_device_(state, dev)
-        with _remat_env(mode):
+        with _scoped_env({"MOG_REMAT": mode}):
             step = make_train_step(MNIST, KL_COEFF)
         k1.reset_launch_count()
         with (_cudnn_deterministic() if deterministic
@@ -6240,7 +6284,7 @@ def _remat_peaks(attn_weights, ds):
         s1, s2 = stage2_cfgs()
         g1 = build_stage1_g(s1, seed=0, device=dev)
         state = create_state_stage2(s2, seed=0, device=dev)
-        with _remat_env(mode):
+        with _scoped_env({"MOG_REMAT": mode}):
             step = make_stage2_train_step(s2, s1, g1, KL_COEFF)
         gen = torch.Generator(device=dev).manual_seed(0)
         ms, peak, per_step = _timed_steps(
@@ -6251,7 +6295,7 @@ def _remat_peaks(attn_weights, ds):
         torch.cuda.empty_cache()
         state, text, image = _attn_nets(dev, mcfg, g_sd, d_sds, ATTN_WORDS,
                                         e_sd, i_sd)
-        with _remat_env(mode):
+        with _scoped_env({"MOG_REMAT": mode}):
             step = make_attngan_train_step(mcfg, text, image)
         ms, peak, per_step = _timed_steps(
             lambda: step(state, attn_batch, gen, LR, LR), 1)
@@ -6267,33 +6311,33 @@ def _remat_peaks(attn_weights, ds):
     return out
 
 
-def _span_groups():
-    """The world-2 mnist step at SPAN_GROUPS BatchNorm groups of a global
-    batch of SPAN_BATCH (a group spans the two ranks) against one process
-    at the same groups, from warm Adams, held at phase 48's limits."""
+def _span_case():
+    """The mnist step case at SPAN_GROUPS BatchNorm groups of a global
+    batch of SPAN_BATCH, from warm Adams, and its state before the step.
+    Phase 48's ranks run it (one start for both phases)."""
     cfg = dataclasses.replace(MNIST, bn_groups=SPAN_GROUPS)
     state = create_state(cfg, seed=0, device="cpu")
     randomize(state.g, 3)
     randomize(state.d, 11)
     warm_adam(state)
     pre = copy.deepcopy(state.checkpoint_dict())
-    case = {"name": "span", "kind": "stage1", "config": cfg, "state": state,
-            "batch": {k: torch.from_numpy(v) for k, v in
-                      synthetic_multimnist(SPAN_BATCH, seed=51).items()},
-            "seed": 51, "lr": LR}
-    path = os.path.join(WORK, "span_cases.pth")
-    torch.save([case], path)
-    del case, state
-    t = time.perf_counter()
-    ranks = dist_steps.spawn(path, os.path.join(WORK, "span_out"),
-                             world=DIST_WORLD, device=DEVICE,
-                             timeout=DIST_TIMEOUT, env=_rank_env())
-    spawn_s = time.perf_counter() - t
-    want = dist_steps.run_cases(torch.load(path, weights_only=False),
-                                DEVICE)["span"]
-    os.remove(path)
-    shutil.rmtree(os.path.join(WORK, "span_out"), ignore_errors=True)
-    got = [r["results"]["span"] for r in ranks]
+    return ({"name": "span", "kind": "stage1", "config": cfg,
+             "state": state,
+             "batch": {k: torch.from_numpy(v) for k, v in
+                       synthetic_multimnist(SPAN_BATCH, seed=51).items()},
+             "seed": 51, "lr": LR}, pre)
+
+
+def _span_groups(span):
+    """The world-2 mnist step at SPAN_GROUPS BatchNorm groups of a global
+    batch of SPAN_BATCH (a group spans the two ranks; phase 48's ranks ran
+    it, ``span``) against one process at the same groups, from warm Adams,
+    held at phase 48's limits."""
+    pre, ranks = span["pre"], span["ranks"]
+    want = dist_steps.run_cases(
+        torch.load(span["cases"], weights_only=False), DEVICE)["span"]
+    os.remove(span["cases"])
+    got = ranks
     bad = [k for k, v in want["metrics"].items()
            if abs(got[0]["metrics"][k] - v)
            > DIST_LOSS_ATOL + DIST_LOSS_RTOL * abs(v)]
@@ -6302,13 +6346,14 @@ def _span_groups():
     stats, cos, worst = _state_gaps(pre, got[0]["state"], want["state"])
     same = _same_bits(got[0]["state"], got[1]["state"])
     log(f"  --bn_groups {SPAN_GROUPS} over {DIST_WORLD} ranks "
-        f"({ranks[0]['backend']}), global batch {SPAN_BATCH}: worst loss "
+        f"({span['backend']}; phase 48's ranks), global batch {SPAN_BATCH}: "
+        "worst loss "
         f"gap {loss_rel:.2e} of the loss (limit {DIST_LOSS_ATOL:g} + "
         f"{DIST_LOSS_RTOL:g} of it); running statistics {stats:.3e} (atol "
         f"{STATS_ATOL:g}); lowest update cosine {cos:.8f} ({worst}; limit "
         f"{DIST_MIN_UPDATE_COSINE:g}); replicas equal bit for bit: {same}; "
         f"K1/K2 a rank {[r['launches'] for r in got]} (one process "
-        f"{want['launches']}); the spawn {spawn_s:.1f} s (host clock)")
+        f"{want['launches']})")
     failed = [msg for ok, msg in (
         (same, "the replicas differ after the step"),
         (not bad, f"losses world 2 vs world 1 {bad}"),
@@ -6319,8 +6364,7 @@ def _span_groups():
     check(not failed, "; ".join(failed))
     return ({f"span_g{SPAN_GROUPS}_rank{r}": got[r]["launches"]
              for r in range(DIST_WORLD)},
-            {"loss_rel": loss_rel, "stats": stats, "update_cosine": cos,
-             "spawn_s": spawn_s})
+            {"loss_rel": loss_rel, "stats": stats, "update_cosine": cos})
 
 
 def _serve_max_batch():
@@ -6398,8 +6442,8 @@ def _serve_max_batch():
     return launches, rows, worst
 
 
-def phase_options(attn_weights):
-    log("phase 51/51 options: MOG_REMAT's four modes in the mnist f32 step "
+def phase_options(attn_weights, dist2):
+    log("phase 51/52 options: MOG_REMAT's four modes in the mnist f32 step "
         "(each against mode 0) and peak memory at 0 and full for stage 2 "
         "and AttnGAN; --bn_groups 3 over two ranks against one process; "
         "serving at --max_batch 8 and 128 with K1 at both batches")
@@ -6407,7 +6451,7 @@ def phase_options(attn_weights):
         remat_rows, launches = _remat_mnist()
         _, ds = _attn_set()
         peaks = _remat_peaks(attn_weights, ds)
-        span_launches, span = _span_groups()
+        span_launches, span = _span_groups(dist2["span"])
         serve_launches, places, worst = _serve_max_batch()
     launches.update(span_launches)
     launches.update(serve_launches)
@@ -6423,6 +6467,185 @@ def phase_options(attn_weights):
                            for k, v in places.items()}
     return launches, {"max_abs_err": worst, **places, "remat": remat_rows,
                       "remat_peaks": peaks, "span": span}
+
+
+# ------------------------------------------------------------ the bench tools
+
+# the tools' timed calls here (half their defaults: 20 steps, 40 and 20
+# batches)
+BENCH_STEPS = 10
+BENCH_BATCHES = 20
+BENCH_ATTN_BATCHES = 10
+BENCH_MAX_MFU = 1.05        # mfu above the dense peak by more is a fault
+BENCH_VARIANT_KEYS = {"variant", "batch", "step_ms", "img_per_sec",
+                      "tflops_per_step", "gbytes_per_step", "mfu",
+                      "hbm_util", "bound"}   # JAX tools/bench_variants.py
+BENCH_SAMPLING_KEYS = {"variant", "batch", "bf16", "ms_per_batch",
+                       "img_per_sec"}        # JAX tools/bench_sampling.py
+# K1/K2 launches a step (bench_variants) or a batch (bench_sampling)
+BENCH_LAUNCHES = {"mnist": (4, 4), "clevr": (4, 4), "stackgan1": (4, 4),
+                  "stage2": S2_LAUNCHES, "attngan": ATTN_LAUNCHES,
+                  "sampling": (1, 0)}
+BENCH_ATTN_SHAPE = (bench_sampling.ATTN_BATCH, 3, 192, 16, 16)
+ENV_KNOBS = {"MOG_COMPUTE_DTYPE": "bfloat16", "MOG_BN_GROUPS": "2"}
+
+
+def _rounding_ok(line, ms_key):
+    """img_per_sec equals batch / ms to their rounding (0.1 and 0.01)."""
+    b, ms = line["batch"], line[ms_key]
+    return abs(line["img_per_sec"] - b * 1e3 / ms) <= (
+        0.05 + b * 1e3 * 0.005 / ms ** 2 + 1e-9)
+
+
+def _bench_run(label, fn, calls, per_call):
+    """``fn()`` with the launch counts reset before; checks that K1 and
+    K2 launched ``per_call`` times each of its ``calls`` calls; returns
+    (its JSON line, the launches)."""
+    k1.reset_launch_count()
+    line = fn()
+    torch.cuda.synchronize()
+    got = (k1.launch_count(), k1.grad_launch_count())
+    want = tuple(calls * n for n in per_call)
+    print(json.dumps(line), flush=True)
+    log(f"  {label}: K1/K2 {got} over {calls} calls (expected {want})")
+    check(got == want, f"{label}: K1/K2 launched {got}, expected {want}")
+    return line, got
+
+
+def _bench_places():
+    """K1 at attngan256's place, (32,3,192,16²) -> 16² with the tool's
+    boxes, bf16 (its dtype) and f32, held against its plain version and
+    timed."""
+    rs = np.random.RandomState(52)
+    bbox = torch.from_numpy(np.tile(bench_variants.BOX, (
+        BENCH_ATTN_SHAPE[0], BENCH_ATTN_SHAPE[1], 1)).astype(
+            np.float32)).to(DEVICE)
+    feats = torch.from_numpy(rs.randn(*BENCH_ATTN_SHAPE).astype(
+        np.float32)).to(DEVICE)
+    rows, worst = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feats.to(dtype)
+        label = f"bench attngan256 {tuple(f.shape)} {str(dtype)[6:]}"
+        err = _held(k1.stn_place_multi_nchw(f, bbox, (16, 16)),
+                    k1.stn_place_multi_plain(f, bbox, (16, 16)), dtype, "K1",
+                    label)
+        if dtype == torch.float32:
+            worst = err
+        row = time_place(f, bbox, (16, 16), f"K1 {label}")
+        rows[f"attngan256_{str(dtype)[6:]}"] = {
+            "shape": list(f.shape), **{k: row[k] for k in (
+                "ms", "plain_ms", "graph_ms", "bound_ms", "bound_by",
+                "share_of_bound", "graph_share_of_bound")}}
+    return rows, worst
+
+
+def _env_knob_step():
+    """The mnist step whose config the train entry's argument parsing
+    gives under MOG_COMPUTE_DTYPE=bfloat16 and MOG_BN_GROUPS=2 without
+    flags, against the step under --bf16 --bn_groups 2: one state, one
+    batch, one noise draw, cudnn.deterministic; bit for bit. Returns the
+    launches of the two steps."""
+    argv = ["--variant", "multi-mnist", "--cfg", MNIST_TRAIN]
+    flagged = train_main.parse_args([*argv, "--bf16", "--bn_groups", "2"])
+    before = {k: os.environ.get(k) for k in ENV_KNOBS}
+    with _scoped_env(ENV_KNOBS):
+        from_env = train_main.parse_args(argv)
+    check({k: os.environ.get(k) for k in ENV_KNOBS} == before,
+          "the environment was not restored")
+    knobs = [train_main.model_knobs(a) for a in (flagged, from_env)]
+    log(f"  the entry's knobs: flags {knobs[0]}, env {knobs[1]}")
+    check(knobs[0] == knobs[1] == {"compute_dtype": torch.bfloat16,
+                                   "bn_groups": 2},
+          f"the env knobs parse to {knobs[1]}, the flags to {knobs[0]}")
+    cfg = cfg_from_file(MNIST_TRAIN, "multi-mnist")
+    data = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+            synthetic_multimnist(STEP_BATCH, seed=52).items()}
+    start, results = None, []
+    k1.reset_launch_count()
+    with _cudnn_deterministic():
+        for k in knobs:
+            mcfg = stage1_model_config(cfg, "multi-mnist", **k)
+            if start is None:
+                state = create_state(mcfg, seed=52, device=DEVICE)
+                start = ({n: v.clone() for n, v in
+                          state.g.state_dict().items()},
+                         {n: v.clone() for n, v in
+                          state.d.state_dict().items()})
+            else:
+                state = create_state(mcfg, device=DEVICE,
+                                     g_state_dict=start[0],
+                                     d_state_dict=start[1])
+            gen = torch.Generator(device=DEVICE).manual_seed(52)
+            metrics = make_train_step(mcfg)(state, data, gen, LR, LR)
+            results.append((metrics, {**state.g.state_dict(),
+                                      **state.d.state_dict()}))
+    torch.cuda.synchronize()
+    launches = (k1.launch_count(), k1.grad_launch_count())
+    (m0, s0), (m1, s1) = results
+    differ = [k for k in m0 if not torch.equal(m0[k], m1[k])] + [
+        k for k in s0 if not torch.equal(s0[k], s1[k])]
+    log(f"  mnist bf16 step at batch {STEP_BATCH}, 2 groups, from the env "
+        f"against the flags (cudnn.deterministic): {len(m0)} losses and "
+        f"{len(s0)} state tensors, {len(differ)} differing; K1/K2 "
+        f"{launches}")
+    check(not differ, f"the env step differs from the flag step: "
+          f"{differ[:5]}")
+    check(launches == (8, 8), f"the two steps launched K1/K2 {launches}")
+    return launches
+
+
+def phase_bench():
+    log("phase 52/52 bench: the port's bench tools in-process at full "
+        "width, bf16: bench_variants (mnist, clevr, stackgan1 at 128, "
+        "stage 2 at 40, AttnGAN at 14; the H100's roofline) and "
+        "bench_sampling (mnist, clevr, stackgan1 at 128, attngan256 at "
+        "32), their keys, rounding, mfu and K1/K2 launches; K1 at "
+        "attngan256's place held and timed; an mnist step under "
+        "MOG_COMPUTE_DTYPE/MOG_BN_GROUPS against the flags' step")
+    launches, lines = {}, {"variants": {}, "sampling": {}}
+    for name, fn in bench_variants.BENCHES.items():
+        line, launches[f"bench_variants_{name}"] = _bench_run(
+            f"bench_variants {name}", lambda: fn(device=DEVICE,
+                                                 n=BENCH_STEPS),
+            BENCH_STEPS + bench_variants.WARMUP + 1, BENCH_LAUNCHES[name])
+        check(set(line) == BENCH_VARIANT_KEYS, f"{name}: keys {sorted(line)}")
+        check(_rounding_ok(line, "step_ms"), f"{name}: img_per_sec "
+              f"{line['img_per_sec']} is not batch / step_ms")
+        check(None not in (line["mfu"], line["hbm_util"])
+              and 0 < line["mfu"] <= BENCH_MAX_MFU and line["hbm_util"] > 0,
+              f"{name}: mfu {line['mfu']}, hbm_util {line['hbm_util']}")
+        lines["variants"][name] = line
+    for name in (*bench_sampling.VARIANTS, "attngan"):
+        if name == "attngan":
+            n = BENCH_ATTN_BATCHES
+
+            def fn():
+                return bench_sampling.bench_attngan(True, device=DEVICE,
+                                                    n=BENCH_ATTN_BATCHES)
+        else:
+            n = BENCH_BATCHES
+
+            def fn(name=name):
+                return bench_sampling.bench_variant(name, True,
+                                                    device=DEVICE,
+                                                    n=BENCH_BATCHES)
+        line, got = _bench_run(f"bench_sampling {name}", fn,
+                               n + bench_variants.WARMUP,
+                               BENCH_LAUNCHES["sampling"])
+        launches[f"bench_sampling_{line['variant']}"] = got
+        check(set(line) == BENCH_SAMPLING_KEYS and line["bf16"] is True,
+              f"sampling {name}: {line}")
+        check(_rounding_ok(line, "ms_per_batch"), f"sampling {name}: "
+              f"img_per_sec {line['img_per_sec']} is not batch / ms")
+        lines["sampling"][line["variant"]] = line
+    places, worst = _bench_places()
+    launches["bench_env_knobs"] = _env_knob_step()
+    SUMMARY["bench"] = {
+        "step": {k: {"ms": v["step_ms"], "mfu": v["mfu"]}
+                 for k, v in lines["variants"].items()},
+        "sample_ms": {k: v["ms_per_batch"]
+                      for k, v in lines["sampling"].items()}}
+    return launches, {"max_abs_err": worst, **places, "lines": lines}
 
 
 def _post(port, body):
@@ -6449,14 +6672,83 @@ def main() -> int:
 
 
 PHASE_S: dict = {}          # each phase's wall time, host clock
+# each phase's phase_s in a full run on the card (PERF.md §6), the base of
+# its watchdog deadline: max(PHASE_MIN_DEADLINE_S, 2 x this)
+PHASE_BUDGET_S = {
+    "device": 0.1, "build": 7.8, "kernel": 6.5, "model": 2.9, "serve": 2,
+    "grad": 1.6, "autograd": 11.9, "step": 28.8, "steptime": 2.2,
+    "train": 2.4, "normconv": 0.9, "bf16": 6.6, "step16": 21.4, "time16": 1.7,
+    "entry16": 3.2, "families": 19.4, "fstep": 23.5, "ftime": 6.9,
+    "fentry": 4.4, "fserve": 6.7, "probe": 0.2, "disk": 24.2, "batch9": 1,
+    "sample": 2.4, "s2kernels": 13.7, "s2step": 37.9, "s2time": 14,
+    "s2entry": 18.2, "s2serve": 7, "attnkernels": 2.1, "attnmodel": 25,
+    "attnserve": 5.1, "attnplaces": 2.7, "attnstep": 31.1, "attntime": 26.8,
+    "attnentry": 48.9, "damsmstep": 2.8, "damsmtime": 5.8, "damsmentry": 13.1,
+    "attneval": 11.3, "jpeg": 4.2, "cocodisk": 33.2, "s2sample": 51.3,
+    "fid": 4.8, "sampling": 28.2, "layout": 16.8, "nccl1": 23.5,
+    "dist2": 114.3, "dump2": 0.5, "validate": 156.6, "options": 31.6,
+    "bench": 29
+}
+PHASE_MIN_DEADLINE_S = 120
+PHASE_OVERRUN_RC = 70       # the exit code of a phase past its deadline
+# faulthandler's own dump and exit this long after the deadline, should
+# the watchdog thread not get the interpreter lock
+BACKSTOP_S = 60
+
+
+def _descendants(pid: int) -> list:
+    """The pids of every living descendant of ``pid`` (from /proc)."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    found, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            found.append(child)
+            todo.append(child)
+    return found
+
+
+def _overrun(name: str, deadline: float) -> None:
+    """A phase ran past its deadline: every thread's stack to stderr, the
+    processes this script started killed, exit PHASE_OVERRUN_RC."""
+    print(f"chip_smoke: phase {name} overran its deadline of "
+          f"{deadline:.0f} s; every thread's stack follows", file=sys.stderr,
+          flush=True)
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    for pid in _descendants(os.getpid()):
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    print(f"chip_smoke: FAILED: phase {name} overran its deadline",
+          file=sys.stderr, flush=True)
+    if WORK:
+        shutil.rmtree(WORK, ignore_errors=True)
+    os._exit(PHASE_OVERRUN_RC)
 
 
 def timed(name, fn, *args):
-    """``fn(*args)``, its wall time kept under ``name`` for the summary."""
+    """``fn(*args)``, its wall time kept under ``name`` for the summary,
+    under a watchdog: past max(PHASE_MIN_DEADLINE_S, 2 x its
+    PHASE_BUDGET_S) the script dumps every thread's stack and exits
+    non-zero naming the phase (:func:`_overrun`)."""
+    deadline = max(PHASE_MIN_DEADLINE_S, 2 * PHASE_BUDGET_S[name])
+    watchdog = threading.Timer(deadline, _overrun, (name, deadline))
+    watchdog.daemon = True
     t = time.perf_counter()
+    watchdog.start()
+    faulthandler.dump_traceback_later(deadline + BACKSTOP_S, exit=True)
     try:
         return fn(*args)
     finally:
+        faulthandler.cancel_dump_traceback_later()
+        watchdog.cancel()
         PHASE_S[name] = round(time.perf_counter() - t, 1)
 
 
@@ -6502,7 +6794,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/51 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/52 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -6551,7 +6843,8 @@ def run_phases() -> int:
     dump_paths, dump2 = timed("dump2", phase_dist_sampling, sampling, dist2)
     validate_paths, validate = timed("validate", phase_validate)
     options_paths, options = timed("options", phase_options,
-                                   attn_step["weights"])
+                                   attn_step["weights"], dist2)
+    bench_paths, bench = timed("bench", phase_bench)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
@@ -6559,7 +6852,7 @@ def run_phases() -> int:
                **attn_entry, **damsm_entry, **attn_eval_paths,
                **s2_sample_paths, **sampling_paths, **layout_paths,
                **dist_paths, **dump_paths, **validate_paths,
-               **options_paths}
+               **options_paths, **bench_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
@@ -6568,10 +6861,12 @@ def run_phases() -> int:
                  *s2_sample_paths, *sampling_paths, *layout_paths,
                  *dist_paths, *dump_paths, "parity_harness",
                  *options_paths)
-    # the validate tool's runs are --bf16, its default
+    # the validate tool's runs are --bf16, its default; the bench tools'
+    # and the env-knob steps bf16
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16",
-                  *(p for p in validate_paths if p.startswith("validate_")))
+                  *(p for p in validate_paths if p.startswith("validate_")),
+                  *bench_paths)
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -6594,6 +6889,7 @@ def run_phases() -> int:
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
             "attngan_sampling": sampling, "layout_tool": layout,
             "validate_tool": validate, "options": options,
+            "bench_tools": bench,
             "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
                        "places": dist2["places"]["place"],
                        "dump": dump2}},
@@ -6634,7 +6930,8 @@ def run_phases() -> int:
                            s2_sample["max_abs_err"],
                            sampling["max_abs_err"], layout["max_abs_err"],
                            dist2["places"]["max_abs_err"]["place"],
-                           validate["max_abs_err"], options["max_abs_err"]),
+                           validate["max_abs_err"], options["max_abs_err"],
+                           bench["max_abs_err"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -6652,7 +6949,10 @@ def run_phases() -> int:
                       for k in ("mnist_float32", "mnist_bfloat16",
                                 "clevr_float32", "clevr_bfloat16")},
                    **{k: _compact(options[k])
-                      for k in (f"serve_b{b}" for b in SERVE_MAX_BATCHES)}},
+                      for k in (f"serve_b{b}" for b in SERVE_MAX_BATCHES)},
+                   **{f"bench_{k}": _compact(bench[k])
+                      for k in ("attngan256_float32",
+                                "attngan256_bfloat16")}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",

@@ -55,9 +55,12 @@ card, rank 0 writing the logs, records and checkpoints; ``--bn_groups``
 and the world size must then divide the global batch (a group may span
 ranks), and of the eval modes only AttnGAN's ``sampling`` dump shards
 (the others run on rank 0). ``MOG_REMAT=0|full|convs|dots`` recomputes
-the train steps' regions in their backward (``train/remat.py``). A float32
-run on the card computes in float32: TF32 is turned off
-(``float32_policy``, as the server does).
+the train steps' regions in their backward (``train/remat.py``).
+``MOG_COMPUTE_DTYPE=bf16|bfloat16`` turns ``--bf16`` on, and
+``MOG_BN_GROUPS=G`` is ``--bn_groups``' default, as the JAX package reads
+them (``with_env_knobs``); ``run_flags.json`` records what the run
+computes. A float32 run on the card computes in float32: TF32 is turned
+off (``float32_policy``, as the server does).
 """
 
 from __future__ import annotations
@@ -92,6 +95,8 @@ from multiple_objects_gan_tpu_torch.data.coco import (
 from multiple_objects_gan_tpu_torch.data.datasets import (
     MNIST_VARIANT, ClevrDataset, Loader, MultiMnistDataset,
     write_synthetic_clevr, write_synthetic_multimnist)
+from multiple_objects_gan_tpu_torch.nn.blocks import (
+    env_bn_groups, env_compute_dtype)
 from multiple_objects_gan_tpu_torch.parallel.multihost import (
     barrier, destroy_distributed, is_main_process,
     maybe_initialize_distributed, rank_device, shard_loader_kwargs,
@@ -167,12 +172,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 activations: convs and linears compute in "
                         "bf16; weights, Adam state and BatchNorm running "
-                        "statistics stay float32")
-    p.add_argument("--bn_groups", type=int, default=1,
+                        "statistics stay float32 (also on under "
+                        "MOG_COMPUTE_DTYPE=bf16|bfloat16)")
+    p.add_argument("--bn_groups", type=int, default=None,
                    help="train-mode BatchNorm statistic groups: 1 = the "
-                        "whole batch (default), G > 1 = per-replica "
-                        "DataParallel statistics over G contiguous batch "
-                        "chunks, as a G-GPU reference run computes them")
+                        "whole batch, G > 1 = per-replica DataParallel "
+                        "statistics over G contiguous batch chunks, as a "
+                        "G-GPU reference run computes them (default: "
+                        "MOG_BN_GROUPS, else 1)")
     p.add_argument("--stochastic_ca", action="store_true",
                    help="stage-2 sampling: draw the CA noise (the "
                         "reference's eval, stackgan model.py:66-71) "
@@ -194,7 +201,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--profile", default="",
                    help="directory for a torch.profiler trace of steps 2-5 "
                         "of the first epoch")
-    return p.parse_args(argv)
+    return with_env_knobs(p.parse_args(argv))
+
+
+def with_env_knobs(args: argparse.Namespace) -> argparse.Namespace:
+    """``args`` with the JAX package's environment knobs applied as that
+    CLI leaves them standing (JAX ``cli/main.py:188-195``): ``--bf16`` is on
+    when the flag or ``MOG_COMPUTE_DTYPE`` says bf16, and ``--bn_groups``
+    without a value takes ``MOG_BN_GROUPS`` (else 1). Everything after
+    parsing, ``run_flags.json`` included, sees these effective values."""
+    args.bf16 = bool(args.bf16) or env_compute_dtype() == torch.bfloat16
+    if args.bn_groups is None:
+        args.bn_groups = env_bn_groups()
+    return args
+
+
+def model_knobs(args: argparse.Namespace) -> dict:
+    """The model configs' ``compute_dtype`` and ``bn_groups`` from the
+    effective flags (:func:`with_env_knobs`)."""
+    return {"compute_dtype": torch.bfloat16 if args.bf16 else None,
+            "bn_groups": args.bn_groups}
 
 
 def check_resume_flags(resume_dir: str, **current) -> list:
@@ -369,7 +395,8 @@ def _run(args) -> list[dict]:
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    dtype = torch.bfloat16 if args.bf16 else None
+    knobs = model_knobs(args)
+    dtype = knobs["compute_dtype"]
     float32_policy(device, dtype)
     # both StackGAN variants go where cfg STAGE says (JAX run_stackgan)
     stackgan = args.variant.startswith("coco-stackgan")
@@ -384,17 +411,14 @@ def _run(args) -> list[dict]:
     if attn:
         # damsm's backbone runs in eval mode and its text encoder has no
         # BatchNorm: the flag is recorded and changes nothing, as in JAX
-        mcfg = attngan_model_config(cfg, compute_dtype=dtype,
-                                    bn_groups=args.bn_groups)
+        mcfg = attngan_model_config(cfg, **knobs)
         if not training:
             mode = eval_mode(args.eval_mode, cfg)
     elif stage2:
-        s1_cfg, mcfg = stage2_model_config(cfg, compute_dtype=dtype,
-                                           bn_groups=args.bn_groups)
+        s1_cfg, mcfg = stage2_model_config(cfg, **knobs)
     else:
         mcfg = stage1_model_config(
-            cfg, "coco-stackgan-1" if stackgan else args.variant,
-            compute_dtype=dtype, bn_groups=args.bn_groups)
+            cfg, "coco-stackgan-1" if stackgan else args.variant, **knobs)
     loader = None
     if attn:
         coco_data(args, cfg, seed, device)

@@ -77,6 +77,7 @@ from multiple_objects_gan_tpu_torch.models.attngan import (
 from multiple_objects_gan_tpu_torch.models.common import MNIST, Stage1Config
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
+from multiple_objects_gan_tpu_torch.nn.blocks import env_compute_dtype
 from multiple_objects_gan_tpu_torch.nn.encoders import build_text_encoder
 from multiple_objects_gan_tpu_torch.ops import stn_place_cuda
 from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
@@ -748,8 +749,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run the generator in bf16 (float32 weights and "
                         "running statistics, float32 images out); "
                         "without it every variant computes in float32, "
-                        "TF32 off on the card")
-    return p.parse_args(argv)
+                        "TF32 off on the card; also on under "
+                        "MOG_COMPUTE_DTYPE=bf16|bfloat16")
+    args = p.parse_args(argv)
+    # the JAX package's knob, read as its CLI leaves it (cli/main.py)
+    args.bf16 = args.bf16 or env_compute_dtype() == torch.bfloat16
+    return args
 
 
 def main(argv=None):

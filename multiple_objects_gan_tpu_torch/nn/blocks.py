@@ -26,6 +26,12 @@ here, carried from the model config:
   ``groups`` GPUs gives them; the running statistics take chunk 0's update
   only, as the master replica's buffers are the module's.
 
+The JAX package also reads both knobs from the environment when it is
+imported (``MOG_COMPUTE_DTYPE``, ``MOG_BN_GROUPS``; nn/blocks.py:40-43
+and :104). The port's entries read them through
+:func:`env_compute_dtype` and :func:`env_bn_groups` when they parse their
+arguments, never at import.
+
 Under a process group of more than one rank (``parallel/``), train-mode
 statistics are those of the global batch, as XLA's sync-BN computes them
 over a sharded batch: each rank's count, mean and sum of squared
@@ -63,6 +69,7 @@ parameters' dtype.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Callable, Optional
 
 import torch
@@ -75,6 +82,26 @@ from multiple_objects_gan_tpu_torch.parallel.multihost import (
 
 # > 0 while a checkpointed region runs its forward again (train/remat.py)
 _RECOMPUTING = 0
+
+
+def env_compute_dtype() -> Optional[torch.dtype]:
+    """``MOG_COMPUTE_DTYPE`` as the JAX package reads it (nn/blocks.py:40-43
+    there): ``bf16`` or ``bfloat16``, in any case, gives torch.bfloat16;
+    anything else, or no value, None (float32)."""
+    value = os.environ.get("MOG_COMPUTE_DTYPE", "").lower()
+    return torch.bfloat16 if value in ("bf16", "bfloat16") else None
+
+
+def env_bn_groups() -> int:
+    """``MOG_BN_GROUPS`` as the JAX package reads it (nn/blocks.py:104
+    there): an int, 1 when it is unset or empty; a value that is not an
+    int raises a ValueError naming the variable."""
+    value = os.environ.get("MOG_BN_GROUPS", "") or "1"
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError(f"MOG_BN_GROUPS must be an int, got "
+                         f"{value!r}") from None
 
 
 @contextlib.contextmanager

@@ -12,6 +12,7 @@ the optimizer, copies),
 the top kernels by device time, and the device's busy share of the traced
 wall time. The last line is one JSON object of those numbers. It needs a
 card; float32 runs with TF32 off, as ``chip_smoke.py`` times it.
+``MOG_COMPUTE_DTYPE=bf16|bfloat16`` turns ``--bf16`` on.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from multiple_objects_gan_tpu_torch import resolve_device
 from multiple_objects_gan_tpu_torch.data.synthetic import synthetic_multimnist
 from multiple_objects_gan_tpu_torch.models.common import MNIST
+from multiple_objects_gan_tpu_torch.nn.blocks import env_compute_dtype
 from multiple_objects_gan_tpu_torch.train.state import create_state
 from multiple_objects_gan_tpu_torch.train.step import make_train_step
 
@@ -90,6 +92,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--bf16", action="store_true")
     args = p.parse_args(argv)
+    # MOG_COMPUTE_DTYPE=bf16 turns --bf16 on, as in cli/main.py
+    args.bf16 = args.bf16 or env_compute_dtype() == torch.bfloat16
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

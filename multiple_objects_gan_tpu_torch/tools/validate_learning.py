@@ -78,6 +78,7 @@ from multiple_objects_gan_tpu_torch.data.png import read_png, resize_bilinear
 from multiple_objects_gan_tpu_torch.io.checkpoint import CheckpointManager
 from multiple_objects_gan_tpu_torch.models.stage1 import build_stage1_g
 from multiple_objects_gan_tpu_torch.models.stage2 import build_stage2_g
+from multiple_objects_gan_tpu_torch.nn.blocks import env_compute_dtype
 from multiple_objects_gan_tpu_torch.tools import export_checkpoint
 from multiple_objects_gan_tpu_torch.train.step import make_sample_fn
 from multiple_objects_gan_tpu_torch.utils import layout_fidelity as lf
@@ -532,7 +533,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--export_pth", default="",
                    help="export the final G as a reference .pth here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    # MOG_COMPUTE_DTYPE=bf16 computes bf16 under --no-bf16 too, as the JAX
+    # package's import-time knob does; the train entries read it as well
+    args.bf16 = args.bf16 or env_compute_dtype() == torch.bfloat16
+    return args
 
 
 def main(argv=None) -> dict:
