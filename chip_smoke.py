@@ -26,8 +26,10 @@ AttnGAN's sampling dump sharded over two processes, 50 runs the tools:
 validate_learning (whether a run learns), export_checkpoint,
 check_dataset, parity_harness and the general STN, 51 the last train
 and serve options: MOG_REMAT, BatchNorm groups that span ranks and the
-server's --max_batch, and 52 the bench tools (bench_variants,
-bench_sampling) and the MOG_COMPUTE_DTYPE / MOG_BN_GROUPS knobs. Every
+server's --max_batch, 52 the bench tools (bench_variants,
+bench_sampling) and the MOG_COMPUTE_DTYPE / MOG_BN_GROUPS knobs, and 53
+the port's headline bench (bench.py) and driver entry (graft_entry.py),
+with the stage-2 step across ranks. Every
 COCO entry reads its JPEGs from disk (nvjpeg on the card). The train
 entries' data and runs go to a temporary directory, removed at the end.
 Phases, each logged with the elapsed time:
@@ -298,8 +300,8 @@ Phases, each logged with the elapsed time:
                 replicas equal bit for bit, K1 and K2 launches a rank; the
                 steps' times at both world sizes and the gradient
                 all-reduce's; K1 and K2 at a rank's place shapes held and
-                timed; the same start runs phase 49's dump and phase 51's
-                --bn_groups 3 step;
+                timed; the same start runs phase 49's dump, phase 51's
+                --bn_groups 3 step and phase 53's dry run;
  49. dump2    - phase 45's sampling dump (56 images) as two processes: the
                 same PNG names, pixels within 1 level, FID and IS beside
                 phase 45's, one K1 a batch on each rank;
@@ -354,7 +356,25 @@ Phases, each logged with the elapsed time:
                 the train entry parses under MOG_COMPUTE_DTYPE=bfloat16
                 and MOG_BN_GROUPS=2 (no flags) equal bit for bit to the
                 --bf16 --bn_groups 2 step under cudnn.deterministic, the
-                environment restored after.
+                environment restored after;
+ 53. headline - python -m multiple_objects_gan_tpu_torch.bench from the
+                command line (the guarded parent and its child;
+                MOG_BENCH_VARIANTS=0, phase 52 runs the variants): one
+                JSON line with the JAX bench's keys, value = 128 x 1000 /
+                step_ms to rounding, vs_baseline null, 0 < mfu < 1, no
+                retry; K1/K2 launches of its step here (4 and 4);
+                graft_entry.entry() (batch 8, float32) on the card against
+                the same step on the CPU from one start at phase 8's
+                limits, and K1/K2 at its (8,3,256,16²) and (8,3,128,15²)
+                places held and timed; the dry run's stage-1, AttnGAN and
+                stage-2 legs (graft_entry.dryrun_cases(2)) as two ranks on
+                phase 48's start, checked by graft_entry.check_dryrun
+                (what dryrun_multichip checks), and its stage-2 leg from
+                warm Adams held at world 2 against world 1 at phase 48's
+                limits, the replicas bit for bit, K1/K2 launches a rank;
+                each leg stepped once here at a rank's rows with every
+                K1/K2 call's inputs recorded, each call held against its
+                plain version on those inputs and each shape timed.
 
 Every phase runs under a watchdog (``timed``): past max(120 s, twice its
 PHASE_BUDGET_S reading) the script prints every thread's stack to stderr,
@@ -399,6 +419,8 @@ import numpy as np
 import torch
 
 from multiple_objects_gan_tpu_torch import float32_pinned
+from multiple_objects_gan_tpu_torch import bench as port_bench
+from multiple_objects_gan_tpu_torch import graft_entry
 from multiple_objects_gan_tpu_torch import ops as port_ops
 from multiple_objects_gan_tpu_torch.cli import attngan_runner
 from multiple_objects_gan_tpu_torch.cli import main as train_main
@@ -643,7 +665,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/52 device")
+    log("phase 1/53 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -661,7 +683,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/52 build")
+    log("phase 2/53 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -706,7 +728,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/52 kernel against its plain version, on the card")
+    log("phase 3/53 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -841,7 +863,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/52 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/53 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -924,7 +946,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/52 serve: the port's main path over HTTP, on the card")
+    log("phase 5/53 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -1071,7 +1093,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/52 grad: K2 (place backward) against its plain version, "
+    log("phase 6/53 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1178,7 +1200,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/52 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/53 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1267,12 +1289,18 @@ def step_once(device, data, z, cfg=MNIST, randomized=False, eps=None):
         eps=None if eps is None else torch.from_numpy(eps).to(device))
     metrics = {k: float(v) for k, v in metrics.items()}
     seconds = time.perf_counter() - t
+    return (metrics, pre, *_after_step(nets), seconds)
+
+
+def _after_step(nets):
+    """The state dicts and the gradients of ``nets`` ((name, module)
+    pairs) on the CPU; a parameter without a gradient gives zeros."""
     post = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
             for n, m in nets}
     grads = {n: {k: (torch.zeros(p.shape) if p.grad is None
                      else p.grad.detach().cpu())
                  for k, p in m.named_parameters()} for n, m in nets}
-    return metrics, pre, post, grads, seconds
+    return post, grads
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1284,16 +1312,22 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def step_disagreements(got, want, loss_atol=LOSS_ATOL, loss_rtol=0.0,
-                       stats_atol=STATS_ATOL, min_cosine=MIN_GRAD_COSINE):
+                       stats_atol=STATS_ATOL, min_cosine=MIN_GRAD_COSINE,
+                       zero_rel=0.0):
     """Where two results of :func:`step_once` from the same weights
     disagree beyond the limits: losses (atol ``loss_atol`` plus
     ``loss_rtol`` of the loss), BatchNorm running statistics (atol
     ``stats_atol``) and the per-tensor gradient cosine (above
-    ``min_cosine``); the float32 limits by default. Returns (failures,
-    worst): a message per failed check, and the worst reading of each kind,
-    the loss as |difference| and as |difference| / |loss|."""
+    ``min_cosine``); the float32 limits by default. A tensor whose
+    gradient stays within ``zero_rel`` of its net's largest |gradient| on
+    both sides is a zero gradient but for rounding: it is counted
+    (``zero_grads``) instead of held by its cosine, which means nothing
+    there. Returns (failures, worst): a message per failed check, and the
+    worst reading of each kind, the loss as |difference| and as
+    |difference| / |loss|."""
     bad = []
-    worst = {"loss": 0.0, "loss_rel": 0.0, "stats": 0.0, "grad_cosine": 1.0}
+    worst = {"loss": 0.0, "loss_rel": 0.0, "stats": 0.0, "grad_cosine": 1.0,
+             "zero_grads": []}
     for k in sorted(want[0]):
         err = abs(got[0][k] - want[0][k])
         worst["loss"] = max(worst["loss"], err)
@@ -1308,7 +1342,13 @@ def step_disagreements(got, want, loss_atol=LOSS_ATOL, loss_rtol=0.0,
                 worst["stats"] = max(worst["stats"], err)
                 if err > stats_atol:
                     bad.append(f"{net}:{k} running statistic off by {err:.3e}")
+        scale = [max(float(g.abs().max()) for g in r[3][net].values())
+                 for r in (got, want)]
         for k in want[3][net]:
+            if all(float(r[3][net][k].abs().max()) <= zero_rel * sc
+                   for r, sc in zip((got, want), scale)):
+                worst["zero_grads"].append(f"{net}:{k}")
+                continue
             gcos = _cosine(got[3][net][k], want[3][net][k])
             worst["grad_cosine"] = min(worst["grad_cosine"], gcos)
             if gcos <= min_cosine:
@@ -1334,7 +1374,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/52 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/53 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1368,7 +1408,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/52 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/53 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1450,7 +1490,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/52 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/53 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1549,7 +1589,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/52 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/53 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1584,7 +1624,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/52 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/53 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1646,7 +1686,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/52 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/53 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1690,7 +1730,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/52 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/53 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1814,7 +1854,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/52 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/53 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1889,7 +1929,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/52 fstep: one full-width float32 train step of each "
+    log(f"phase 17/53 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1928,7 +1968,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/52 ftime: each family's train step at batch "
+    log("phase 18/53 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1936,13 +1976,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/52 ftime, {key}",
+                                       f"18/53 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/52 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/53 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -1979,7 +2019,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/52 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/53 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2131,7 +2171,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/52 probe: the image decoders this machine has, read only "
+    log("phase 21/53 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2385,7 +2425,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/52 disk: the train entries from disk (cli/main.py "
+    log("phase 22/53 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2565,7 +2605,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/52 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/53 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2608,7 +2648,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/52 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/53 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2787,7 +2827,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/52 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/53 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2896,7 +2936,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/52 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/53 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2938,7 +2978,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/52 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/53 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -3011,7 +3051,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/52 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/53 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -3086,7 +3126,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/52 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/53 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3251,7 +3291,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/52 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/53 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3344,7 +3384,7 @@ def _profile_forward(fn, n: int = PROFILE_CALLS):
 
 
 def phase_attn_model():
-    log("phase 31/52 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/53 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3454,7 +3494,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/52 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/53 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3599,7 +3639,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/52 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/53 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3704,7 +3744,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/52 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/53 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3774,7 +3814,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/52 attntime: the AttnGAN step at batch "
+    log(f"phase 35/53 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3913,7 +3953,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/52 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/53 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -4060,7 +4100,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/52 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/53 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4099,7 +4139,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/52 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/53 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4172,7 +4212,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/52 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/53 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4312,7 +4352,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/52 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/53 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4484,7 +4524,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/52 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/53 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4738,7 +4778,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/52 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/53 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4854,7 +4894,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/52 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/53 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -4989,7 +5029,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/52 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/53 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -5061,7 +5101,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/52 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/53 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -5185,7 +5225,7 @@ def phase_sampling(model, fid):
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/52 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/53 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5291,7 +5331,7 @@ def _rank_env() -> dict:
 
 
 def phase_dist_entry():
-    log("phase 47/52 nccl1: cli/main.py --variant multi-mnist --synthetic "
+    log("phase 47/53 nccl1: cli/main.py --variant multi-mnist --synthetic "
         "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
         "against the same run without the environment, bit for bit "
         "(cudnn.deterministic in both, each in a process of its own, the "
@@ -5417,17 +5457,6 @@ def _dist_modules(ckpt: dict) -> dict:
     return out
 
 
-def _same_bits(a, b) -> bool:
-    if isinstance(a, dict):
-        return sorted(a, key=str) == sorted(b, key=str) and all(
-            _same_bits(a[k], b[k]) for k in a)
-    if isinstance(a, torch.Tensor):
-        return torch.equal(a, b)
-    if isinstance(a, (list, tuple)):
-        return len(a) == len(b) and all(map(_same_bits, a, b))
-    return a == b
-
-
 def dist_local_places() -> dict:
     """K1 and K2 at the place shapes of a rank of phase 48, float32: the
     mnist step's G (64,3,256,16x16) and D (64,3,128,15x15) onto 16x16 and
@@ -5488,10 +5517,11 @@ def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
 
 
 def phase_dist_steps(attn_weights, sampling):
-    log(f"phase 48/52 dist2: the mnist, AttnGAN and DAMSM steps as "
+    log(f"phase 48/53 dist2: the mnist, AttnGAN and DAMSM steps as "
         f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
         "one process on the same global batch, from warm Adams; the same "
-        "start runs phase 49's dump and phase 51's --bn_groups 3 step")
+        "start runs phase 49's dump, phase 51's --bn_groups 3 step and "
+        "phase 53's dry run")
     _, ds = _attn_set()
     cases = _dist_cases(attn_weights, ds)
     pre = {c["name"]: copy.deepcopy(c["state"].checkpoint_dict())
@@ -5499,11 +5529,13 @@ def phase_dist_steps(attn_weights, sampling):
     path = os.path.join(WORK, "dist_cases.pth")
     dump = os.path.join(WORK, "attn_sampling2")
     torch.save(cases, path)
-    # phase 51's --bn_groups case runs on the same two ranks: one start
+    # phase 51's --bn_groups case and phase 53's dry run run on the same
+    # two ranks: one start
     span, span_pre = _span_case()
     span_path = os.path.join(WORK, "span_cases.pth")
     torch.save([span], span_path)
-    torch.save([*cases, span, {"name": "dump", "call":
+    dry, warm = dryrun_cases()
+    torch.save([*cases, span, *dry, warm, {"name": "dump", "call":
                          "multiple_objects_gan_tpu_torch.cli.main:main",
                          "kwargs": {"argv": [*sampling["argv"],
                                              "--output_dir", dump,
@@ -5559,9 +5591,9 @@ def phase_dist_steps(attn_weights, sampling):
             f"cosine {cos:.8f} ({worst}; limit {DIST_MIN_UPDATE_COSINE:g}; "
             f"one process run again: {floor:.8f}, {floor_at}); the "
             f"replicas equal bit for bit: "
-            f"{_same_bits(got[0]['state'], got[1]['state'])}; K1/K2 "
-            f"launches a rank {[r['launches'] for r in got]} (one process "
-            f"{want['launches']})")
+            f"{graft_entry.same_bits(got[0]['state'], got[1]['state'])}; "
+            f"K1/K2 launches a rank {[r['launches'] for r in got]} (one "
+            f"process {want['launches']})")
         log(f"    step {rows[name]['world2_ms']:.2f} ms at world 2 "
             f"(median of {DIST_STEP_RUNS}, the slower rank; of it the "
             f"gradient all-reduce {rows[name]['allreduce_ms']:.2f} ms in "
@@ -5570,7 +5602,7 @@ def phase_dist_steps(attn_weights, sampling):
             "(host clock around synchronised steps)")
         rows[name]["update_cosine_one_process_again"] = floor
         for ok, msg in (
-                (_same_bits(got[0]["state"], got[1]["state"]),
+                (graft_entry.same_bits(got[0]["state"], got[1]["state"]),
                  "the replicas differ after the step"),
                 (not bad, f"losses world 2 vs world 1 {bad}"),
                 (stats <= STATS_ATOL, f"running statistics {stats}"),
@@ -5591,11 +5623,17 @@ def phase_dist_steps(attn_weights, sampling):
                       "span": {"pre": span_pre, "backend": backend,
                                "cases": span_path,
                                "ranks": [r["results"]["span"]
-                                         for r in ranks]}}
+                                         for r in ranks]},
+                      "dryrun": {"warm": warm, "legs": dry,
+                                 "ranks": [{"results": {
+                                     k[len(DRY_PREFIX):]: v
+                                     for k, v in r["results"].items()
+                                     if k.startswith(DRY_PREFIX)}}
+                                     for r in ranks]}}
 
 
 def phase_dist_sampling(sampling, dist2):
-    log(f"phase 49/52 dump2: AttnGAN's --eval_mode sampling dump of "
+    log(f"phase 49/53 dump2: AttnGAN's --eval_mode sampling dump of "
         f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
         "(phase 48's start), against phase 45's one-process dump")
     out, one = dist2["dump_dir"], sampling["out"]
@@ -5904,7 +5942,7 @@ def _check_dataset(argv):
 
 
 def phase_validate():
-    log("phase 50/52 validate: the port's tools on the card: "
+    log("phase 50/53 validate: the port's tools on the card: "
         "validate_learning for mnist and clevr at 6 epochs "
         "(held: the FID trend falls, separation, mnist recall), the "
         "exporter (the exported G's images bit for bit), the stage-2 and "
@@ -6228,7 +6266,7 @@ def _remat_mnist():
     failed = []
     for mode in REMAT_MODES[1:]:
         got = runs[mode]
-        same = _same_bits(got["state"], want["state"])
+        same = graft_entry.same_bits(got["state"], want["state"])
         loss_rel = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
                        for k, v in want["metrics"].items())
         stats, cos, worst = _state_gaps(pre, got["state"], want["state"])
@@ -6344,7 +6382,7 @@ def _span_groups(span):
     loss_rel = max(abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-12)
                    for k, v in want["metrics"].items())
     stats, cos, worst = _state_gaps(pre, got[0]["state"], want["state"])
-    same = _same_bits(got[0]["state"], got[1]["state"])
+    same = graft_entry.same_bits(got[0]["state"], got[1]["state"])
     log(f"  --bn_groups {SPAN_GROUPS} over {DIST_WORLD} ranks "
         f"({span['backend']}; phase 48's ranks), global batch {SPAN_BATCH}: "
         "worst loss "
@@ -6443,7 +6481,7 @@ def _serve_max_batch():
 
 
 def phase_options(attn_weights, dist2):
-    log("phase 51/52 options: MOG_REMAT's four modes in the mnist f32 step "
+    log("phase 51/53 options: MOG_REMAT's four modes in the mnist f32 step "
         "(each against mode 0) and peak memory at 0 and full for stage 2 "
         "and AttnGAN; --bn_groups 3 over two ranks against one process; "
         "serving at --max_batch 8 and 128 with K1 at both batches")
@@ -6595,7 +6633,7 @@ def _env_knob_step():
 
 
 def phase_bench():
-    log("phase 52/52 bench: the port's bench tools in-process at full "
+    log("phase 52/53 bench: the port's bench tools in-process at full "
         "width, bf16: bench_variants (mnist, clevr, stackgan1 at 128, "
         "stage 2 at 40, AttnGAN at 14; the H100's roofline) and "
         "bench_sampling (mnist, clevr, stackgan1 at 128, attngan256 at "
@@ -6648,6 +6686,332 @@ def phase_bench():
     return launches, {"max_abs_err": worst, **places, "lines": lines}
 
 
+HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "mfu",
+                 "tflops_per_step", "step_ms", "variants"}   # JAX bench.py
+HEADLINE_TIMEOUT = 240      # seconds for the bench's guarded run
+HEADLINE_LAUNCHES = (4, 4)  # K1/K2 a headline or entry step
+# the entry's layouts are all alike, so the BatchNorms of G's layout
+# encoder see equal rows: its gradient is zero but for rounding (float64
+# on the CPU reads 1e-15 of the largest |gradient|, float32 3e-7)
+ENTRY_ZERO_REL = 1e-5
+ENTRY_SHAPES = {"G": (3, 256, (16, 16), (16, 16)),   # the entry's places
+                "D": (3, 128, (15, 15), (16, 16))}
+
+
+def _headline_bench():
+    """``python -m multiple_objects_gan_tpu_torch.bench`` from the command
+    line (the guarded parent and its child, MOG_BENCH_VARIANTS=0: phase
+    52 runs the variants in this process), in a session of its own killed
+    whole on a timeout; its JSON line checked."""
+    env = {**_rank_env(), "MOG_BENCH_VARIANTS": "0",
+           "MOG_BENCH_TIMEOUT": str(HEADLINE_TIMEOUT)}
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multiple_objects_gan_tpu_torch.bench"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=HEADLINE_TIMEOUT + 30)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError("the headline bench ran past its time")
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"the headline bench failed "
+          f"(exit {proc.returncode}):\n{out[-3000:]}\n{err[-3000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"the bench printed {len(lines)} JSON lines")
+    line = lines[0]
+    print(json.dumps(line), flush=True)
+    b, ms, value = port_bench.BATCH, line["step_ms"], line["value"]
+    log(f"  the bench's line in {seconds:.1f} s (its processes included): "
+        f"{value} images/s a card, step {ms} ms, mfu {line['mfu']}, "
+        f"{line['tflops_per_step']} TFLOP a step (FlopCounterMode); "
+        f"stderr {err.strip()[-200:]!r}")
+    check(set(line) == HEADLINE_KEYS, f"the bench's keys {sorted(line)}")
+    check(line["metric"] == "multi_mnist_train_throughput"
+          and line["unit"] == "images/sec/chip", f"{line}")
+    # value = batch x steps / best_dt and step_ms = best_dt / steps, to
+    # their rounding (0.1 and 0.001)
+    check(abs(value - b * 1e3 / ms) <= 0.05 + b * 1e3 * 0.0005 / ms ** 2
+          + 1e-9, f"value {value} is not {b} x 1000 / step_ms {ms}")
+    check(line["vs_baseline"] is None and line["variants"] == {},
+          f"vs_baseline {line['vs_baseline']}, variants {line['variants']}")
+    check(line["mfu"] is not None and 0 < line["mfu"] < 1
+          and line["tflops_per_step"] > 0, f"mfu {line['mfu']}")
+    check("retrying" not in err, f"the bench retried: {err[-2000:]}")
+    return line, seconds
+
+
+def entry_once(device, z, start=None, dtype=torch.float32):
+    """The entry's step (graft_entry.entry) once on ``device`` at ``z``,
+    from ``start`` (G's and D's state dicts) or its own seed-0 state, in
+    ``dtype`` (float64: the nets, batch and z cast, fresh Adams); the
+    result in :func:`step_once`'s form, and the start."""
+    fn, (state, batch, gen) = graft_entry.entry(device)
+    if start is not None:
+        state.g.load_state_dict(start[0])
+        state.d.load_state_dict(start[1])
+    if dtype != torch.float32:
+        state.g.to(dtype)
+        state.d.to(dtype)
+        state.g_opt = make_optimizer(state.g.parameters())
+        state.d_opt = make_optimizer(state.d.parameters())
+        batch = {k: v.to(dtype) for k, v in batch.items()}
+    nets = (("G", state.g), ("D", state.d))
+    pre = {n: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+           for n, m in nets}
+    t = time.perf_counter()
+    d_loss, g_loss, _ = fn(state, batch, gen,
+                           z=torch.from_numpy(z).to(device, dtype))
+    metrics = {"d_loss": float(d_loss), "g_loss": float(g_loss)}
+    seconds = time.perf_counter() - t
+    return ((metrics, pre, *_after_step(nets), seconds),
+            (pre["G"], pre["D"]))
+
+
+def _entry_places():
+    """K1 and K2 at the entry's G and D places (batch 8, every box
+    [0.2, 0.2, 0.3, 0.3]), float32, held against their plain versions and
+    timed cold in turns and on the device alone."""
+    rs = np.random.RandomState(53)
+    b = graft_entry.ENTRY_BATCH
+    out = {"place": {}, "grad": {}, "max_abs_err": {"place": 0.0,
+                                                    "grad": 0.0}}
+    for path, (o, c, hw, out_hw) in ENTRY_SHAPES.items():
+        bbox = torch.tensor(graft_entry.ENTRY_BOX,
+                            device=DEVICE).expand(b, o, 4).contiguous()
+        feats = torch.from_numpy(rs.randn(b, o, c, *hw).astype(
+            np.float32)).to(DEVICE)
+        g = torch.from_numpy(rs.uniform(-1, 1, (b, c) + out_hw).astype(
+            np.float32)).to(DEVICE)
+        key = f"entry_{path}"
+        out["max_abs_err"]["place"] = max(out["max_abs_err"]["place"], _held(
+            k1.stn_place_multi_nchw(feats, bbox, out_hw),
+            k1.stn_place_multi_plain(feats, bbox, out_hw), torch.float32,
+            "K1", f"{key} {tuple(feats.shape)} -> {out_hw}"))
+        out["max_abs_err"]["grad"] = max(out["max_abs_err"]["grad"], _held(
+            k1.stn_place_multi_grad_nchw(g, bbox, hw),
+            k1.stn_place_multi_grad_plain(g, bbox, hw), torch.float32, "K2",
+            f"{key} {tuple(g.shape)} -> {hw}"))
+        out["place"][key] = time_place(feats, bbox, out_hw,
+                                       f"K1 at the entry's {path} place")
+        out["grad"][key] = time_grad(g, bbox, hw,
+                                     f"K2 at the entry's {path} place")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_places():
+    """Within it every K1 and K2 call of the model code records its inputs
+    (K1's launch ``_place_cuda`` on the card or its plain version on the
+    CPU, K2's wrapper): yields the list of (kernel, input, boxes, side)
+    it fills, kernel "place" or "grad", the tensors detached copies."""
+    calls = []
+    saved = (k1._place_cuda, k1.stn_place_multi_plain,
+             k1.stn_place_multi_grad_nchw)
+
+    def recording(kernel, fn):
+        def call(x, bbox, hw):
+            calls.append((kernel, x.detach().clone(), bbox.detach().clone(),
+                          tuple(int(v) for v in hw)))
+            return fn(x, bbox, hw)
+        return call
+
+    k1._place_cuda = recording("place", saved[0])
+    k1.stn_place_multi_plain = recording("place", saved[1])
+    k1.stn_place_multi_grad_nchw = recording("grad", saved[2])
+    try:
+        yield calls
+    finally:
+        (k1._place_cuda, k1.stn_place_multi_plain,
+         k1.stn_place_multi_grad_nchw) = saved
+
+
+def _dryrun_places(legs):
+    """K1 and K2 at the places of a rank of the dry run: each leg's case
+    (graft_entry.dryrun_cases) cut to rank 0's rows and stepped once here
+    (dist_steps.run_cases) with its K1/K2 calls recorded
+    (:func:`recorded_places`); every call held against its plain version
+    on its own inputs, and each distinct shape timed cold in turns and on
+    the device alone (:func:`time_place`, :func:`time_grad`)."""
+    out = {"place": {}, "grad": {}, "max_abs_err": {"place": 0.0,
+                                                    "grad": 0.0},
+           "calls": {}}
+    for case in legs:
+        name = case["name"][len(DRY_PREFIX):]
+        rows = len(next(iter(case["batch"].values()))) // DIST_WORLD
+        case = dict(case, name=name, batch={
+            k: v[:rows] for k, v in case["batch"].items()})
+        with recorded_places() as calls:
+            dist_steps.run_cases([case], DEVICE)
+        torch.cuda.synchronize()
+        out["calls"][name] = [(kernel, tuple(x.shape), hw)
+                              for kernel, x, _, hw in calls]
+        for kernel, x, bbox, hw in calls:
+            b, o, c, h, w = (x.shape if kernel == "place"
+                             else (x.shape[0], bbox.shape[1], x.shape[1],
+                                   *hw))
+            ho, wo = hw if kernel == "place" else x.shape[-2:]
+            key = f"dryrun_{name}_{b}x{o}x{c}x{h}x{w}_to_{ho}x{wo}"
+            if kernel == "place":
+                got = k1.stn_place_multi_nchw(x, bbox, hw)
+                want = k1.stn_place_multi_plain(x, bbox, hw)
+            else:
+                got = k1.stn_place_multi_grad_nchw(x, bbox, hw)
+                want = k1.stn_place_multi_grad_plain(x, bbox, hw)
+            err = _held(got, want, x.dtype, "K1" if kernel == "place"
+                        else "K2", f"{key} (a rank's {name} step)")
+            out["max_abs_err"][kernel] = max(out["max_abs_err"][kernel], err)
+            if key in out[kernel]:
+                continue
+            if kernel == "place":
+                out["place"][key] = time_place(
+                    x, bbox, hw, f"K1 at a dry-run rank's {name} place")
+            else:
+                out["grad"][key] = time_grad(
+                    x, bbox, hw, f"K2 at a dry-run rank's {name} place")
+    return out
+
+
+DRY_PREFIX = "dryrun_"      # the dry run's case names on phase 48's ranks
+
+
+def dryrun_cases():
+    """The dry run's legs (graft_entry.dryrun_cases(DIST_WORLD), named
+    with DRY_PREFIX) and its stage-2 leg again from He-scale weights and
+    warm Adams (``stage2_warm``: from a fresh Adam an update is
+    lr * sign(g), and at the reference init's small activations float32
+    noise moves small gradients; tests/test_torch_port_stage2_step.py),
+    for phase 48's ranks; the warm case is held at world 2 against world
+    1 in phase 53."""
+    legs = graft_entry.dryrun_cases(DIST_WORLD)
+    warm = copy.deepcopy(legs[graft_entry.DRY_LEGS.index("stage2")])
+    g1 = build_stage1_g(graft_entry.DRY_S1, warm["g1"], device="cpu")
+    warm["g1"] = he_randomize(g1, 53).state_dict()
+    he_randomize(warm["state"].g, 54)
+    he_randomize(warm["state"].d, 55)
+    warm_adam(warm["state"])
+    warm["name"] = "stage2_warm"
+    for case in (*legs, warm):
+        case["name"] = DRY_PREFIX + case["name"]
+    return legs, warm
+
+
+def _dryrun_held(dryrun):
+    """graft_entry's dry run on the card: its legs ran as phase 48's
+    DIST_WORLD ranks (one start), checked here by graft_entry.check_dryrun
+    (every metric finite, the replicas bit for bit, d_loss_d256), and the
+    warm stage-2 case held at world 2 against the same case in this
+    process at phase 48's limits; every leg's K1/K2 launches a rank."""
+    warm = dryrun["warm"]
+    pre = copy.deepcopy(warm["state"].checkpoint_dict())
+    results = graft_entry.check_dryrun(dryrun["ranks"], DIST_WORLD)
+    want = dist_steps.run_cases([warm], DEVICE)[warm["name"]]
+    got = results["stage2_warm"]
+    bad = [k for k, v in want["metrics"].items()
+           if abs(got[0]["metrics"][k] - v) > DIST_LOSS_ATOL
+           + DIST_LOSS_RTOL * abs(v)]
+    loss_rel = max(abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want["metrics"].items())
+    stats, cos, worst = _state_gaps(pre, got[0]["state"], want["state"])
+    same = graft_entry.same_bits(got[0]["state"], got[1]["state"])
+    launches = {f"dryrun_{name}_rank{r}": rec["launches"]
+                for name, recs in results.items()
+                for r, rec in enumerate(recs)}
+    log(f"  the dry run ({DIST_WORLD} ranks, phase 48's start); stage 2 "
+        "from warm Adams, world 2 / world 1: " + "; ".join(
+            f"{k} {got[0]['metrics'][k]:.6f} / {v:.6f}"
+            for k, v in sorted(want["metrics"].items())))
+    log(f"    worst loss gap {loss_rel:.2e} of the loss (limit "
+        f"{DIST_LOSS_ATOL:g} + {DIST_LOSS_RTOL:g} of it); running "
+        f"statistics {stats:.3e} (atol {STATS_ATOL:g}); lowest update "
+        f"cosine {cos:.8f} ({worst}; limit {DIST_MIN_UPDATE_COSINE:g}); the "
+        f"replicas equal bit for bit: {same}; K1/K2 launches a rank "
+        f"{launches} (one process {want['launches']})")
+    want_launches = {"stage1": HEADLINE_LAUNCHES, "attngan": ATTN_LAUNCHES,
+                     "stage2": S2_LAUNCHES, "stage2_warm": S2_LAUNCHES}
+    failed = [msg for ok, msg in (
+        (same, "the stage-2 replicas differ after the step"),
+        (not bad, f"stage-2 losses world 2 vs world 1 {bad}"),
+        (stats <= STATS_ATOL, f"stage-2 running statistics {stats}"),
+        (cos > DIST_MIN_UPDATE_COSINE, f"stage-2 update {worst} {cos}"),
+        (all(rec["launches"] == want_launches[name]
+             for name, recs in results.items() for rec in recs),
+         f"launches a rank {launches}"),
+        (want["launches"] == S2_LAUNCHES,
+         f"one process launched {want['launches']}")) if not ok]
+    check(not failed, "; ".join(failed))
+    return launches, {"loss_rel": loss_rel, "stats": stats,
+                      "update_cosine": cos,
+                      "metrics": {k: v[0]["metrics"]
+                                  for k, v in results.items()}}
+
+
+def phase_headline(dist2):
+    log("phase 53/53 headline: python -m multiple_objects_gan_tpu_torch."
+        "bench (MOG_BENCH_VARIANTS=0) from the command line, its line "
+        "checked; K1/K2 launches of its step here; graft_entry.entry() on "
+        "the card against the CPU and K1/K2 at its batch-8 places; the dry "
+        f"run's legs as {DIST_WORLD} ranks (phase 48's start) checked, its "
+        "stage-2 leg held at world 2 against world 1, and K1/K2 at a "
+        "rank's places of each leg held and timed")
+    line, bench_s = _headline_bench()
+    step, _ = port_bench.headline_step(DEVICE)
+    step()
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    step()
+    torch.cuda.synchronize()
+    head = (k1.launch_count(), k1.grad_launch_count())
+    del step
+    log(f"  the headline step here: K1/K2 {head} (expected "
+        f"{HEADLINE_LAUNCHES})")
+    check(head == HEADLINE_LAUNCHES, f"the headline step launched {head}")
+
+    z = np.random.RandomState(53).randn(
+        graft_entry.ENTRY_BATCH, MNIST.z_dim).astype(np.float32)
+    k1.reset_launch_count()
+    card, start = entry_once(DEVICE, z)
+    torch.cuda.synchronize()
+    entry_launches = (k1.launch_count(), k1.grad_launch_count())
+    cpu, _ = entry_once("cpu", z, start)
+    cpu64, _ = entry_once("cpu", z, start, torch.float64)
+    readings = {}
+    for name, got, want in (("card vs CPU f64", card, cpu64),
+                            ("CPU f32 vs f64", cpu, cpu64),
+                            ("card vs CPU f32", card, cpu)):
+        bad, worst = step_disagreements(got, want, zero_rel=ENTRY_ZERO_REL)
+        readings[name] = worst
+        log(f"  entry() at batch {graft_entry.ENTRY_BATCH}, {name} from one "
+            f"start: losses {got[0]} / {want[0]}; worst loss gap "
+            f"{worst['loss']:.2e} (atol {LOSS_ATOL:g}), running statistics "
+            f"{worst['stats']:.2e} (atol {STATS_ATOL:g}), lowest gradient "
+            f"cosine {worst['grad_cosine']:.6f} (limit {MIN_GRAD_COSINE:g}); "
+            f"{len(worst['zero_grads'])} zero gradients (within "
+            f"{ENTRY_ZERO_REL:g} of the net's largest on both sides: "
+            f"{worst['zero_grads']})")
+        if name == "card vs CPU f64":
+            check(not bad, f"entry {name}: {bad[:5]}")
+    log(f"  the entry's K1/K2 {entry_launches}")
+    check(entry_launches == HEADLINE_LAUNCHES,
+          f"the entry launched {entry_launches}")
+    places = _entry_places()
+    dry_places = _dryrun_places(dist2["dryrun"]["legs"])
+    for kernel in ("place", "grad"):
+        places[kernel].update(dry_places[kernel])
+        places["max_abs_err"][kernel] = max(
+            places["max_abs_err"][kernel], dry_places["max_abs_err"][kernel])
+    dry_launches, dry = _dryrun_held(dist2["dryrun"])
+    SUMMARY["headline"] = {"value": line["value"], "mfu": line["mfu"],
+                           "step_ms": line["step_ms"],
+                           "entry": [card[0]["d_loss"], card[0]["g_loss"]]}
+    return ({"headline_step": head, "entry": entry_launches,
+             **dry_launches},
+            {"line": line, "bench_s": bench_s, "entry": readings,
+             "dryrun": {**dry, "calls": dry_places["calls"]}, **places})
+
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -6686,8 +7050,8 @@ PHASE_BUDGET_S = {
     "attnentry": 48.9, "damsmstep": 2.8, "damsmtime": 5.8, "damsmentry": 13.1,
     "attneval": 11.3, "jpeg": 4.2, "cocodisk": 33.2, "s2sample": 51.3,
     "fid": 4.8, "sampling": 28.2, "layout": 16.8, "nccl1": 23.5,
-    "dist2": 114.3, "dump2": 0.5, "validate": 156.6, "options": 31.6,
-    "bench": 29
+    "dist2": 120.0, "dump2": 0.5, "validate": 156.6, "options": 31.6,
+    "bench": 29, "headline": 45.4
 }
 PHASE_MIN_DEADLINE_S = 120
 PHASE_OVERRUN_RC = 70       # the exit code of a phase past its deadline
@@ -6794,7 +7158,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/52 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/53 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -6845,6 +7209,7 @@ def run_phases() -> int:
     options_paths, options = timed("options", phase_options,
                                    attn_step["weights"], dist2)
     bench_paths, bench = timed("bench", phase_bench)
+    headline_paths, headline = timed("headline", phase_headline, dist2)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
@@ -6852,7 +7217,7 @@ def run_phases() -> int:
                **attn_entry, **damsm_entry, **attn_eval_paths,
                **s2_sample_paths, **sampling_paths, **layout_paths,
                **dist_paths, **dump_paths, **validate_paths,
-               **options_paths, **bench_paths}
+               **options_paths, **bench_paths, **headline_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
@@ -6860,13 +7225,14 @@ def run_phases() -> int:
                  "train_damsm", "train_damsm_resume", *attn_eval_paths,
                  *s2_sample_paths, *sampling_paths, *layout_paths,
                  *dist_paths, *dump_paths, "parity_harness",
-                 *options_paths)
-    # the validate tool's runs are --bf16, its default; the bench tools'
-    # and the env-knob steps bf16
+                 *options_paths,
+                 *(p for p in headline_paths if p != "headline_step"))
+    # the validate tool's runs are --bf16, its default; the bench tools',
+    # the env-knob steps and the headline step bf16
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16",
                   *(p for p in validate_paths if p.startswith("validate_")),
-                  *bench_paths)
+                  *bench_paths, "headline_step")
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -6889,7 +7255,7 @@ def run_phases() -> int:
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
             "attngan_sampling": sampling, "layout_tool": layout,
             "validate_tool": validate, "options": options,
-            "bench_tools": bench,
+            "bench_tools": bench, "headline": headline,
             "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
                        "places": dist2["places"]["place"],
                        "dump": dump2}},
@@ -6897,7 +7263,7 @@ def run_phases() -> int:
             **grad, "bf16": bf16["grad"], "families": families["grad"],
             "stage2": s2_kernels["grad"],
             "attngan_train": attn_places["grad"],
-            "world2": dist2["places"]["grad"]},
+            "world2": dist2["places"]["grad"], "entry": headline["grad"]},
         "normconv_bf16": normconv["rows"],
         "jpeg": jpeg_result, "cocodisk": coco_disk,
         "fid": fid["rows"]}}, default=str),
@@ -6931,7 +7297,8 @@ def run_phases() -> int:
                            sampling["max_abs_err"], layout["max_abs_err"],
                            dist2["places"]["max_abs_err"]["place"],
                            validate["max_abs_err"], options["max_abs_err"],
-                           bench["max_abs_err"]),
+                           bench["max_abs_err"],
+                           headline["max_abs_err"]["place"]),
         **_compact(place["serve"]),
         "shapes": {"train_g": _compact(place["train G"]),
                    "train_d": _compact(place["train D"]),
@@ -6952,7 +7319,9 @@ def run_phases() -> int:
                       for k in (f"serve_b{b}" for b in SERVE_MAX_BATCHES)},
                    **{f"bench_{k}": _compact(bench[k])
                       for k in ("attngan256_float32",
-                                "attngan256_bfloat16")}},
+                                "attngan256_bfloat16")},
+                   **{k: _compact(v)
+                      for k, v in headline["place"].items()}},
     }, {
         "name": "stn_place_multi_grad", **cuda,
         "replaces": "multiple_objects_gan_tpu/ops/stn_pallas.py:137",
@@ -6962,12 +7331,15 @@ def run_phases() -> int:
                            families["grad"]["max_abs_err"],
                            s2_kernels["grad"]["max_abs_err"],
                            attn_places["grad"]["max_abs_err"],
-                           dist2["places"]["max_abs_err"]["grad"]),
+                           dist2["places"]["max_abs_err"]["grad"],
+                           headline["max_abs_err"]["grad"]),
         **_compact(grad["G"]),
         "shapes": {"train_d": _compact(grad["D"]),
                    **_nested(s2_kernels["grad"], "stage2"),
                    **{k: _compact(v)
-                      for k, v in dist2["places"]["grad"].items()}},
+                      for k, v in dist2["places"]["grad"].items()},
+                   **{k: _compact(v)
+                      for k, v in headline["grad"].items()}},
     }, {
         "name": "normconv_bf16", "route": "cuda",
         "source": "multiple_objects_gan_tpu_torch/csrc/normconv.cu",

@@ -145,6 +145,12 @@ def sync_time(step: Callable, n: int = STEPS, warmup: int = WARMUP,
     return (time.perf_counter() - t0) / n
 
 
+def peak_ops(dtype: Optional[torch.dtype]) -> float:
+    """The H100's dense peak FLOP/s for the compute dtype (None is
+    float32, outside the tensor cores: TF32 is off)."""
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
 def roofline(result: dict, flops: float, nbytes: float, dt: float,
              dtype: Optional[torch.dtype], device: torch.device) -> dict:
     """``result`` with the JAX tool's roofline keys for a step of ``dt``
@@ -154,8 +160,7 @@ def roofline(result: dict, flops: float, nbytes: float, dt: float,
                    "gbytes_per_step": round(nbytes / 1e9, 3),
                    "mfu": None, "hbm_util": None, "bound": None})
     if device.type == "cuda":
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        mfu = flops / dt / peak
+        mfu = flops / dt / peak_ops(dtype)
         hbm = nbytes / dt / HBM_BYTES_PER_S
         result.update({"mfu": round(mfu, 4), "hbm_util": round(hbm, 4),
                        "bound": "hbm" if hbm > mfu else "mxu"})
@@ -183,9 +188,12 @@ def _knobs(cfg, dtype):
                                bn_groups=env_bn_groups())
 
 
-def _bench_stage1(cfg: Stage1Config, name: str, bs: int = STAGE1_BATCH,
-                  device="cuda", n: int = STEPS) -> dict:
-    """A stage-1 family's train step at batch ``bs`` (``cfg`` a preset)."""
+def stage1_step(cfg: Stage1Config, bs: int = STAGE1_BATCH, device="cuda"
+                ) -> tuple[Callable, Optional[torch.dtype], torch.device]:
+    """A stage-1 family's train step at batch ``bs`` (``cfg`` a preset,
+    with the env's compute dtype and BatchNorm groups; the state from
+    ``create_state(cfg, seed=0)``, ``synthetic_batch`` on the device, a
+    generator seeded 0): ``(step() -> metrics, dtype, device)``."""
     dev = resolve_device(device)
     dtype = compute_dtype()
     float32_policy(dev, dtype)
@@ -194,8 +202,14 @@ def _bench_stage1(cfg: Stage1Config, name: str, bs: int = STAGE1_BATCH,
     batch = _on(dev, synthetic_batch(cfg, bs))
     step = make_train_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    return _measure(name, bs, lambda: step(state, batch, gen, LR, LR), n,
-                    dtype, dev, sync_key="d_loss")
+    return lambda: step(state, batch, gen, LR, LR), dtype, dev
+
+
+def _bench_stage1(cfg: Stage1Config, name: str, bs: int = STAGE1_BATCH,
+                  device="cuda", n: int = STEPS) -> dict:
+    """A stage-1 family's train step at batch ``bs`` (:func:`stage1_step`)."""
+    step, dtype, dev = stage1_step(cfg, bs, device)
+    return _measure(name, bs, step, n, dtype, dev, sync_key="d_loss")
 
 
 def bench_mnist(device="cuda", n: int = STEPS) -> dict:

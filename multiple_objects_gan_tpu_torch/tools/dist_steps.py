@@ -9,17 +9,20 @@ run as every rank of a group (``MOG_COORDINATOR`` ... or torchrun's
 environment; :func:`spawn` starts them), or alone as world size 1.
 ``CASES.pth`` (``torch.save``) is a list of cases, run in order:
 
-* a step case, ``{"name", "kind": "stage1" | "attngan" | "damsm",
-  "state": a train state on the CPU (``train/state.py``), "batch": the
-  GLOBAL batch (CPU tensors), "seed": the step generator's seed, "lr",
-  ...}``: the state goes to the rank's device and is replicated from rank
-  0, the rank keeps its contiguous slice of the batch, and one step runs
-  from the generator (or from a case's ``"z"``, the global z, of which the
-  rank takes its rows). Per kind: ``"config"`` (``Stage1Config``,
-  ``AttnGanConfig``; its ``bn_groups`` any count that divides the global
-  batch, a group spanning ranks where the world size does not divide
-  it), ``"kl_coeff"``, ``"encoders"`` (AttnGAN's frozen text
-  and image encoders, modules), ``"smooth"``, ``"grad_clip"``. A float32
+* a step case, ``{"name", "kind": "stage1" | "stage2" | "attngan" |
+  "damsm", "state": a train state on the CPU (``train/state.py``),
+  "batch": the GLOBAL batch (CPU tensors), "seed": the step generator's
+  seed, "lr", ...}``: the state goes to the rank's device and is
+  replicated from rank 0, the rank keeps its contiguous slice of the
+  batch, and one step runs from the generator (or from a case's global
+  noise, ``"z"``, ``"eps"``, ``"eps1"``, ``"eps2"``, of which the rank
+  takes its rows). Per kind: ``"config"`` (``Stage1Config``, stage 2's
+  for ``"stage2"``, ``AttnGanConfig``; its ``bn_groups`` any count that
+  divides the global batch, a group spanning ranks where the world size
+  does not divide it), ``"kl_coeff"``, ``"s1_config"`` and ``"g1"``
+  (stage 2's frozen stage-1 G: its config and state dict, built on the
+  rank's device), ``"encoders"`` (AttnGAN's frozen text and image
+  encoders, modules), ``"smooth"``, ``"grad_clip"``. A float32
   case turns TF32 off on the card (``float32_policy``). With
   ``"time_runs"`` n the step then runs n more times, each between
   synchronisations, for its time and its gradient all-reduce's;
@@ -59,6 +62,7 @@ from multiple_objects_gan_tpu_torch.parallel.multihost import (
 from multiple_objects_gan_tpu_torch.train.loop import to_device
 
 ENV_KEYS = ("MOG_COORDINATOR", "MOG_NUM_PROCESSES", "MOG_PROCESS_ID")
+NOISE_KEYS = ("z", "eps", "eps1", "eps2")   # a step case's global noise
 
 
 def _to_device_(state, device: torch.device) -> None:
@@ -76,11 +80,20 @@ def _to_device_(state, device: torch.device) -> None:
                 v.load_state_dict(v.state_dict())
 
 
-def _step_fn(case: dict):
+def _step_fn(case: dict, device: torch.device):
     kind = case["kind"]
     if kind == "stage1":
         from multiple_objects_gan_tpu_torch.train.step import make_train_step
         return make_train_step(case["config"], case.get("kl_coeff", 2.0))
+    if kind == "stage2":
+        from multiple_objects_gan_tpu_torch.models.stage1 import (
+            build_stage1_g)
+        from multiple_objects_gan_tpu_torch.train.step import (
+            make_stage2_train_step)
+        g1 = build_stage1_g(case["s1_config"], case["g1"], device=device)
+        return make_stage2_train_step(case["config"], case["s1_config"],
+                                      g1.requires_grad_(False),
+                                      case.get("kl_coeff", 2.0))
     if kind == "attngan":
         from multiple_objects_gan_tpu_torch.train.attngan_step import (
             make_attngan_train_step)
@@ -123,13 +136,11 @@ def run_step_case(case: dict, device) -> dict:
     for enc in case.get("encoders") or ():
         enc.to(device)
     mesh.replicate_state(state)
-    step = _step_fn(case)
+    step = _step_fn(case, device)
     batch = to_device(mesh.shard_batch(case["batch"]), device)
     gen = torch.Generator(device=device).manual_seed(int(case["seed"]))
-    kwargs = {}
-    if case.get("z") is not None:
-        z = case["z"]
-        kwargs["z"] = z[mesh.rank_rows(z.shape[0])].to(device)
+    kwargs = {k: case[k][mesh.rank_rows(case[k].shape[0])].to(device)
+              for k in NOISE_KEYS if case.get(k) is not None}
     lr = float(case["lr"])
     stn_place_cuda.reset_launch_count()
     metrics = step(state, batch, gen, lr, lr, **kwargs)
