@@ -27,9 +27,10 @@ validate_learning (whether a run learns), export_checkpoint,
 check_dataset, parity_harness and the general STN, 51 the last train
 and serve options: MOG_REMAT, BatchNorm groups that span ranks and the
 server's --max_batch, 52 the bench tools (bench_variants,
-bench_sampling) and the MOG_COMPUTE_DTYPE / MOG_BN_GROUPS knobs, and 53
+bench_sampling) and the MOG_COMPUTE_DTYPE / MOG_BN_GROUPS knobs, 53
 the port's headline bench (bench.py) and driver entry (graft_entry.py),
-with the stage-2 step across ranks. Every
+with the stage-2 step across ranks, and 54 the export tool
+(tools/export_model.py: torch.export programs that launch K1). Every
 COCO entry reads its JPEGs from disk (nvjpeg on the card). The train
 entries' data and runs go to a temporary directory, removed at the end.
 Phases, each logged with the elapsed time:
@@ -375,6 +376,19 @@ Phases, each logged with the elapsed time:
                 each leg stepped once here at a rank's rows with every
                 K1/K2 call's inputs recorded, each call held against its
                 plain version on those inputs and each shape timed.
+ 54. export   - tools/export_model.py's export_model on the card: the
+                trained mnist G (runs_r5's .pth) at batch 64 in float32
+                and under MOG_COMPUTE_DTYPE=bf16, and a seeded
+                coco-stackgan G at batch 8, each exported, saved, loaded
+                and called: one mog.stn_place_multi in the graph and none
+                of the plain K1's einsums, K1/K2 launches of the tool's
+                run (2/0) and of one call of the loaded program (1/0),
+                its images against the eager G's (float32 atol 1e-5, bf16
+                2e-2), ms a call of each on the host clock; K1's host path
+                a call through the ctypes launch, the binding before the
+                operators (an autograd Function around it) and the
+                model's entry now, each with and without a gradient, the
+                operator alone, and torch.library.custom_op.
 
 Every phase runs under a watchdog (``timed``): past max(120 s, twice its
 PHASE_BUDGET_S reading) the script prints every thread's stack to stderr,
@@ -472,7 +486,8 @@ from multiple_objects_gan_tpu_torch.tools import (
     bench_sampling, bench_variants)
 from multiple_objects_gan_tpu_torch.tools import (
     check_dataset as check_tool, dist_steps, export_checkpoint as export_tool,
-    parity_harness as parity_tool, validate_learning as vl)
+    export_model as export_model_tool, parity_harness as parity_tool,
+    validate_learning as vl)
 from multiple_objects_gan_tpu_torch.tools import (
     eval_layout_fidelity as layout_tool)
 from multiple_objects_gan_tpu_torch.train import loop as train_loop
@@ -665,7 +680,7 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def phase_device():
-    log("phase 1/53 device")
+    log("phase 1/54 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -683,7 +698,7 @@ def phase_device():
 
 
 def phase_build():
-    log("phase 2/53 build")
+    log("phase 2/54 build")
     names = ("stn_place", "normconv")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -728,7 +743,7 @@ def _bound(features, bbox, out_hw):
 
 
 def phase_kernel():
-    log("phase 3/53 kernel against its plain version, on the card")
+    log("phase 3/54 kernel against its plain version, on the card")
     rs = np.random.RandomState(0)
     dev = torch.device(DEVICE)
 
@@ -863,7 +878,7 @@ def time_place(feats, bbox, out_hw, label):
 
 
 def phase_model():
-    log("phase 4/53 model: full-width trained Stage1G, card against CPU")
+    log("phase 4/54 model: full-width trained Stage1G, card against CPU")
     sd = load_reference_g(CKPT)
     g_gpu = build_stage1_g(MNIST, sd, device=DEVICE)
     g_cpu = build_stage1_g(MNIST, sd, device="cpu")
@@ -946,7 +961,7 @@ def _separation(imgs, boxes) -> tuple[float, float]:
 
 
 def phase_serve():
-    log("phase 5/53 serve: the port's main path over HTTP, on the card")
+    log("phase 5/54 serve: the port's main path over HTTP, on the card")
     k1.reset_launch_count()
     svc = Stage1Service(MNIST, CKPT, seed=0, device=DEVICE)
     httpd = serve(argparse.Namespace(variant="multi-mnist",
@@ -1093,7 +1108,7 @@ def _grad_bound(g, bbox, in_hw):
 
 
 def phase_grad_kernel():
-    log("phase 6/53 grad: K2 (place backward) against its plain version, "
+    log("phase 6/54 grad: K2 (place backward) against its plain version, "
         "on the card")
     rs = np.random.RandomState(3)
     dev = torch.device(DEVICE)
@@ -1200,7 +1215,7 @@ def _f1_gradient(device, z, bbox, labels, weight):
 
 
 def phase_autograd():
-    log("phase 7/53 autograd: K3 gradients on the card against the CPU")
+    log("phase 7/54 autograd: K3 gradients on the card against the CPU")
     rs = np.random.RandomState(4)
     for label, (c, hw) in (("G", (256, (16, 16))), ("D", (128, (15, 15)))):
         feats = torch.from_numpy(rs.randn(STEP_BATCH, 3, c, *hw).astype(
@@ -1374,7 +1389,7 @@ def delta_readings(got, want):
 
 
 def phase_step():
-    log(f"phase 8/53 step: one full-width train step, batch {STEP_BATCH}, "
+    log(f"phase 8/54 step: one full-width train step, batch {STEP_BATCH}, "
         "card against CPU")
     data = synthetic_multimnist(STEP_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP_BATCH, MNIST.z_dim).astype(
@@ -1408,7 +1423,7 @@ def phase_step():
               f"{len(bad)} checks failed")
 
 
-def phase_step_time(cfg=MNIST, phase="9/53 steptime", runs: int = 20,
+def phase_step_time(cfg=MNIST, phase="9/54 steptime", runs: int = 20,
                     data=None):
     kind = "bf16" if cfg.compute_dtype == torch.bfloat16 else (
         "float32 with TF32 off (matmul and cuDNN)")
@@ -1490,7 +1505,7 @@ def train_entry(flags=(), variant="multi-mnist", steps=4):
 
 
 def phase_train_entry():
-    log("phase 10/53 train: cli/main.py, one synthetic epoch on the card")
+    log("phase 10/54 train: cli/main.py, one synthetic epoch on the card")
     return train_entry()
 
 
@@ -1589,7 +1604,7 @@ def time_k4(name, shape, args):
 
 
 def phase_normconv():
-    log("phase 11/53 normconv: K4's path (the port's spike tool), and K4 "
+    log("phase 11/54 normconv: K4's path (the port's spike tool), and K4 "
         "against its plain version, on the card")
     dev = torch.device(DEVICE)
     k4.reset_launch_count()
@@ -1624,7 +1639,7 @@ def _boxes(rs, b, o, kind):
 
 
 def phase_bf16_kernels():
-    log("phase 12/53 bf16: K1 and K2 in bf16 against their plain versions, "
+    log("phase 12/54 bf16: K1 and K2 in bf16 against their plain versions, "
         "on the card")
     rs = np.random.RandomState(13)
     dev = torch.device(DEVICE)
@@ -1686,7 +1701,7 @@ def phase_bf16_kernels():
 
 
 def phase_step_bf16():
-    log(f"phase 13/53 step16: one full-width bf16 train step, batch "
+    log(f"phase 13/54 step16: one full-width bf16 train step, batch "
         f"{STEP16_BATCH}, card against CPU")
     data = synthetic_multimnist(STEP16_BATCH, seed=5)
     z = np.random.RandomState(6).randn(STEP16_BATCH, BF16.z_dim).astype(
@@ -1730,7 +1745,7 @@ def _served_images(port, items):
 
 
 def phase_entry_bf16():
-    log("phase 15/53 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
+    log("phase 15/54 entry16: cli/main.py --bf16 and --bn_groups 2, and a "
         "64-item request served with --bf16")
     launches = {"train_bf16": train_entry(["--bf16"]),
                 "train_bn_groups_2": train_entry(["--bn_groups", "2"])}
@@ -1854,7 +1869,7 @@ def _held(got, want, dtype, name, label):
 
 
 def phase_family_kernels():
-    log("phase 16/53 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
+    log("phase 16/54 families: K1 and K2 at the CLEVR and COCO-StackGAN-1 "
         "shapes against their plain versions, f32 and bf16, and timed")
     rs = np.random.RandomState(16)
     dev = torch.device(DEVICE)
@@ -1929,7 +1944,7 @@ def phase_family_kernels():
 
 
 def phase_family_step():
-    log(f"phase 17/53 fstep: one full-width float32 train step of each "
+    log(f"phase 17/54 fstep: one full-width float32 train step of each "
         f"family, batch {FAMILY_STEP_BATCH} on both sides, card against CPU")
     worst = {}
     for variant in FAMILY_CFGS:
@@ -1968,7 +1983,7 @@ def phase_family_step():
 
 
 def phase_family_step_time():
-    log("phase 18/53 ftime: each family's train step at batch "
+    log("phase 18/54 ftime: each family's train step at batch "
         f"{STEP_BATCH} on the card, float32 and bf16")
     out = {}
     for variant in FAMILY_CFGS:
@@ -1976,13 +1991,13 @@ def phase_family_step_time():
         for dtype in (None, torch.bfloat16):
             key = f"{variant} {'bf16' if dtype else 'f32'}"
             out[key] = phase_step_time(family_cfg(variant, dtype),
-                                       f"18/53 ftime, {key}",
+                                       f"18/54 ftime, {key}",
                                        FAMILY_TIME_RUNS, data)
     return out
 
 
 def phase_family_entry():
-    log("phase 19/53 fentry: cli/main.py --synthetic --max_epochs 1 for "
+    log("phase 19/54 fentry: cli/main.py --synthetic --max_epochs 1 for "
         "clevr (float32) and coco-stackgan-1 (--bf16)")
     steps = {}
     for variant in FAMILY_CFGS:
@@ -2019,7 +2034,7 @@ def _family_items(variant, rs, n):
 
 
 def phase_family_serve():
-    log("phase 20/53 fserve: each family's Stage1G card against CPU, and "
+    log("phase 20/54 fserve: each family's Stage1G card against CPU, and "
         "its service over HTTP on the card, from seeded weights")
     launches, latency = {}, {}
     for variant in FAMILY_CFGS:
@@ -2171,7 +2186,7 @@ def filtered_png(pixels: np.ndarray, ctype: int, filters,
 
 
 def phase_probe():
-    log("phase 21/53 probe: the image decoders this machine has, read only "
+    log("phase 21/54 probe: the image decoders this machine has, read only "
         "(nothing is built or installed)")
     cc = next((c for c in ("cc", "gcc", "g++") if shutil.which(c)), None)
     dirs = []
@@ -2425,7 +2440,7 @@ def _time_checkpoint(mcfg):
 
 
 def phase_train_disk():
-    log("phase 22/53 disk: the train entries from disk (cli/main.py "
+    log("phase 22/54 disk: the train entries from disk (cli/main.py "
         "--synthetic: the set written, then read back): clevr 1 epoch with "
         "flips, and its set in memory; mnist 2 epochs resumed in place to "
         "3, two straight 3-epoch runs, two resumes from the first's "
@@ -2605,7 +2620,7 @@ def phase_train_disk():
 
 
 def phase_k1_batch9():
-    log("phase 23/53 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
+    log("phase 23/54 batch9: K1 at the sampler's batch of 9 (one layout, 9 "
         "z) against its plain version, f32 and bf16, and timed")
     rs = np.random.RandomState(23)
     dev = torch.device(DEVICE)
@@ -2648,7 +2663,7 @@ def _eval_cfg(variant, net_g):
 
 
 def phase_sample(clevr_run, clevr_data):
-    log(f"phase 24/53 sample: cli/main.py with TRAIN.FLAG False, "
+    log(f"phase 24/54 sample: cli/main.py with TRAIN.FLAG False, "
         f"{SAMPLE_GRIDS} grids each: mnist from the trained netG_final.pth "
         f"on a synthetic test split written by the port, clevr from phase "
         f"22's output directory; a grid against the CPU's")
@@ -2827,7 +2842,7 @@ def held_and_timed_places(shapes, b, launches, rs):
 
 
 def phase_stage2_kernels():
-    log(f"phase 25/53 s2kernels: K1 and K2 at the stage-2 shapes, batch "
+    log(f"phase 25/54 s2kernels: K1 and K2 at the stage-2 shapes, batch "
         f"{S2_BATCH}, against their plain versions, f32 and bf16, and timed")
     return held_and_timed_places(stage2_shapes(), S2_BATCH, S2_LAUNCHES,
                                  np.random.RandomState(25))
@@ -2936,7 +2951,7 @@ def _step_lines(label, card, cpu):
 
 
 def phase_stage2_step():
-    log(f"phase 26/53 s2step: one full-width stage-2 step, batch "
+    log(f"phase 26/54 s2step: one full-width stage-2 step, batch "
         f"{S2_STEP_BATCH} on both sides, card against CPU, from the "
         "reference init")
     s1, s2 = stage2_cfgs()
@@ -2978,7 +2993,7 @@ def phase_stage2_step():
 
 
 def phase_stage2_step_time():
-    log(f"phase 27/53 s2time: the stage-2 step at batch {S2_BATCH} on the "
+    log(f"phase 27/54 s2time: the stage-2 step at batch {S2_BATCH} on the "
         "card, float32 and bf16")
     dev = torch.device(DEVICE)
     data = {k: torch.from_numpy(v).to(dev)
@@ -3051,7 +3066,7 @@ def _stage2_cfg_file(stage1_g):
 
 
 def phase_stage2_entry():
-    log("phase 28/53 s2entry: cli/main.py --variant coco-stackgan-2 "
+    log("phase 28/54 s2entry: cli/main.py --variant coco-stackgan-2 "
         "--synthetic for one epoch on the card, float32, STAGE1_G a "
         "reference-format .pth; then a resume to epoch 2")
     s1, _ = stage2_cfgs()
@@ -3126,7 +3141,7 @@ def _png_rgb(b64):
 
 
 def phase_stage2_serve():
-    log(f"phase 29/53 s2serve: G1 + G2 eval forwards at batch "
+    log(f"phase 29/54 s2serve: G1 + G2 eval forwards at batch "
         f"{S2_SERVE_BATCH}, card against CPU, full width; Stage2Service "
         "over HTTP on the card")
     s1, s2 = stage2_cfgs()
@@ -3291,7 +3306,7 @@ def _attn_inputs(ds, b, seed):
 
 
 def phase_attn_kernels():
-    log(f"phase 30/53 attnkernels: K1 at AttnGAN's object pathway, "
+    log(f"phase 30/54 attnkernels: K1 at AttnGAN's object pathway, "
         f"(B,3,192,16,16) -> 16x16, batch {ATTN_BATCH} and 1, f32 and bf16, "
         "against its plain version, and timed")
     rs = np.random.RandomState(30)
@@ -3334,8 +3349,9 @@ def phase_attn_kernels():
 
 
 def _flops_by_stage(g, enc, inputs):
-    """GFLOP of one image by torch.utils.flop_counter (convs and matmuls:
-    K1, BatchNorm and the activations are not counted) at each stage:
+    """GFLOP of one image by torch.utils.flop_counter (convs, matmuls and
+    K1's products, as its plain version's einsums; BatchNorm and the
+    activations are not counted) at each stage:
     h_net1 (its object pathway, local1 and local2, apart), h_net2, h_net3,
     the image heads and the text encoder."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -3384,7 +3400,7 @@ def _profile_forward(fn, n: int = PROFILE_CALLS):
 
 
 def phase_attn_model():
-    log("phase 31/53 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
+    log("phase 31/54 attnmodel: the flagship AttnGAN (netG_ema_final.pth, "
         "text_encoder29.pth) card against CPU, and its forward timed")
     data, ds = _attn_set()
     mcfg = attngan_model_config(cfg_from_file(ATTN_CFG, "coco-attngan"))
@@ -3494,7 +3510,7 @@ def _attn_items(ds, n, seed):
 
 
 def phase_attn_serve(model):
-    log("phase 32/53 attnserve: cli/serve.py --variant coco-attngan on the "
+    log("phase 32/54 attnserve: cli/serve.py --variant coco-attngan on the "
         "card from the flagship weights, over HTTP")
     ds = model["ds"]
     cfg_file = os.path.join(WORK, "coco_attn_serve.yml")
@@ -3639,7 +3655,7 @@ def attn_train_shapes():
 
 
 def phase_attn_train_kernels():
-    log(f"phase 33/53 attnplaces: K1 and K2 at AttnGAN's train places, "
+    log(f"phase 33/54 attnplaces: K1 and K2 at AttnGAN's train places, "
         f"batch {ATTN_TRAIN_BATCH}, against their plain versions, f32 and "
         "bf16, and timed")
     return held_and_timed_places(attn_train_shapes(), ATTN_TRAIN_BATCH,
@@ -3744,7 +3760,7 @@ def attn_step_once(device, mcfg, weights, batch, z, eps):
 
 
 def phase_attn_step():
-    log(f"phase 34/53 attnstep: image_encoder29.pth card against CPU at "
+    log(f"phase 34/54 attnstep: image_encoder29.pth card against CPU at "
         f"batch {ATTN_ENCODER_BATCH} from 256px; one full-width AttnGAN step "
         f"at batch {ATTN_STEP_BATCH} card against CPU from warm Adams")
     mcfg = attngan_model_config(cfg_from_file(ATTN_TRAIN_CFG, "coco-attngan"))
@@ -3805,8 +3821,9 @@ def phase_attn_step():
 
 
 def _flop_count(fn) -> float:
-    """GFLOP of ``fn()`` by torch.utils.flop_counter: the convs and matmuls
-    (K1, K2, BatchNorm, the activations and Adam are not counted)."""
+    """GFLOP of ``fn()`` by torch.utils.flop_counter: the convs, matmuls
+    and K1's and K2's products (BatchNorm, the activations and Adam are
+    not counted)."""
     from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as fc:
         fn()
@@ -3814,7 +3831,7 @@ def _flop_count(fn) -> float:
 
 
 def phase_attn_step_time(model):
-    log(f"phase 35/53 attntime: the AttnGAN step at batch "
+    log(f"phase 35/54 attntime: the AttnGAN step at batch "
         f"{ATTN_TRAIN_BATCH} on the card, float32 and bf16: CUDA events, "
         "launches, peak memory, GFLOP and the device's kernel groups")
     g_sd, d_sds, e_sd, i_sd = model["weights"]
@@ -3953,7 +3970,7 @@ def _tensor_gap(pairs):
 
 
 def phase_attn_entry():
-    log("phase 36/53 attnentry: cli/main.py --variant coco-attngan "
+    log("phase 36/54 attnentry: cli/main.py --variant coco-attngan "
         "--synthetic on the card from a copy of coco_attn_full.yml (NET_G "
         "the flagship EMA G, its DAMSM encoders): 3 epochs, a resume from "
         "its epoch-1 checkpoint held against it, and one epoch with --bf16")
@@ -4100,7 +4117,7 @@ def damsm_once(device, batch, keep, clip):
 
 
 def phase_damsm_step():
-    log(f"phase 37/53 damsmstep: one full-width DAMSM step (the flagship "
+    log(f"phase 37/54 damsmstep: one full-width DAMSM step (the flagship "
         f"text_encoder29.pth and image_encoder29.pth, batch "
         f"{DAMSM_CHECK_BATCH}, 256px) card against CPU from warm Adams, "
         "with the clip biting and not")
@@ -4139,7 +4156,7 @@ def phase_damsm_step():
 
 
 def phase_damsm_step_time():
-    log(f"phase 38/53 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
+    log(f"phase 38/54 damsmtime: the DAMSM step at batch {DAMSM_BATCH} on "
         "the card, float32 and bf16: CUDA events, peak memory, GFLOP and the "
         "device's busy share")
     _, ds = _attn_set()
@@ -4212,7 +4229,7 @@ def _state_gap(run, ref, epoch):
 
 
 def phase_damsm_entry(attn_weights):
-    log(f"phase 39/53 damsmentry: cli/main.py --variant damsm --cfg "
+    log(f"phase 39/54 damsmentry: cli/main.py --variant damsm --cfg "
         f"cfg/coco_damsm.yml --synthetic on the card (n = {DAMSM_SET[0]}: a "
         f"test split of {DAMSM_SET[0] // 4}, so the eval runs): "
         f"{DAMSM_EPOCHS} epochs, a resume from epoch 1, one --bf16 epoch; "
@@ -4352,7 +4369,7 @@ def _attn_eval_cfg(data):
 
 
 def phase_attn_eval(model):
-    log("phase 40/53 attneval: cli/main.py --variant coco-attngan with "
+    log("phase 40/54 attneval: cli/main.py --variant coco-attngan with "
         "TRAIN.FLAG False from the flagship files: sample (B_VALIDATION) "
         f"and gen_example ({EVAL_CAPTIONS} captions); a sample row card "
         "against CPU; K1 at the sampler's and gen_example's shapes")
@@ -4524,7 +4541,7 @@ def _levels(a, b):
 
 
 def phase_jpeg():
-    log("phase 41/53 jpeg: nvjpeg's decode against the numpy decoder on "
+    log("phase 41/54 jpeg: nvjpeg's decode against the numpy decoder on "
         "the writers' images, both encoders' round trips, the refusals, "
         "and decode times")
     cases = _jpeg_cases()
@@ -4778,7 +4795,7 @@ def _disk_path(name, make_ds, bs, step, per_step, paths, size):
 
 
 def phase_coco_disk(attn_weights):
-    log("phase 42/53 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
+    log("phase 42/54 cocodisk: both StackGAN stages, AttnGAN and DAMSM "
         "trained from disk at full width for one epoch each, beside the "
         "same epoch held on the card; the card's draws against the numpy "
         "path's")
@@ -4894,7 +4911,7 @@ def _s2_eval_cfg(run, stage1_g):
 
 
 def phase_stage2_sample(s2_run):
-    log("phase 43/53 s2sample: cli/main.py --variant coco-stackgan-2 with "
+    log("phase 43/54 s2sample: cli/main.py --variant coco-stackgan-2 with "
         "TRAIN.FLAG False from phase 28's run directory: the val_captions.t7 "
         "branch and the test-split branch, 25 grids each, timed; the first "
         "row's fakes card against CPU; K1 at the sampler's two batch-9 "
@@ -5029,7 +5046,7 @@ def _test_batch(data: str, device) -> dict:
 
 
 def phase_fid(model):
-    log("phase 44/53 fid: the canonical FID Inception (seeded weights) and "
+    log("phase 44/54 fid: the canonical FID Inception (seeded weights) and "
         "the flagship DAMSM image encoder's pool (image_encoder29.pth) at "
         f"batch {FID_BATCH} of the test split's 256px images, card against "
         "CPU; the same forward under a --bf16 process's TF32 settings; "
@@ -5101,7 +5118,7 @@ def phase_fid(model):
 
 
 def phase_sampling(model, fid):
-    log("phase 45/53 sampling: cli/main.py --variant coco-attngan "
+    log("phase 45/54 sampling: cli/main.py --variant coco-attngan "
         f"--eval_mode sampling --num_images {SAMPLING_IMAGES} from the "
         "flagship's EMA G and DAMSM pair on the synthetic test split; the "
         "first batch's features card against CPU; K1 at the dump's shape")
@@ -5225,7 +5242,7 @@ def phase_sampling(model, fid):
 
 
 def phase_layout(clevr_run):
-    log(f"phase 46/53 layout: the port's layout tool at n {LAYOUT_N}, mnist "
+    log(f"phase 46/54 layout: the port's layout tool at n {LAYOUT_N}, mnist "
         "from runs_r5/mnist_repin/netG_final.pth and clevr from phase 22's "
         "run; the score card against CPU on the same images and classifier; "
         "a --profile train entry's trace")
@@ -5331,7 +5348,7 @@ def _rank_env() -> dict:
 
 
 def phase_dist_entry():
-    log("phase 47/53 nccl1: cli/main.py --variant multi-mnist --synthetic "
+    log("phase 47/54 nccl1: cli/main.py --variant multi-mnist --synthetic "
         "for one epoch as world size 1 over NCCL (MOG_COORDINATOR ...), "
         "against the same run without the environment, bit for bit "
         "(cudnn.deterministic in both, each in a process of its own, the "
@@ -5517,7 +5534,7 @@ def _state_gaps(pre: dict, got: dict, want: dict) -> tuple:
 
 
 def phase_dist_steps(attn_weights, sampling):
-    log(f"phase 48/53 dist2: the mnist, AttnGAN and DAMSM steps as "
+    log(f"phase 48/54 dist2: the mnist, AttnGAN and DAMSM steps as "
         f"{DIST_WORLD} processes on the card (tools/dist_steps.py), against "
         "one process on the same global batch, from warm Adams; the same "
         "start runs phase 49's dump, phase 51's --bn_groups 3 step and "
@@ -5633,7 +5650,7 @@ def phase_dist_steps(attn_weights, sampling):
 
 
 def phase_dist_sampling(sampling, dist2):
-    log(f"phase 49/53 dump2: AttnGAN's --eval_mode sampling dump of "
+    log(f"phase 49/54 dump2: AttnGAN's --eval_mode sampling dump of "
         f"{SAMPLING_IMAGES} images as {DIST_WORLD} processes on the card "
         "(phase 48's start), against phase 45's one-process dump")
     out, one = dist2["dump_dir"], sampling["out"]
@@ -5942,7 +5959,7 @@ def _check_dataset(argv):
 
 
 def phase_validate():
-    log("phase 50/53 validate: the port's tools on the card: "
+    log("phase 50/54 validate: the port's tools on the card: "
         "validate_learning for mnist and clevr at 6 epochs "
         "(held: the FID trend falls, separation, mnist recall), the "
         "exporter (the exported G's images bit for bit), the stage-2 and "
@@ -6481,7 +6498,7 @@ def _serve_max_batch():
 
 
 def phase_options(attn_weights, dist2):
-    log("phase 51/53 options: MOG_REMAT's four modes in the mnist f32 step "
+    log("phase 51/54 options: MOG_REMAT's four modes in the mnist f32 step "
         "(each against mode 0) and peak memory at 0 and full for stage 2 "
         "and AttnGAN; --bn_groups 3 over two ranks against one process; "
         "serving at --max_batch 8 and 128 with K1 at both batches")
@@ -6633,7 +6650,7 @@ def _env_knob_step():
 
 
 def phase_bench():
-    log("phase 52/53 bench: the port's bench tools in-process at full "
+    log("phase 52/54 bench: the port's bench tools in-process at full "
         "width, bf16: bench_variants (mnist, clevr, stackgan1 at 128, "
         "stage 2 at 40, AttnGAN at 14; the H100's roofline) and "
         "bench_sampling (mnist, clevr, stackgan1 at 128, attngan256 at "
@@ -6949,7 +6966,7 @@ def _dryrun_held(dryrun):
 
 
 def phase_headline(dist2):
-    log("phase 53/53 headline: python -m multiple_objects_gan_tpu_torch."
+    log("phase 53/54 headline: python -m multiple_objects_gan_tpu_torch."
         "bench (MOG_BENCH_VARIANTS=0) from the command line, its line "
         "checked; K1/K2 launches of its step here; graft_entry.entry() on "
         "the card against the CPU and K1/K2 at its batch-8 places; the dry "
@@ -7012,6 +7029,175 @@ def phase_headline(dist2):
              "dryrun": {**dry, "calls": dry_places["calls"]}, **places})
 
 
+
+EXPORT_CASES = (            # (variant, --net_g, --batch, MOG_COMPUTE_DTYPE)
+    ("mnist", CKPT, 64, ""),            # the serving batch (cli/serve.py)
+    ("mnist", CKPT, 64, "bf16"),
+    ("coco-stackgan", "", 8, ""))       # seeded; the JAX tool's --batch
+EXPORT_ATOL = {"": 1e-5, "bf16": 2e-2}  # the program against the eager G
+EXPORT_LAUNCHES = (2, 0)    # K1/K2 a tool run: the program's call, eager G's
+EXPORT_CALLS = 20           # host-clock calls a program or eager G reading
+HOST_PATH_SHAPE = (8, 3, 256, 16, 16)   # the entry's G place: short on
+HOST_PATH_CALLS = 400       # the device, so the host's path is read
+
+
+def host_turns(order, calls):
+    """ms a call of each (name, fn) of ``order``, in turns (a, b, ..., b,
+    a): a sync, ``calls`` calls with none between them, a sync, on the
+    host clock; {name: [reading, reading]}."""
+    out: dict = {}
+    for name, fn in (*order, *reversed(order)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(
+            (time.perf_counter() - t) / calls * 1e3)
+    return out
+
+
+def _export_case(variant, net_g, batch, dtype_env):
+    """tools/export_model.py's export_model on the card (what its main
+    runs) under ``MOG_COMPUTE_DTYPE=dtype_env``: the graph's place
+    operators, K1/K2 launches of the tool's run and of one call of the
+    loaded program, the program's images against the eager G's, and
+    both timed in turns on the host clock."""
+    name = f"export_{variant}" + (f"_{dtype_env}" if dtype_env else "")
+    path = os.path.join(WORK, f"{name}.pt2")
+    with _scoped_env({"MOG_COMPUTE_DTYPE": dtype_env}):
+        k1.reset_launch_count()
+        t = time.perf_counter()
+        run = export_model_tool.export_model(variant, batch, net_g, path,
+                                             DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        tool = (k1.launch_count(), k1.grad_launch_count())
+    program, g, inputs = run["module"], run["g"], run["inputs"]
+    k1.reset_launch_count()
+    img = export_model_tool.call_program(program, inputs)
+    torch.cuda.synchronize()
+    call = (k1.launch_count(), k1.grad_launch_count())
+    dtype = torch.bfloat16 if dtype_env else torch.float32
+    err = float((img.float() - run["eager"].float()).abs().max())
+    turns = host_turns([
+        ("program", lambda: export_model_tool.call_program(program, inputs)),
+        ("eager", lambda: export_model_tool.call_program(g, inputs))],
+        EXPORT_CALLS)
+    size = os.path.getsize(path)
+    log(f"  {name}: batch {batch}, {run['n_params']} parameters, "
+        f"{size >> 10} KiB, export + save + load + two calls {seconds:.1f} s; "
+        f"graph: {run['places'][0]} mog.stn_place_multi, {run['places'][1]} "
+        f"einsums of the plain K1; K1/K2 of the tool's run {tool} (expected "
+        f"{EXPORT_LAUNCHES}), of one program call {call}; images "
+        f"{tuple(img.shape)} {str(img.dtype)[6:]}, max |program - eager G| "
+        f"{err:.3e} (atol {EXPORT_ATOL[dtype_env]:g}); ms a call (host "
+        f"clock around {EXPORT_CALLS} calls, sync after; in turns program, "
+        f"eager, eager, program): program {turns['program']}, eager G "
+        f"{turns['eager']}")
+    failed = [msg for ok, msg in (
+        (run["places"] == (1, 0), f"graph places {run['places']}"),
+        (tool == EXPORT_LAUNCHES, f"the tool's run launched {tool}"),
+        (call == (1, 0), f"one program call launched {call}"),
+        (img.dtype == dtype and img.shape == (
+            batch, export_model_tool.VARIANTS[variant].img_channels, 64,
+            64), f"images {img.dtype} {tuple(img.shape)}"),
+        (bool(torch.isfinite(img.float()).all()), "non-finite images"),
+        (err <= EXPORT_ATOL[dtype_env], f"program vs eager G {err}"))
+        if not ok]
+    check(not failed, f"{name}: " + "; ".join(failed))
+    return name, tool, {
+        "s": seconds, "kib": size >> 10, "max_abs_err": err,
+        "program_ms": statistics.mean(turns["program"]),
+        "eager_ms": statistics.mean(turns["eager"]),
+        "program_ms_turns": turns["program"],
+        "eager_ms_turns": turns["eager"]}
+
+
+class _FunctionBinding(torch.autograd.Function):
+    """K1's binding before the operators (PR 23's ``StnPlaceMulti`` and
+    ``stn_place_multi_nchw``): an autograd Function around the ctypes
+    launch, timed beside them by :func:`_host_paths`."""
+
+    @staticmethod
+    def forward(ctx, features, bbox, out_hw):
+        ctx.save_for_backward(bbox)
+        ctx.in_hw = tuple(features.shape[-2:])
+        return k1._place_cuda(features, bbox, out_hw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError
+
+
+def _function_binding(features, bbox, out_hw):
+    k1._check_device(features, "stn_place_multi_nchw")
+    return _FunctionBinding.apply(features, bbox.detach(),
+                                  tuple(int(v) for v in out_hw))
+
+
+def _host_paths():
+    """K1's host path a call at HOST_PATH_SHAPE -> 16x16, float32: the
+    ctypes launch alone (``_place_cuda``); the binding before the
+    operators (:func:`_function_binding`) and the model's entry now,
+    ``stn_place_multi_nchw``, each without and with a features gradient;
+    the operator alone; and the same launch behind
+    ``torch.library.custom_op``, the binding not taken. :func:`host_turns`
+    over HOST_PATH_CALLS calls (the device's share of a call is shorter,
+    so the host's path is read), the median of two readings, in
+    microseconds."""
+    rs = np.random.RandomState(54)
+    b, o = HOST_PATH_SHAPE[:2]
+    feats = torch.from_numpy(rs.randn(*HOST_PATH_SHAPE).astype(
+        np.float32)).to(DEVICE)
+    bbox = torch.from_numpy(_service_boxes(rs, b, o)).to(DEVICE)
+    with_grad = feats.clone().requires_grad_(True)
+
+    @torch.library.custom_op("mog_probe::stn_place_multi", mutates_args=())
+    def probe(features: torch.Tensor, bbox: torch.Tensor,
+              out_hw: list[int]) -> torch.Tensor:
+        return k1._place_cuda(features, bbox, out_hw)
+
+    routes = [
+        ("ctypes launch", lambda: k1._place_cuda(feats, bbox, (16, 16))),
+        ("Function binding", lambda: _function_binding(feats, bbox,
+                                                       (16, 16))),
+        ("Function binding with grad", lambda: _function_binding(
+            with_grad, bbox, (16, 16))),
+        ("mog::stn_place_multi", lambda: k1.PLACE_OP(feats, bbox, [16, 16])),
+        ("stn_place_multi_nchw", lambda: k1.stn_place_multi_nchw(
+            feats, bbox, (16, 16))),
+        ("stn_place_multi_nchw with grad", lambda: k1.stn_place_multi_nchw(
+            with_grad, bbox, (16, 16))),
+        ("custom_op", lambda: probe(feats, bbox, [16, 16]))]
+    readings = {k: [ms * 1e3 for ms in v] for k, v in
+                host_turns(routes, HOST_PATH_CALLS).items()}
+    us = {k: statistics.median(v) for k, v in readings.items()}
+    log(f"  K1's host path a call at {HOST_PATH_SHAPE} -> 16x16 (host "
+        f"clock around {HOST_PATH_CALLS} calls, no sync between, in turns; "
+        "us, median of two): " + "; ".join(
+            f"{k} {us[k]:.2f} ({v[0]:.2f}, {v[1]:.2f})"
+            for k, v in readings.items()))
+    return us
+
+
+def phase_export():
+    log("phase 54/54 export: tools/export_model.py on the card: the trained "
+        "mnist G (runs_r5's .pth) at batch 64 in float32 and under "
+        "MOG_COMPUTE_DTYPE=bf16, a seeded coco-stackgan G at batch 8; each "
+        "program's graph, K1/K2 launches, images against the eager G, ms a "
+        "call; K1's host path through each binding")
+    paths, rows = {}, {}
+    for variant, net_g, batch, dtype_env in EXPORT_CASES:
+        name, launches, row = _export_case(variant, net_g, batch, dtype_env)
+        paths[name], rows[name] = launches, row
+    rows["host_path_us"] = _host_paths()
+    SUMMARY["export"] = {k: [v["program_ms"], v["eager_ms"],
+                             v["max_abs_err"]]
+                         for k, v in rows.items() if k != "host_path_us"}
+    return paths, rows
+
 def _post(port, body):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -7051,7 +7237,7 @@ PHASE_BUDGET_S = {
     "attneval": 11.3, "jpeg": 4.2, "cocodisk": 33.2, "s2sample": 51.3,
     "fid": 4.8, "sampling": 28.2, "layout": 16.8, "nccl1": 23.5,
     "dist2": 120.0, "dump2": 0.5, "validate": 156.6, "options": 31.6,
-    "bench": 29, "headline": 45.4
+    "bench": 29, "headline": 45.4, "export": 15
 }
 PHASE_MIN_DEADLINE_S = 120
 PHASE_OVERRUN_RC = 70       # the exit code of a phase past its deadline
@@ -7158,7 +7344,7 @@ def run_phases() -> int:
     normconv = timed("normconv", phase_normconv)
     bf16 = timed("bf16", phase_bf16_kernels)
     timed("step16", phase_step_bf16)
-    step16 = timed("time16", phase_step_time, BF16, "14/53 time16")
+    step16 = timed("time16", phase_step_time, BF16, "14/54 time16")
     log(f"bf16 step {step16['ms']:.2f} ms ({step16['images_per_s']:.0f} "
         f"images/s, peak {step16['peak_gib']:.2f} GiB) beside float32 "
         f"{step32['ms']:.2f} ms ({step32['images_per_s']:.0f} images/s, peak "
@@ -7210,6 +7396,7 @@ def run_phases() -> int:
                                    attn_step["weights"], dist2)
     bench_paths, bench = timed("bench", phase_bench)
     headline_paths, headline = timed("headline", phase_headline, dist2)
+    export_paths, export = timed("export", phase_export)
     log("all phases passed")
     by_path = {"serve": serve_launches, "train": train_launches, **entry16,
                **fentry, **fserve, **disk["launches"],
@@ -7217,7 +7404,8 @@ def run_phases() -> int:
                **attn_entry, **damsm_entry, **attn_eval_paths,
                **s2_sample_paths, **sampling_paths, **layout_paths,
                **dist_paths, **dump_paths, **validate_paths,
-               **options_paths, **bench_paths, **headline_paths}
+               **options_paths, **bench_paths, **headline_paths,
+               **export_paths}
     f32_paths = ("serve", "train", "train_bn_groups_2", "train_clevr",
                  "serve_clevr", "serve_coco-stackgan-1", *disk["launches"],
                  *sampled["launches"], *s2_entry, *s2_serve, *attn_serve,
@@ -7226,13 +7414,15 @@ def run_phases() -> int:
                  *s2_sample_paths, *sampling_paths, *layout_paths,
                  *dist_paths, *dump_paths, "parity_harness",
                  *options_paths,
-                 *(p for p in headline_paths if p != "headline_step"))
+                 *(p for p in headline_paths if p != "headline_step"),
+                 *(p for p in export_paths if not p.endswith("_bf16")))
     # the validate tool's runs are --bf16, its default; the bench tools',
     # the env-knob steps and the headline step bf16
     bf16_paths = ("serve_bf16", "train_bf16", "train_coco_bf16",
                   "train_coco-attngan_bf16", "train_damsm_bf16",
                   *(p for p in validate_paths if p.startswith("validate_")),
-                  *bench_paths, "headline_step")
+                  *bench_paths, "headline_step",
+                  *(p for p in export_paths if p.endswith("_bf16")))
 
     def launches(i):
         return {"launches": sum(v[i] for v in by_path.values()),
@@ -7255,7 +7445,7 @@ def run_phases() -> int:
             "attngan_eval": attn_eval, "stage2_sample": s2_sample,
             "attngan_sampling": sampling, "layout_tool": layout,
             "validate_tool": validate, "options": options,
-            "bench_tools": bench, "headline": headline,
+            "bench_tools": bench, "headline": headline, "export": export,
             "world2": {"steps": dist2["rows"], "backend": dist2["backend"],
                        "places": dist2["places"]["place"],
                        "dump": dump2}},

@@ -1,15 +1,16 @@
 """K1-K3, the STN place-and-accumulate and its gradient: CUDA kernel
-wrappers, plain versions, and the autograd Function that pairs them.
+wrappers, plain versions, and the operators and autograd that pair them.
 
 * K1 replaces the Pallas TPU kernel
   ``multiple_objects_gan_tpu/ops/stn_pallas.py:stn_place_multi_pallas``:
   per object ``Wy @ F @ Wx^T`` with the hat weights of its place affine,
-  summed over objects.
+  summed over objects. It is the operator ``mog::stn_place_multi``.
 * K2 replaces ``stn_pallas.py:stn_place_multi_grad_pallas``, the backward
-  of K1: per object ``Wy^T @ g @ Wx`` with the forward's own weights.
+  of K1: per object ``Wy^T @ g @ Wx`` with the forward's own weights. It
+  is the operator ``mog::stn_place_multi_grad``.
 * K3 replaces the ``jax.custom_vjp`` of ``stn_pallas.py:_fused``:
-  :class:`StnPlaceMulti`, whose forward is K1 and backward K2, with no
-  gradient for the boxes.
+  :class:`StnPlaceMulti`, ``mog::stn_place_multi``'s registered autograd,
+  whose forward is K1 and backward K2, with no gradient for the boxes.
 
 Both kernels are ``csrc/stn_place.cu`` (CUDA C++ for ``sm_90a``, bound with
 ctypes), each in float32 and in bf16 (the bf16 train step and serving): in
@@ -28,13 +29,19 @@ sums in shared memory, and writes them with 16-byte stores. K2 stages the
 tile's gradient planes in shared memory, then runs two separable passes
 per object over the tap ranges the block derives from the weights.
 
-:func:`stn_place_multi_nchw` is the entry the model calls. It always goes
-through :class:`StnPlaceMulti`, so on either device its output has a
-``grad_fn`` whenever the features require grad. The Function launches the
-kernels for a CUDA tensor and runs the plain versions for a CPU tensor;
-nothing else is accepted and nothing falls back. Each kernel launch adds
-one to that kernel's launch count, so a run can show that its path went
-through the kernels.
+:func:`stn_place_multi_nchw` is the entry the model calls, and
+:func:`stn_place_multi_grad_nchw` K2's. Each calls its operator, which has
+a CUDA implementation (the launch), a CPU implementation (the plain
+version) and a fake one (shapes alone), so that ``torch.export`` records
+the operator and a loaded program launches K1 on the card. Importing this
+module (``multiple_objects_gan_tpu_torch.ops`` imports it) registers them.
+On either device the place's output has a ``grad_fn`` whenever the
+features require grad. Nothing else than CUDA and CPU tensors is
+accepted and nothing falls back. Each kernel launch adds one to that
+kernel's launch count, so a run can show that its path went through the
+kernels; a trace calls only the fake implementations and counts nothing.
+``FlopCounterMode`` counts each operator's products as its plain
+version's einsums, on either device.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import threading
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from multiple_objects_gan_tpu_torch.ops import _build
 from multiple_objects_gan_tpu_torch.ops.stn import place_weights
@@ -89,6 +97,10 @@ def _count(kernel: str) -> None:
 
 # ------------------------------------------------------------ plain versions
 
+# the plain K1's two products; a traced program that holds either has
+# inlined the plain version instead of the operator
+PLACE_EQUATIONS = ("boip,bocpq->bociq", "bociq,bojq->bcij")
+
 
 def _weights(bbox: torch.Tensor, out_hw, in_hw, dtype):
     """The hat weights Wy (B, O, Ho, h) and Wx (B, O, Wo, w), computed in
@@ -117,9 +129,9 @@ def stn_place_multi_plain(features: torch.Tensor, bbox: torch.Tensor,
     """
     hi, wi = features.shape[-2:]
     wy, wx = _weights(bbox, out_hw, (hi, wi), features.dtype)
-    tmp = torch.einsum("boip,bocpq->bociq", wy,
+    tmp = torch.einsum(PLACE_EQUATIONS[0], wy,
                        features.to(_acc_dtype(features.dtype)))
-    out = torch.einsum("bociq,bojq->bcij", tmp, wx)
+    out = torch.einsum(PLACE_EQUATIONS[1], tmp, wx)
     return out.to(features.dtype)
 
 
@@ -264,8 +276,8 @@ def _launch(symbol: str, kernel: str, args, device) -> None:
 
 
 def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
-                out_hw: tuple[int, int]) -> torch.Tensor:
-    """Launch K1. Called only from :meth:`StnPlaceMulti.forward`."""
+                out_hw) -> torch.Tensor:
+    """Launch K1: ``mog::stn_place_multi``'s CUDA implementation."""
     if features.dim() != 5:
         raise ValueError(f"features must be (B, O, C, h, w), got "
                          f"{tuple(features.shape)}")
@@ -282,23 +294,9 @@ def _place_cuda(features: torch.Tensor, bbox: torch.Tensor,
     return out
 
 
-def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
-                              in_hw: tuple[int, int]) -> torch.Tensor:
-    """K2: grad (B, C, Ho, Wo) f32 or bf16, bbox (B, O, 4) f32 ->
-    (B, O, C, h, w) in the gradient's dtype.
-
-    A CUDA tensor launches the kernel on the current stream (or raises); a
-    CPU tensor runs :func:`stn_place_multi_grad_plain`. K2 has no backward
-    of its own: on the card it refuses a ``grad`` that requires grad while
-    grad mode is on, rather than return a result cut from the graph.
-    """
-    _check_device(grad, "stn_place_multi_grad_nchw")
-    if grad.device.type == "cpu":
-        return stn_place_multi_grad_plain(grad, bbox, in_hw)
-    if torch.is_grad_enabled() and grad.requires_grad:
-        raise RuntimeError("stn_place_multi_grad_nchw is not differentiable "
-                           "on the card; it runs inside StnPlaceMulti's "
-                           "backward")
+def _grad_cuda(grad: torch.Tensor, bbox: torch.Tensor,
+               in_hw) -> torch.Tensor:
+    """Launch K2: ``mog::stn_place_multi_grad``'s CUDA implementation."""
     if grad.dim() != 4 or bbox.dim() != 3:
         raise ValueError(f"grad must be (B, C, Ho, Wo) and bbox (B, O, 4), "
                          f"got {tuple(grad.shape)} and {tuple(bbox.shape)}")
@@ -316,12 +314,65 @@ def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
     return out
 
 
-class StnPlaceMulti(torch.autograd.Function):
-    """K3: the differentiable place-and-accumulate.
+# ---------------------------------------------------------------- operators
 
-    Forward is K1 (or its plain version on the CPU), backward K2 (or its
-    plain version), both in the features' dtype, so the gradient keeps it
-    (bf16 in the bf16 step). Gradients flow to the features only; the boxes are
+# K1 and K2 as operators of PyTorch's dispatcher, defined with the
+# low-level Library (its dispatch costs the host less than custom_op's):
+# a trace (torch.export, FakeTensor) records the operator itself from its
+# fake implementation, and a program that calls it reaches the kernel on
+# the card. Registering builds nothing: the library is built at the first
+# CUDA launch (ops/_build.py).
+_LIB = torch.library.Library("mog", "DEF")
+_LIB.define("stn_place_multi(Tensor features, Tensor bbox, int[2] out_hw) "
+            "-> Tensor")
+_LIB.define("stn_place_multi_grad(Tensor grad, Tensor bbox, int[2] in_hw) "
+            "-> Tensor")
+PLACE_OP = torch.ops.mog.stn_place_multi.default
+GRAD_OP = torch.ops.mog.stn_place_multi_grad.default
+
+
+# The implementations look their functions up when called, so that a test
+# or chip_smoke.py can wrap them.
+def _place_on_cpu(features, bbox, out_hw):
+    return stn_place_multi_plain(features, bbox, tuple(out_hw))
+
+
+def _place_on_cuda(features, bbox, out_hw):
+    return _place_cuda(features, bbox, out_hw)
+
+
+def _grad_on_cpu(grad, bbox, in_hw):
+    return stn_place_multi_grad_plain(grad, bbox, tuple(in_hw))
+
+
+def _grad_on_cuda(grad, bbox, in_hw):
+    return _grad_cuda(grad, bbox, in_hw)
+
+
+def _place_fake(features, bbox, out_hw):
+    if features.dim() != 5 or bbox.dim() != 3:
+        raise ValueError(f"features must be (B, O, C, h, w) and bbox "
+                         f"(B, O, 4), got {tuple(features.shape)} and "
+                         f"{tuple(bbox.shape)}")
+    return features.new_empty((features.shape[0], features.shape[2],
+                               out_hw[0], out_hw[1]))
+
+
+def _grad_fake(grad, bbox, in_hw):
+    if grad.dim() != 4 or bbox.dim() != 3:
+        raise ValueError(f"grad must be (B, C, Ho, Wo) and bbox (B, O, 4), "
+                         f"got {tuple(grad.shape)} and {tuple(bbox.shape)}")
+    return grad.new_empty((grad.shape[0], bbox.shape[1], grad.shape[1],
+                           in_hw[0], in_hw[1]))
+
+
+class StnPlaceMulti(torch.autograd.Function):
+    """K3: ``mog::stn_place_multi``'s registered autograd.
+
+    Forward is the operator below autograd (K1, or its plain version on
+    the CPU), backward :func:`stn_place_multi_grad_nchw` (K2, or its plain
+    version), both in the features' dtype, so the gradient keeps it (bf16
+    in the bf16 step). Gradients flow to the features only; the boxes are
     data, as in the reference and the JAX package's ``custom_vjp``. Saves
     only the boxes and the input size.
     """
@@ -330,9 +381,8 @@ class StnPlaceMulti(torch.autograd.Function):
     def forward(ctx, features, bbox, out_hw):
         ctx.save_for_backward(bbox)
         ctx.in_hw = tuple(features.shape[-2:])
-        if features.device.type == "cpu":
-            return stn_place_multi_plain(features, bbox, out_hw)
-        return _place_cuda(features, bbox, out_hw)
+        with torch._C._AutoDispatchBelowAutograd():
+            return PLACE_OP(features, bbox, out_hw)
 
     @staticmethod
     @once_differentiable
@@ -342,16 +392,76 @@ class StnPlaceMulti(torch.autograd.Function):
                                           ctx.in_hw), None, None)
 
 
+def _place_autograd(features, bbox, out_hw):
+    if torch.is_grad_enabled() and features.requires_grad:
+        return StnPlaceMulti.apply(features, bbox, out_hw)
+    with torch._C._AutoDispatchBelowAutograd():
+        return PLACE_OP(features, bbox, out_hw)
+
+
+def _grad_autograd(grad, bbox, in_hw):
+    """K2 has no backward of its own. On the card it refuses a ``grad``
+    that requires grad while grad mode is on, rather than return a result
+    cut from the graph; on the CPU that case runs the plain version under
+    autograd."""
+    if torch.is_grad_enabled() and grad.requires_grad:
+        if grad.device.type != "cpu":
+            raise RuntimeError("stn_place_multi_grad_nchw is not "
+                               "differentiable on the card; it runs inside "
+                               "StnPlaceMulti's backward")
+        return stn_place_multi_grad_plain(grad, bbox, tuple(in_hw))
+    with torch._C._AutoDispatchBelowAutograd():
+        return GRAD_OP(grad, bbox, in_hw)
+
+
+_LIB.impl("stn_place_multi", _place_on_cpu, "CPU")
+_LIB.impl("stn_place_multi", _place_on_cuda, "CUDA")
+_LIB.impl("stn_place_multi", _place_autograd, "Autograd")
+_LIB.impl("stn_place_multi_grad", _grad_on_cpu, "CPU")
+_LIB.impl("stn_place_multi_grad", _grad_on_cuda, "CUDA")
+_LIB.impl("stn_place_multi_grad", _grad_autograd, "Autograd")
+torch.library.register_fake("mog::stn_place_multi", _place_fake, lib=_LIB)
+torch.library.register_fake("mog::stn_place_multi_grad", _grad_fake,
+                            lib=_LIB)
+
+
+@register_flop_formula(torch.ops.mog.stn_place_multi)
+def _place_flops(features_shape, bbox_shape, out_hw, *args, **kwargs):
+    """K1's products, as its plain version's einsums count them."""
+    b, o, c, hi, wi = features_shape
+    return 2 * b * o * c * out_hw[0] * wi * (hi + out_hw[1])
+
+
+@register_flop_formula(torch.ops.mog.stn_place_multi_grad)
+def _grad_flops(grad_shape, bbox_shape, in_hw, *args, **kwargs):
+    """K2's products, as its plain version's einsums count them."""
+    b, c, ho, wo = grad_shape
+    return 2 * b * bbox_shape[1] * c * in_hw[0] * wo * (ho + in_hw[1])
+
+
+def stn_place_multi_grad_nchw(grad: torch.Tensor, bbox: torch.Tensor,
+                              in_hw: tuple[int, int]) -> torch.Tensor:
+    """K2: grad (B, C, Ho, Wo) f32 or bf16, bbox (B, O, 4) f32 ->
+    (B, O, C, h, w) in the gradient's dtype, through
+    ``mog::stn_place_multi_grad``.
+
+    A CUDA tensor launches the kernel on the current stream (or raises); a
+    CPU tensor runs :func:`stn_place_multi_grad_plain`. On the card it is
+    not differentiable (:func:`_grad_autograd`).
+    """
+    _check_device(grad, "stn_place_multi_grad_nchw")
+    return GRAD_OP(grad, bbox, [int(v) for v in in_hw])
+
+
 def stn_place_multi_nchw(features: torch.Tensor, bbox: torch.Tensor,
                          out_hw: tuple[int, int]) -> torch.Tensor:
-    """features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo).
+    """features (B, O, C, h, w), bbox (B, O, 4) -> (B, C, Ho, Wo), through
+    ``mog::stn_place_multi``.
 
-    Runs :class:`StnPlaceMulti`: K1 on the current stream for a CUDA tensor
-    (float32 or bf16, or it raises), the plain version for a CPU tensor. The
-    output has the features' dtype. The boxes
-    are detached; the output has a ``grad_fn`` whenever the features
-    require grad.
+    K1 on the current stream for a CUDA tensor (float32 or bf16, or it
+    raises), the plain version for a CPU tensor. The output has the
+    features' dtype. The boxes are detached; the output has a ``grad_fn``
+    (:class:`StnPlaceMulti`) whenever the features require grad.
     """
     _check_device(features, "stn_place_multi_nchw")
-    return StnPlaceMulti.apply(features, bbox.detach(),
-                               tuple(int(v) for v in out_hw))
+    return PLACE_OP(features, bbox.detach(), [int(v) for v in out_hw])

@@ -34,8 +34,10 @@ convolutions and matrix products only (XLA's ``cost_analysis`` counts
 elementwise work too); bytes from :class:`ByteCounter`, the tensor inputs
 and outputs of every ATen op that is not a view, summed: the eager
 program's traffic at op boundaries, not XLA's "bytes accessed" of fused
-code. The CUDA kernels K1 and K2 are not ATen ops and count in neither;
-on the CPU their plain versions are einsums and count in both. With
+code. K1 and K2 are operators of their own (``mog::``,
+``ops/stn_place_cuda.py``) and count alike on either device: their
+products by the FLOP formulas registered there (their plain versions'
+einsums'), their bytes at the operator's boundary. With
 ``--device cpu`` the counts are printed and ``mfu``, ``hbm_util`` and
 ``bound`` are null: no device rate is measured there.
 """

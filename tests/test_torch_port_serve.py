@@ -245,7 +245,8 @@ _SCANNED = ("nn/fid_inception.py", "utils/metrics.py",
             "tools/validate_learning.py", "tools/export_checkpoint.py",
             "tools/check_dataset.py", "tools/parity_harness.py",
             "ops/stn.py", "ops/__init__.py", "config/config.py",
-            "bench.py", "graft_entry.py", "tools/dist_steps.py")
+            "bench.py", "graft_entry.py", "tools/dist_steps.py",
+            "tools/export_model.py")
 
 
 def _imported_roots(path):
